@@ -1,8 +1,9 @@
-"""Gaussian model — the port of the forward half of gps_slam_tpu/gs/model.py:
-the GES render (`ges_forward`), batched eval renders, SLAM-mode spawning
-(`add_gaussians`), redundancy pruning and the `GaussianModel` host facade
-with model.npz / model.pt / PLY persistence.  `window_optimize` (the Adam
-window) is not ported yet.
+"""Gaussian model — the port of gps_slam_tpu/gs/model.py (GES path): the
+render (`ges_forward`, with `ges_bin` for a binning reused across a
+window), batched eval renders, the per-window Adam loop
+(`window_optimize`), SLAM-mode spawning (`add_gaussians`), redundancy
+pruning and the `GaussianModel` host facade with model.npz / model.pt /
+PLY persistence.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..utils.se3 import pose_inv
-from . import params as pmod, projection, rasterize, sh
+from . import losses, optim, params as pmod, projection, rasterize, sh
 from .params import GaussianPool
 
 
@@ -58,19 +59,37 @@ def _project_and_colors(params, alive, c2w, K, st: RenderStatics):
     return proj, radii, torch.clamp(colors + 0.5, min=0.0)
 
 
+def ges_bin(params, alive, c2w, K, st: RenderStatics,
+            margin_px: float = 0.0) -> rasterize.ActiveBins:
+    """Active-tile binning of the current parameters, split out so that one
+    binning serves a window's Adam steps (`margin_px` inflates every radius
+    to keep the lists conservative while the Gaussians drift)."""
+    proj, radii, _ = _project_and_colors(params, alive, c2w, K, st)
+    tile_w = -(-st.width // st.tile_size)
+    tile_h = -(-st.height // st.tile_size)
+    return rasterize.bin_gaussians_active(
+        proj.means2d, radii, st.tile_size, tile_w, tile_h, st.visible_cap,
+        st.tiles_per_gaussian_cap, st.tile_cap, st.active_tile_cap,
+        margin_px=margin_px, segments=True)
+
+
 def ges_forward(params: dict, alive, c2w, K, ref_depth, base_color,
-                cam_id: int, st: RenderStatics) -> dict:
+                cam_id: int, st: RenderStatics,
+                bins: rasterize.ActiveBins | None = None) -> dict:
     """project -> SH -> bin -> weighted-sum rasterize -> blend with the
-    SDF base layer: rgb = (raw + base) / (weight + 1)."""
+    SDF base layer: rgb = (raw + base) / (weight + 1).  Pass `bins` to
+    reuse an earlier binning (the window loop).  Differentiable in the
+    params."""
     ref = ref_depth
     ref_clamped = torch.where(ref < 0.01, 1000.0, ref)
     proj, radii, colors = _project_and_colors(params, alive, c2w, K, st)
     colors4 = torch.cat([colors, proj.depths[:, None]], 1)
-    tile_w = -(-st.width // st.tile_size)
-    tile_h = -(-st.height // st.tile_size)
-    bins = rasterize.bin_gaussians_active(
-        proj.means2d, radii, st.tile_size, tile_w, tile_h, st.visible_cap,
-        st.tiles_per_gaussian_cap, st.tile_cap, st.active_tile_cap)
+    if bins is None:
+        tile_w = -(-st.width // st.tile_size)
+        tile_h = -(-st.height // st.tile_size)
+        bins = rasterize.bin_gaussians_active(
+            proj.means2d, radii, st.tile_size, tile_w, tile_h, st.visible_cap,
+            st.tiles_per_gaussian_cap, st.tile_cap, st.active_tile_cap)
     raw, weight_sum = rasterize.ges_rasterize_active(
         proj.means2d, proj.conics, colors4,
         torch.sigmoid(params["opacities"][:, 0]), bins, ref_clamped,
@@ -106,6 +125,105 @@ def render_eval_batch(params, alive, cam_batch: dict, st: RenderStatics) -> dict
         outs.append({"rgb": torch.clamp(res["rgb"], 0.0, 1.0),
                      "alpha": res["alpha"], "depth": res["depth"]})
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def window_loss(params: dict, alive, cam_batch: dict, st: RenderStatics,
+                ssim_weight: float, depth_weight: float, tile_space: bool):
+    """(per-camera bins, loss(m)) of the window loop: each camera of the
+    stacked [M, ...] batch (c2w and ref_depth / base_color / gt_rgb /
+    optional gt_depth on the device, K on the host, cam_id a list) is
+    binned once for the window (`ges_bin` with `bin_margin_px`); loss(m)
+    is the differentiable loss of camera m under `params`.  With
+    `tile_space` it is the tile-space L1 of `rasterize.hoist_window_tiles`
+    (needs ssim and depth weights 0 and no exposure), else
+    `losses.compute_loss` on the assembled image."""
+    c2w, K = cam_batch["c2w"], cam_batch["K"]
+    M = c2w.shape[0]
+    with torch.no_grad():
+        bins = [ges_bin(params, alive, c2w[m], K[m], st,
+                        margin_px=st.bin_margin_px) for m in range(M)]
+    if tile_space:
+        hoists = [rasterize.hoist_window_tiles(
+            bins[m], torch.where(cam_batch["ref_depth"][m] < 0.01, 1000.0,
+                                 cam_batch["ref_depth"][m]),
+            cam_batch["gt_rgb"][m], cam_batch["base_color"][m],
+            st.width, st.height, st.tile_size) for m in range(M)]
+        n_px = float(st.width * st.height * 3)
+
+        def loss(m):
+            h = hoists[m]
+            proj, _, colors = _project_and_colors(params, alive, c2w[m], K[m], st)
+            colors4 = torch.cat([colors, proj.depths[:, None]], 1)
+            out = rasterize.ges_splat_tiles(
+                proj.means2d, proj.conics, colors4,
+                torch.sigmoid(params["opacities"][:, 0]), proj.depths, h,
+                st.delta_depth)                               # [A, 5, P]
+            rgb_t = (out[:, :3] + h["base_t"]) / (out[:, 4:5] + 1.0)
+            diff = (rgb_t - h["gt_t"]).abs() * h["pxmask"][:, None, :]
+            return (diff.sum() + h["inactive_sum"]) / n_px
+
+        return bins, loss
+    gt_moments = ([losses.ssim_gt_moments(cam_batch["gt_rgb"][m]) for m in range(M)]
+                  if ssim_weight > 0 else [None] * M)
+
+    def loss(m):
+        res = ges_forward(params, alive, c2w[m], K[m], cam_batch["ref_depth"][m],
+                          cam_batch["base_color"][m], int(cam_batch["cam_id"][m]),
+                          st, bins=bins[m])
+        gt_depth = cam_batch["gt_depth"][m] if "gt_depth" in cam_batch else None
+        return losses.compute_loss(
+            res["rgb"], res["depth"], cam_batch["gt_rgb"][m], gt_depth,
+            ssim_weight, depth_weight, gt_ssim_moments=gt_moments[m])["total"]
+
+    return bins, loss
+
+
+def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
+                    st: RenderStatics, mcfg, max_iterations: int,
+                    ssim_weight: float, depth_weight: float,
+                    opt_cap: int) -> tuple[GaussianPool, dict]:
+    """The reference's localOptimize loop: one Adam step per entry of
+    `iter_cam_idx`, each on that camera of `cam_batch` (see
+    `window_loss`), with optimizer state fresh for the window and the
+    learning rates of `mcfg` (the config's ModelConfig).  The pool
+    is compact (live rows first), so the steps work on leaf copies of its
+    `opt_cap`-row prefix, written back at the end; the render caps are the
+    prefix and the configured active-tile cap.  Release configs (ssim and
+    depth weights 0, no exposure) take the tile-space L1 path.  Updates
+    the pool in place; returns it with the loss of each step and the
+    binning overflows summed over the window's cameras."""
+    tile_w = -(-st.width // st.tile_size)
+    tile_h = -(-st.height // st.tile_size)
+    st = st._replace(visible_cap=min(st.visible_cap, opt_cap),
+                     active_tile_cap=min(tile_w * tile_h, st.active_tile_cap))
+    cparams = {k: (v if k == "exposure" else v[:opt_cap]).detach().clone()
+               .requires_grad_(True) for k, v in pool.params.items()}
+    opt = optim.WindowAdam(cparams, mcfg, max_iterations)
+    tile_space = (ssim_weight == 0.0 and depth_weight == 0.0
+                  and not st.use_exposure)
+    bins, loss_fn = window_loss(cparams, pool.alive[:opt_cap], cam_batch, st,
+                                ssim_weight, depth_weight, tile_space)
+    hist = []
+    for m in iter_cam_idx:
+        loss = loss_fn(int(m))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        hist.append(loss.detach())
+    with torch.no_grad():
+        for k, v in cparams.items():
+            if k == "exposure":
+                pool.exposure = v.detach()
+            else:
+                getattr(pool, k)[:opt_cap] = v
+    return pool, {
+        "loss_hist": torch.stack(hist) if hist else pool.means.new_zeros((0,)),
+        "n_tile_overflow": sum(b.n_tile_overflow for b in bins),
+        "n_span_overflow": sum(b.n_span_overflow for b in bins),
+        "n_active_overflow": sum(b.n_active_overflow for b in bins),
+        # per camera; a step whose camera has none launches no splat kernel
+        "active_tiles": [int(b.tiles.shape[0]) for b in bins],
+    }
 
 
 def add_gaussians(pool: GaussianPool, vertex_map, color_map, normal_map,
@@ -180,10 +298,10 @@ class GaussianModel:
     def num_gaussians(self) -> int:
         return self.pool.n_alive
 
-    def opt_cap(self) -> int:
-        """Smallest bucket covering the live prefix."""
+    def opt_cap(self, extra: int = 0) -> int:
+        """Smallest bucket covering the live prefix plus `extra` rows."""
         cap = self.pool.capacity
-        need = self.num_gaussians
+        need = self.num_gaussians + extra
         for b in self.BUCKETS:
             if need <= b <= cap:
                 return b

@@ -70,8 +70,11 @@ RAYCAST = Kernel(
 SPLAT_FWD = Kernel(
     "splat_fwd_cuda", "splat_fwd.cu", "splat_fwd",
     [P, P, P, P, P, P, I, I, I, I, F, P])
+SPLAT_BWD = Kernel(
+    "splat_bwd_cuda", "splat_bwd.cu", "splat_bwd",
+    [P, P, P, P, P, P, P, I, I, I, I, F, P])
 
-ALL = (INTEGRATE, RAYCAST, SPLAT_FWD)
+ALL = (INTEGRATE, RAYCAST, SPLAT_FWD, SPLAT_BWD)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 

@@ -5,11 +5,9 @@ the spawn masks of gps_slam_tpu/slam/megastep.py.
 Per frame: fuse with the gt pose, then local-window / keyframe
 bookkeeping; every `local_opt_interval` frames: raycast the window and
 the sampled keyframes, spawn Gaussians where the render's colour error is
-high, run the optimization window, prune.  The optimization window
-(`window_optimize`) is not ported yet: `local_optimize` leaves the pool
-unchanged for `local_opt_iters == 0`, exactly what the JAX call does with
-zero steps, and refuses any other value.  Emits the reference's
-`time_log.txt` line format (read by run/read_results.py).
+high, run `local_opt_iters` Adam steps over the window's cameras
+(`window_optimize`), prune.  Emits the reference's `time_log.txt` line
+format (read by run/read_results.py).
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..gs import model as gmodel, params as pmod
+from ..gs import losses, model as gmodel, params as pmod
 from ..gs.model import GaussianModel
 from ..tsdf.engine import TsdfEngine
 from ..utils import io as uio, vis
@@ -100,6 +98,7 @@ class SLAMPipeline:
         self.keyframe_cam_list: list[Camera] = []
         self.opt_cam_list: list[Camera] = []
         self.opt_raycast_list: list[dict] = []
+        self.keyframe_loss_dict: dict[str, list[float]] = {}
         self._rng = np.random.default_rng(cfg.dev_id + 1)
         self.frame_cache = FrameCache(self.device)
         if is_train:
@@ -109,6 +108,8 @@ class SLAMPipeline:
             os.makedirs(os.path.join(workspace_dir, "before_opt"), exist_ok=True)
         self._pose_idx: dict[int, int] = {}
         self._spawn_overflow = 0
+        self._bin_overflow = [0, 0, 0]   # tile, span and active caps
+        self._last_loss_hist = None
         self.t_fusion = self.t_local_raycast = self.t_key_raycast = 0.0
         self.t_init_gs = self.t_opt = self.t_remove = 0.0
 
@@ -146,8 +147,11 @@ class SLAMPipeline:
                 self._sync()
                 t3 = time.monotonic()
                 self.local_optimize(model)
+                self._sync()
                 t4 = time.monotonic()
                 self.remove_redundant(model)
+                if p.kf_sample_method == "ours":
+                    self.check_key_frame_error(model)
                 self._sync()
                 t5 = time.monotonic()
                 self.t_local_raycast += (t2 - t1) * 1000
@@ -175,12 +179,18 @@ class SLAMPipeline:
         if self._spawn_overflow > 0:
             print(f"[SPAWN OVERFLOW] {self._spawn_overflow} masked samples "
                   f"beyond max_new_gaussians were dropped")
+        tile_o, span_o, act_o = self._bin_overflow
+        bin_overflow = tile_o + span_o + act_o
+        if bin_overflow > 0:
+            print(f"[BIN OVERFLOW] {bin_overflow} optimizer binning entries "
+                  f"dropped (tile cap: {tile_o}, span cap: {span_o}, "
+                  f"active cap: {act_o})")
         os.makedirs(self.workspace_dir, exist_ok=True)
         with open(os.path.join(self.workspace_dir, "time_log.txt"), "w") as f:
             f.write(line)
             f.write(f"GPU memory usage: {mem_mb} MB\n")
             f.write(f"Spawn overflow: {self._spawn_overflow}\n")
-            f.write("Bin overflow: 0\n")
+            f.write(f"Bin overflow: {bin_overflow}\n")
 
     # --------------------------------------------------------------- windows
 
@@ -205,6 +215,8 @@ class SLAMPipeline:
                 is_keyframe = True
         if is_keyframe:
             self.keyframe_cam_list.append(self.curr_cam)
+            self.keyframe_loss_dict[self.curr_cam.get_frame_id()] = [
+                0.1, float(self.curr_frame_id), 0.0, 0.0, 0.0]
 
     # --------------------------------------------------------------- raycast
 
@@ -304,10 +316,66 @@ class SLAMPipeline:
     # -------------------------------------------------------------- optimize
 
     def local_optimize(self, model: GaussianModel) -> None:
-        """(localOptimize :195-291).  Zero steps leave the pool unchanged,
-        as the JAX window_optimize does with an empty scan."""
-        if self.pipe.local_opt_iters != 0:
-            raise NotImplementedError("window_optimize is ported in the next slice")
+        """(localOptimize :195-291): `local_opt_iters` Adam steps over the
+        window's cameras, in shuffled epochs of the opt set drawn from the
+        same numpy stream as the JAX package, on the compact pool prefix
+        (the live count plus the spawn bound, read exactly).  Zero steps
+        still bin the cameras, as the JAX call does, for the overflow
+        counts."""
+        p = self.pipe
+        cams = self.opt_cam_list
+        n_valid = len(cams)
+        if n_valid == 0:
+            return
+        dev = self.device
+        batch = {
+            "c2w": torch.as_tensor(np.stack([c.c2w_slam for c in cams]),
+                                   dtype=torch.float32, device=dev),
+            "K": torch.as_tensor(np.stack([np.asarray(c.K, np.float32) for c in cams])),
+            "cam_id": [c.id for c in cams],
+            "gt_rgb": torch.stack([self.frame_cache.get(c)[0] for c in cams]),
+            "ref_depth": torch.stack([r["depth_map"][..., 0]
+                                      for r in self.opt_raycast_list]),
+            "base_color": torch.stack([r["color_map"] for r in self.opt_raycast_list]),
+        }
+        if p.depth_weight > 0:
+            batch["gt_depth"] = torch.stack([self.frame_cache.get(c)[1] for c in cams])
+        # shuffled without replacement, reset every epoch, so a short
+        # window visits every camera evenly
+        idx_seq: list[int] = []
+        while len(idx_seq) < p.local_opt_iters:
+            idx_seq.extend(int(v) for v in self._rng.permutation(n_valid))
+        model.pool, aux = gmodel.window_optimize(
+            model.pool, batch, idx_seq[:p.local_opt_iters], model.statics,
+            self.cfg.model, p.max_iterations,
+            p.ssim_weight, p.depth_weight,
+            model.opt_cap(extra=self.cfg.tpu.max_new_gaussians))
+        self.curr_iter += p.local_opt_iters
+        self._last_loss_hist = aux["loss_hist"]
+        for i, k in enumerate(("n_tile_overflow", "n_span_overflow",
+                               "n_active_overflow")):
+            self._bin_overflow[i] += aux[k]
+
+    def check_key_frame_error(self, model: GaussianModel) -> None:
+        """(checkKeyFrameError :293-317): re-evaluate the sampled
+        keyframes' masked L1 after the window and record [loss, frame id,
+        mean confidence, opt count].  In 'ours' mode the opt set holds no
+        keyframes (they join only in 'random' mode), so the loop is empty
+        there, as in the reference."""
+        p = self.pipe
+        n_local = len(self.localframe_cam_window)
+        for cam, ray in zip(self.opt_cam_list[n_local:],
+                            self.opt_raycast_list[n_local:]):
+            res = model.forward(cam.c2w_slam, cam.K, ray["depth_map"][..., 0],
+                                ray["color_map"])
+            mask = (ray["depth_map"][..., 0] > 0)[..., None]
+            loss = float(losses.l1(self.frame_cache.get(cam)[0], res["rgb"], mask))
+            fid = cam.get_frame_id()
+            prev = self.keyframe_loss_dict.get(fid, [0.1, 0.0, 0.0, 0.0, 0.0])
+            opt_count = prev[3] + (1.0 if loss > p.kf_loss_thres else 0.0)
+            self.keyframe_loss_dict[fid] = [
+                loss, float(self.curr_frame_id),
+                float(ray["confidence_map"].mean()), opt_count]
 
     def remove_redundant(self, model: GaussianModel) -> None:
         """(removeRedundantGs :564-586) + compaction to the pool prefix."""

@@ -117,7 +117,15 @@ def insert(table_keys: torch.Tensor, table_ptrs: torch.Tensor, n_blocks: int,
         e_col = emptyl.to(torch.int8).argmax(-1)
         want = (~resolved) & emptyl.any(-1)
         idx = row[want] * W + e_col[want]
-        flat_keys[idx] = packed[want]
+        # candidates racing for one slot: the last one writes, as a
+        # sequential scatter does; on CUDA duplicate-index writes land in
+        # no fixed order, so the winners are picked explicitly
+        order = torch.argsort(idx, stable=True)
+        s = idx[order]
+        last = torch.ones_like(s, dtype=torch.bool)
+        last[:-1] = s[1:] != s[:-1]
+        win = order[last]
+        flat_keys[idx[win]] = packed[want][win]
 
     col_safe = my_col.clamp(max=W - 1)
     my_ptr = ptrs_row.gather(1, col_safe[:, None])[:, 0]

@@ -47,14 +47,19 @@ def alloc_candidates(depth, c2w, fx, fy, cx, cy, voxel_size, mu, frustum_min,
     j = (torch.arange(Hh, dtype=torch.float32, device=dev) * stride)[:, None]
     R, t = c2w[:3, :3], c2w[:3, 3]
     inv = 1.0 / max(n_steps - 1, 1)
+    # device-tensor divisors: torch on CUDA divides by a host scalar as a
+    # multiplication by its reciprocal, and `scalar / tensor` is that
+    # multiplication on every device; the JAX package divides
+    fx_d, fy_d, mu_d = (torch.tensor(v, dtype=torch.float32, device=dev)
+                        for v in (fx, fy, mu))
 
     def band_keys(z):
         valid = (z > 0) & ((z - mu) >= frustum_min) & ((z + mu) <= frustum_max)
-        x = z * (i - cx) / fx
-        y = z * (j - cy) / fy
+        x = z * (i - cx) / fx_d
+        y = z * (j - cy) / fy_d
         norm = torch.clamp(torch.sqrt(x * x + y * y + z * z), min=1e-6)
-        s0 = 1.0 - mu / norm
-        s1 = 1.0 + mu / norm
+        s0 = 1.0 - mu_d / norm
+        s1 = 1.0 + mu_d / norm
         wx = R[0, 0] * x + R[0, 1] * y + R[0, 2] * z
         wy = R[1, 0] * x + R[1, 1] * y + R[1, 2] * z
         wz = R[2, 0] * x + R[2, 1] * y + R[2, 2] * z

@@ -3,10 +3,9 @@
 slam_trainer.py: `python slam_trainer_torch.py <config.yaml> [--device D]`
 with work_mode train | recon | eval.
 
-train: gt-pose SLAM (TSDF fusion + Gaussian spawn/prune), then save
-       model / engine / poses and optionally render eval images.  The
-       optimization window is not ported yet, so PIPE.local_opt_iters must
-       be 0.
+train: gt-pose SLAM (TSDF fusion + Gaussian spawn, Adam window and
+       prune), then save model / engine / poses and optionally render
+       eval images.
 recon: TSDF-only fusion (no Gaussians).
 eval:  load a saved model + TSDF engine and render evaluation images.
 

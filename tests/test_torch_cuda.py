@@ -145,6 +145,110 @@ def test_splat_fwd_cuda_matches_plain(cuda_device):
     torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
 
 
+def _splat_inputs(device, seed=3, H=64, W=96, n=300, L=64):
+    """Random Gaussians binned over a W x H image: the packed rows, lists,
+    pixel planes and reference depth of splat_fwd / splat_bwd, on
+    `device`."""
+    g = torch.Generator().manual_seed(seed)
+    m2d = torch.rand((n, 2), generator=g) * torch.tensor([W, H])
+    conics = torch.rand((n, 3), generator=g) * torch.tensor([0.3, 0.02, 0.3]) \
+        + torch.tensor([0.02, -0.01, 0.02])
+    colors = torch.rand((n, 4), generator=g)
+    opac = torch.rand(n, generator=g)
+    depth = torch.rand(n, generator=g) + 0.5
+    radii = torch.full((n,), 12, dtype=torch.int32)
+    bins = trz.bin_gaussians_active(m2d, radii, 16, W // 16, H // 16, n, 9, L, 64)
+    packed = trz._pack_attrs(m2d, conics, colors, depth, opac).to(device)
+    px, py = trz._tile_pixels(bins.tiles, W // 16, 16)
+    ref = torch.rand(px.shape, generator=g) + 0.8
+    return packed, bins.gids.to(device), px.to(device), py.to(device), ref.to(device)
+
+
+@pytest.mark.cuda
+def test_splat_bwd_cuda_matches_plain(cuda_device):
+    """splat_bwd_cuda against its plain version on a random cotangent:
+    both round each pair term alike (nvcc -fmad=false) but sum the 256
+    pixels in another order (lane partial sums + a shuffle tree against
+    torch's reduction), so each column agrees within 1e-4 of its largest
+    |value|; the kernel gives the same bits on a second launch."""
+    packed, gids, px, py, ref = _splat_inputs(cuda_device)
+    v_out = torch.randn((gids.shape[0], 5, 256), generator=torch.Generator()
+                        .manual_seed(4)).to(cuda_device)
+    ok = trz.splat_bwd(packed, gids, px, py, ref, v_out, 0.1, 4)
+    again = trz.splat_bwd(packed, gids, px, py, ref, v_out, 0.1, 4)
+    op = trz.splat_bwd_plain(packed, gids, px, py, ref, v_out, 0.1, 4)
+    torch.cuda.synchronize()
+    assert ok.shape == op.shape == (gids.shape[0], 64, 10)
+    assert torch.equal(ok, again)
+    scale = op.abs().amax((0, 1))
+    assert (scale > 0).all()
+    assert ((ok - op).abs().amax((0, 1)) <= 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+def test_window_optimize_cuda_matches_cpu(cuda_device, tmp_path):
+    """One window of 10 Adam steps over three synthetic cameras on the card
+    (K4 + K5) against the same window on the CPU (their plain versions),
+    from the same pool.  The first step's loss within 1e-5 relative; every
+    step's within 5e-3 (Adam moves rows whose gradients are near zero by
+    up to +-lr on either side, see tests/test_torch_train.py); final rows
+    within 2 lr x 10 steps, fewer than 10% of them more than one lr
+    apart."""
+    import numpy as np
+
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.gs import model as tmodel
+
+    W, H, iters = 64, 48, 10
+    cams = synthetic.make_cameras(n_frames=3, width=W, height=H)
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": 2, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    cfg = Config.from_dict(synthetic.default_config_dict(str(tmp_path), node))
+    model = tmodel.GaussianModel(cfg, W, H, device="cpu")
+    mask = torch.zeros((H, W), dtype=torch.bool)
+    mask[::4, ::4] = True
+    for i, cam in enumerate(cams):
+        fm = cam.get_frame_maps("cpu")
+        tmodel.add_gaussians(model.pool, fm["vertex_map"], fm["color_map"],
+                             fm["normal_map"], mask, 0.6, 1024,
+                             cfg.model.default_opacities,
+                             (cfg.model.min_init_scale, cfg.model.max_init_scale),
+                             torch.Generator().manual_seed(i))
+    pool_np = {k: v.numpy() for k, v in model.pool.params.items()}
+    alive = model.pool.alive.numpy()
+    g = np.random.default_rng(5)
+    ref = np.stack([c.depth[..., 0] * g.uniform(0.98, 1.02, (H, W)) for c in cams])
+    base = np.clip(np.stack([c.image for c in cams]) + g.normal(0, 0.1, (3, H, W, 3)), 0, 1)
+    arrs = {"c2w": np.stack([c.c2w for c in cams]), "gt_rgb": np.stack([c.image for c in cams]),
+            "ref_depth": ref, "base_color": base}
+    idx = [0, 2, 1, 1, 0, 2, 2, 0, 1, 0]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                 for k, v in arrs.items()}
+        batch["K"] = torch.as_tensor(np.stack([c.K for c in cams]), dtype=torch.float32)
+        batch["cam_id"] = [0, 0, 0]
+        pool = convert.pool_from_numpy(pool_np, alive, dev)
+        pool, aux = tmodel.window_optimize(
+            pool, batch, idx, model.statics, cfg.model,
+            cfg.pipe.max_iterations, 0.0, 0.0, model.opt_cap())
+        out[str(dev)] = (pool, aux["loss_hist"].cpu().numpy())
+    (pc, hc), (pg, hg) = out["cpu"], out[str(cuda_device)]
+    assert np.isfinite(hg).all()
+    rel = np.abs(hg - hc) / np.abs(hc)
+    assert rel[0] <= 1e-5 and rel.max() <= 5e-3, rel
+    n = int(alive.sum())
+    m = cfg.model
+    for k, lr in (("means", m.means_lr), ("scales", m.scales_lr), ("quats", m.quats_lr),
+                  ("features_dc", m.featuresDc_lr), ("opacities", m.opacities_lr)):
+        d = (getattr(pg, k)[:n].cpu() - getattr(pc, k)[:n]).abs().reshape(n, -1).amax(1) / lr
+        assert d.max() <= 2 * iters and (d > 1).float().mean() < 0.1, (k, d.max())
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_input(cuda_device):
     """Wrappers check dtype and device and raise instead of running."""

@@ -212,7 +212,7 @@ def test_bin_gaussians_active_matches_jax():
     jb = jrast.bin_gaussians_active(jnp.asarray(m2d), jnp.asarray(radii), 16, tw, th,
                                     50, 9, 12, 10)
     tb = trast.bin_gaussians_active(torch.as_tensor(m2d), torch.as_tensor(radii), 16, tw, th,
-                                    50, 9, 12, 10)
+                                    50, 9, 12, 10, segments=True)
     A = tb.tiles.shape[0]
     np.testing.assert_array_equal(tb.tiles.numpy(), np.asarray(jb.tiles)[:A])
     assert (np.asarray(jb.tiles)[A:] == tw * th).all()
@@ -222,6 +222,12 @@ def test_bin_gaussians_active_matches_jax():
     assert tb.n_tile_overflow == int(jb.n_tile_overflow) > 0
     assert tb.n_span_overflow == int(jb.n_span_overflow) > 0
     assert tb.n_active_overflow == int(jb.n_active_overflow) > 0
+    # the backward's segments: the JAX sort also covers the padding tiles'
+    # null slots, which sort after the port's A*L pairs
+    np.testing.assert_array_equal(tb.pair_order.numpy(), np.asarray(jb.pair_order)[:A * 12])
+    np.testing.assert_array_equal(tb.seg_lo.numpy(), np.asarray(jb.seg_lo))
+    np.testing.assert_array_equal(tb.seg_hi.numpy(), np.asarray(jb.seg_hi))
+    assert (tb.seg_hi > tb.seg_lo).sum() > 20
 
 
 def test_splat_fwd_plain_matches_pallas_interpret():
@@ -251,6 +257,101 @@ def test_splat_fwd_plain_matches_pallas_interpret():
                             torch.as_tensor(ref_t), 0.1, 4)
     assert out_t[:, 4].max() > 0.5
     _close(out_t, out_j, rtol=2e-4, atol=1e-4)
+
+
+def _splat_tiles_inputs(rng):
+    """The _splat_scene binned in both packages (port: the exact active
+    tiles; JAX: padded to its cap with null slots), with pixel planes,
+    per-tile reference depth and a random cotangent of the tile sums."""
+    m2d, conics, colors, opac, depths, radii, ref = _splat_scene(rng)
+    jb = jrast.bin_gaussians_active(jnp.asarray(m2d), jnp.asarray(radii), 16, 4, 3,
+                                    64, 9, 32, 12)
+    tb = trast.bin_gaussians_active(torch.as_tensor(m2d), torch.as_tensor(radii), 16,
+                                    4, 3, 64, 9, 32, 12, segments=True)
+    tiles = np.asarray(jb.tiles)
+    tsafe = np.where(tiles < 12, tiles, 0)
+    pp = np.arange(256)
+    px = ((tsafe % 4)[:, None] * 16 + pp % 16 + 0.5).astype(np.float32)
+    py = ((tsafe // 4)[:, None] * 16 + pp // 16 + 0.5).astype(np.float32)
+    ref_t = ref.reshape(3, 16, 4, 16).transpose(0, 2, 1, 3).reshape(12, 256)[tsafe]
+    v_out = rng.normal(size=(tiles.shape[0], 5, 256)).astype(np.float32)
+    return (m2d, conics, colors, opac, depths), jb, tb, px, py, ref_t, v_out
+
+
+def test_splat_bwd_plain_matches_pallas_interpret():
+    """K5's plain version against splat_pallas.splat_bwd(interpret=True)
+    on a random cotangent.  The TPU kernel sums through pixel moments
+    (x^2 S0 - 2x Sx + Sxx ...), which cancel for Gaussians centred tiles
+    away and round differently from the port's direct per-pixel sum, so
+    each column is held within 1e-4 of that column's largest |value|
+    (measured: at most 6e-5)."""
+    rng = np.random.default_rng(13)
+    attrs, jb, tb, px, py, ref_t, v_out = _splat_tiles_inputs(rng)
+    packed_j = jrast._pack_attrs(*(jnp.asarray(a) for a in attrs))
+    out_j = np.asarray(splat_pallas.splat_bwd(
+        packed_j, jb.gids, jnp.asarray(px), jnp.asarray(py), jnp.asarray(ref_t),
+        jnp.asarray(v_out), 0.1, 4, True))[..., :10]
+    packed_t = trast._pack_attrs(*(torch.as_tensor(a) for a in attrs))
+    out_t = trast.splat_bwd(packed_t, torch.as_tensor(np.array(jb.gids)),
+                            torch.as_tensor(px), torch.as_tensor(py),
+                            torch.as_tensor(ref_t), torch.as_tensor(v_out), 0.1, 4).numpy()
+    assert out_t.shape == out_j.shape
+    scale = np.abs(out_j).max(axis=(0, 1))
+    assert (scale > 0).all()
+    err = np.abs(out_t - out_j).max(axis=(0, 1))
+    assert (err <= 1e-4 * scale).all(), err / scale
+
+
+def test_ges_splat_grads_match_jax():
+    """Per-Gaussian gradients of sum(out * v_out): GesSplat (K5's plain
+    version + the sorted segment sum) against jax.grad through the JAX
+    custom VJP _ges_splat with its Pallas kernels in interpret mode.  The
+    forward outputs agree as in the K4 test; the grads within 1e-4 of
+    each attribute's largest |grad| (moment-form rounding, see the K5
+    test, then a cumsum over the pairs in both packages)."""
+    rng = np.random.default_rng(14)
+    attrs, jb, tb, px, py, ref_t, v_out = _splat_tiles_inputs(rng)
+    A = tb.tiles.shape[0]
+    static = (0.1, 64, "pallas_interpret", 9)
+
+    def loss_j(m2d, cn, col, op):
+        out = jrast._ges_splat(static, m2d, cn, col, op, jnp.asarray(attrs[4]), jb.gids,
+                               jb.valid, jnp.asarray(ref_t), jnp.asarray(px),
+                               jnp.asarray(py), jb.pair_order, jb.seg_lo, jb.seg_hi)
+        return jnp.sum(out * jnp.asarray(v_out))
+
+    gj = jax.grad(loss_j, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in attrs[:4]))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in attrs[:4]]
+    out = trast.GesSplat.apply(*leaves, torch.as_tensor(attrs[4]), tb.gids,
+                               torch.as_tensor(ref_t[:A]), torch.as_tensor(px[:A]),
+                               torch.as_tensor(py[:A]), tb.pair_order, tb.seg_lo,
+                               tb.seg_hi, 0.1)
+    (out * torch.as_tensor(v_out[:A])).sum().backward()
+    for name, t, j in zip(("means2d", "conics", "colors", "opacities"), leaves, gj):
+        j = np.asarray(j)
+        scale = np.abs(j).max()
+        assert scale > 0 and (np.abs(j) > 1e-3 * scale).sum() > 20, name
+        _close(t.grad, j, rtol=0, atol=1e-4 * scale, err_msg=name)
+
+
+def test_ges_splat_segments_from_the_backward_match_the_binning():
+    """A binning made without segments (eval and spawn renders) still
+    differentiates: GesSplat's backward sorts the lists itself and gives
+    the same gradients, bit for bit, as segments the binning precomputed."""
+    rng = np.random.default_rng(15)
+    attrs, _, tb, px, py, ref_t, v_out = _splat_tiles_inputs(rng)
+    A = tb.tiles.shape[0]
+    grads = []
+    for segs in ((tb.pair_order, tb.seg_lo, tb.seg_hi), (None, None, None)):
+        leaves = [torch.as_tensor(a).requires_grad_(True) for a in attrs[:4]]
+        out = trast.GesSplat.apply(*leaves, torch.as_tensor(attrs[4]), tb.gids,
+                                   torch.as_tensor(ref_t[:A]), torch.as_tensor(px[:A]),
+                                   torch.as_tensor(py[:A]), *segs, 0.1)
+        (out * torch.as_tensor(v_out[:A])).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert a.abs().max() > 0
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------- GES render

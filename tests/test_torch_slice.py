@@ -1,15 +1,17 @@
 """The slice as a whole: JAX `slam_trainer.main` against the port's
 `slam_trainer_torch.main` on the same on-disk synthetic dataset (gt-pose
-`train` mode, PIPE.local_opt_iters = 0, two spawn windows, eval after
-train).
+`train` mode, two windows of PIPE.local_opt_iters = 10 Adam steps, eval
+after train).
 
 On the CPU the JAX engine normally takes its XLA branches (per-voxel
 confidence, k_blocks=2 for every raycast, bf16 splat contraction), while
 the port reproduces the TPU kernels.  So the JAX run here is switched onto
-its kernel branch, with the three Pallas kernels (integrate, raycast
-march, splat forward) in interpret mode, as the JAX package's own kernel
-tests run them on the CPU.  The spawn's random pixel choice differs
-(jax.random vs torch.Generator); everything else is deterministic."""
+its kernel branch, with its four Pallas kernels (integrate, raycast march,
+splat forward and backward) in interpret mode, as the JAX package's own
+kernel tests run them on the CPU, and onto its eager per-phase window
+(no one-dispatch megastep), which is the path the port follows.  The
+spawn's random pixel choice differs (jax.random vs torch.Generator);
+everything else is deterministic."""
 
 import copy
 import functools
@@ -21,13 +23,19 @@ import yaml
 
 from gps_slam_tpu.data import synthetic
 
-N_FRAMES, W, H = 9, 96, 72   # windows at frames 3 and 6
+# windows at frames 3 and 6; 7 frames keep the file near 100 s alone on
+# one CPU worker, almost all of it the JAX side's interpret-mode kernels
+N_FRAMES, W, H = 7, 96, 72
+# two full epochs of the larger window's cameras (local window 2 +
+# keyframes 3): the opt sets hold 4 and 5 cameras
+ITERS = 10
 
 
 def _jax_on_kernel_branch(mp):
     import gps_slam_tpu.gs.model as jmodel
     import gps_slam_tpu.tsdf.integrate_pallas as ipk
     import gps_slam_tpu.tsdf.raycast_pallas as rcp
+    from gps_slam_tpu.slam.pipeline import SLAMPipeline
     from gps_slam_tpu.tsdf.engine import TsdfEngine
 
     mp.setattr(ipk, "integrate_blocks_packed",
@@ -46,6 +54,24 @@ def _jax_on_kernel_branch(mp):
         self.statics = self.statics._replace(splat_impl="pallas_interpret")
 
     mp.setattr(jmodel.GaussianModel, "__init__", model_init)
+    mp.setattr(SLAMPipeline, "disable_megastep", True, raising=False)
+
+
+def _record_windows(mp, model_mod, windows):
+    """Record each window_optimize call: the camera id of every Adam step,
+    the step losses and the epoch length (each epoch is a permutation of
+    the opt set's indices)."""
+    orig = model_mod.window_optimize
+
+    def rec(pool, batch, idx, *a, **k):
+        pool, aux = orig(pool, batch, idx, *a, **k)
+        ids = [int(v) for v in np.asarray(batch["cam_id"])]
+        idx = [int(i) for i in np.asarray(idx)]
+        windows.append(([ids[i] for i in idx],
+                        np.asarray(aux["loss_hist"], np.float64), max(idx) + 1))
+        return pool, aux
+
+    mp.setattr(model_mod, "window_optimize", rec)
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +79,7 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("slice")
     node = synthetic.write_dataset(str(tmp / "scene"), n_frames=N_FRAMES, width=W, height=H)
     base = synthetic.default_config_dict(str(tmp / "scene"), node)
-    base["PIPE"]["local_opt_iters"] = 0
+    base["PIPE"]["local_opt_iters"] = ITERS
     base["PIPE"]["local_opt_interval"] = 3
     base["PIPE"]["eval_after_train"] = True
     paths = {}
@@ -63,14 +89,22 @@ def runs(tmp_path_factory):
         paths[name] = (str(tmp / f"cfg_{name}.yaml"), d["workspace_dir"], d)
         with open(paths[name][0], "w") as f:
             yaml.safe_dump(d, f)
+    import gps_slam_tpu.gs.model as jmodel
+    import gps_slam_torch.gs.model as tmodel
+
+    windows = {"jax": [], "torch": []}
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_kernel_branch(mp)
+        _record_windows(mp, jmodel, windows["jax"])
         import slam_trainer
 
         slam_trainer.main(paths["jax"][0])
-    import slam_trainer_torch
+    with pytest.MonkeyPatch.context() as mp:
+        _record_windows(mp, tmodel, windows["torch"])
+        import slam_trainer_torch
 
-    slam_trainer_torch.main(paths["torch"][0], device="cpu")
+        slam_trainer_torch.main(paths["torch"][0], device="cpu")
+    paths["windows"] = windows
     return paths
 
 
@@ -125,6 +159,39 @@ def test_slice_artifacts(runs):
     assert len(os.listdir(os.path.join(ws, "pose"))) == N_FRAMES
     assert sorted(os.listdir(os.path.join(ws, "val", "render"))) == \
         sorted(os.listdir(os.path.join(runs["jax"][1], "val", "render")))
+
+
+def test_slice_time_log_counts_bin_overflow(runs):
+    """time_log.txt carries the window binning's real overflow count, a
+    number, where the forward-only slice wrote a constant 0."""
+    import re
+
+    log = open(os.path.join(runs["torch"][1], "time_log.txt")).read()
+    m = re.search(r"^Bin overflow: (\d+)$", log, re.M)
+    assert m is not None, log
+    assert int(m.group(1)) >= 0
+
+
+def test_slice_adam_windows_visit_the_same_cameras(runs):
+    """Both packages run two windows of ITERS steps, drawing the keyframe
+    sample and the shuffled camera epochs from the same numpy stream, so
+    every step optimizes the same camera in both."""
+    wj, wt = runs["windows"]["jax"], runs["windows"]["torch"]
+    assert len(wj) == len(wt) == 2
+    for (cj, _, nj), (ct, _, nt) in zip(wj, wt):
+        assert len(ct) == ITERS and ct == cj and nt == nj
+
+
+def test_slice_adam_windows_reduce_the_loss(runs):
+    """In every window of both runs the loss history is finite and the
+    mean loss over the last full epoch of the window's cameras is below
+    the mean over the first (consecutive steps see different cameras, so
+    only whole epochs compare)."""
+    for name in ("jax", "torch"):
+        for _, hist, n in runs["windows"][name]:
+            k = len(hist) // n
+            assert k >= 2 and np.isfinite(hist).all(), (name, n)
+            assert hist[(k - 1) * n:k * n].mean() < hist[:n].mean(), (name, hist)
 
 
 def test_slice_block_count_equal(runs):
@@ -193,14 +260,17 @@ def test_port_recon_mode_fuses_the_same_scene(runs, tmp_path):
 def test_port_eval_mode_rerenders_the_saved_workspace(runs, tmp_path):
     """work_mode eval loads the saved model.npz and scene.npz and renders
     the same eval images the train run rendered (JPEG pixels within 2 of
-    255: the same deterministic render, encoded twice)."""
+    255: the same deterministic render, encoded twice).  Renders are named
+    by the Adam steps run so far: 0 in eval mode, 2 x ITERS after
+    training."""
     import cv2
 
     ws, _ = _run_port_mode(runs, tmp_path, "eval", copy_workspace=True)
     rdir = os.path.join(ws, "val", "render")
-    names = sorted(n for n in os.listdir(rdir) if n.endswith(".color.jpg"))
+    names = sorted(n for n in os.listdir(rdir) if n.endswith("_iter0.color.jpg"))
     assert len(names) == N_FRAMES
     for n in names:
         a = cv2.imread(os.path.join(rdir, n)).astype(int)
-        b = cv2.imread(os.path.join(runs["torch"][1], "val", "render", n)).astype(int)
+        b = cv2.imread(os.path.join(runs["torch"][1], "val", "render", n.replace(
+            "_iter0.", f"_iter{2 * ITERS}."))).astype(int)
         assert np.abs(a - b).max() <= 2, n
