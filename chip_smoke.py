@@ -8,19 +8,33 @@ Phases (any failure exits non-zero before the final line):
      and print the card's name and power limit;
   2. forward-only path: the gt-pose `train` loop with PIPE.local_opt_iters
      = 0 (fusion, window raycasts, spawns, prunes) at 1200x680 for 30
-     frames on the synthetic scene, then an eval render; K1, K3 and K4
-     must launch, and its eval PSNR is the trained path's lower bound;
+     frames on the synthetic scene, then an eval render; K1 (once per
+     frame), K3 and K4 must launch and K2 must not, and its eval PSNR is
+     the trained path's lower bound;
   3. main path: the same loop with the Adam window (`local_opt_iters` 20
      per window, as bench.py runs it: bench.py's Replica-equivalent
-     config), >= 2 optimization windows, then an eval render; every
-     kernel's launch count must rise, K5 once per Adam step, each window's
-     loss must fall from its first epoch of cameras to its last, and the
-     eval PSNR must clear both the 15 dB floor and the forward-only PSNR;
-  4. kernels: each kernel against its plain PyTorch version on the inputs
-     of its last main-path call, with CUDA-event timings and the least
-     time the card could take for the same work;
-  5. reference: fusion + raycast at 128x96 on the card against the plain
-     CPU path (the same block set; raycast depths within a voxel).
+     config), >= 2 optimization windows, then an eval render; K1, K3, K4
+     and K5 must launch (K5 once per Adam step whose camera has an active
+     tile) and K2 must not, each window's loss must fall from its first
+     epoch of cameras to its last, and the eval PSNR must clear both the
+     15 dB floor and the forward-only PSNR;
+  4. resident-route path: the forward-only loop at 1296x968 for 21 frames
+     (2 windows), the frame size at which the JAX package integrates with
+     K2a; K2 (`integrate_f32_cuda`) once per frame, K1 never;
+  5. large-frame path: the main path's loop at 1920x1080 for 30 frames,
+     2 windows x 20 Adam steps, where the JAX package takes K2b; K2 once
+     per frame, K1 never, K3, K4, K5 as in the main path, the same loss
+     and 15 dB gates; then the same frames once more on K1's route (the
+     port's budget raised), whose eval PSNR must lie within
+     ROUTE_PSNR_GAP_DB of the f32 route's: a gap to the 1200x680 PSNR is
+     then the frame size's, not the route's;
+  6. kernels: each kernel against its plain PyTorch version on the inputs
+     of its last call on its path (K2 once per route), with CUDA-event
+     timings and the least time the card could take for the same work;
+  7. reference: fusion at 128x96 on the card against the plain CPU path,
+     on K1's route and on the f32 route (budget 0): the same block set and,
+     by key, every state word's weights equal, sdf within 1 quantum and
+     colour within 1; on K1's route also a raycast (depths within a voxel).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -41,9 +55,14 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores
 
 N_FRAMES = 30   # >= 2 optimization windows at local_opt_interval 10
+RESIDENT_FRAMES = 21  # the fewest frames that still hold 2 windows
 ADAM_STEPS = 20  # PIPE.local_opt_iters of bench.py and the release configs
 # the JAX package gates its own CPU train run at 15 dB (tests/test_slam.py:86)
 PSNR_FLOOR_DB = 15.0
+# K1 and K2 differ in depth precision (bf16 hi + lo against f32), colour
+# rounding (0..255 against 0..1 units) and the mip (bf16 matmul against an
+# f32 mean): far below what moves an eval render by half a dB
+ROUTE_PSNR_GAP_DB = 0.5
 
 
 def log(*a):
@@ -59,6 +78,16 @@ def live_rows(packed: torch.Tensor, gids: torch.Tensor) -> int:
     """Distinct Gaussian rows of `packed` that the tile lists name (the null
     row N excluded): the rows a splat kernel reads, each counted once."""
     return torch.unique(gids[gids < packed.shape[0] - 1]).numel()
+
+
+def tap_pixels(keys, w2c, fx, fy, cx, cy, W, H, voxel_size) -> int:
+    """Distinct image pixels that the voxels of the blocks `keys` tap (a
+    voxel that projects inside the image and its block's window reads one
+    depth and one rgb word): the pixels an integrate kernel must read."""
+    from gps_slam_torch.tsdf import integrate as tint
+
+    _, seen, pix, _ = tint._voxel_taps(keys, w2c, fx, fy, cx, cy, W, H, voxel_size)
+    return torch.unique(pix[seen]).numel()
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -130,8 +159,8 @@ class Recorder:
         from gps_slam_torch.tsdf import raycast_tiles as trc
 
         self.last = {}
-        for mod, name in ((tint, "integrate_blocks_packed"), (trc, "march"),
-                          (trz, "splat_fwd"), (trz, "splat_bwd")):
+        for mod, name in ((tint, "integrate_blocks_packed"), (tint, "integrate_blocks"),
+                          (trc, "march"), (trz, "splat_fwd"), (trz, "splat_bwd")):
             orig = getattr(mod, name)
 
             def wrap(*args, _orig=orig, _name=name, **kw):
@@ -151,11 +180,12 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
     return float(hist[:n_cams].mean()), float(hist[(k - 1) * n_cams:k * n_cams].mean())
 
 
-def run_path(args, cams, iters: int, tag: str) -> dict:
+def run_path(args, cams, iters: int, tag: str, fusion) -> dict:
     """Drive the gt-pose train loop with `iters` Adam steps per window over
     `cams`, then the eval render, with every kernel count set to 0 just
     before and read just after; check the output and return the numbers
-    of the `[tag]` line."""
+    of the `[tag]` line.  `fusion` is the integrate kernel of the frame
+    size's route: it must launch once per frame, the other one never."""
     from gps_slam_torch import kernels
     from gps_slam_torch.config import Config
     from gps_slam_torch.eval import metrics as M
@@ -247,10 +277,13 @@ def run_path(args, cams, iters: int, tag: str) -> dict:
     log(f"[{tag}] " + json.dumps(out))
     if n_windows < 2 or len(windows) != n_windows:
         raise RuntimeError(f"{tag}: ran {len(windows)} of >= 2 optimization windows")
-    expect = [k.name for k in kernels.ALL if iters > 0 or k is not kernels.SPLAT_BWD]
-    for name in expect:
-        if launches[name] <= 0:
-            raise RuntimeError(f"{tag}: kernel {name} was not launched")
+    for k in (kernels.RAYCAST, kernels.SPLAT_FWD):
+        if launches[k.name] <= 0:
+            raise RuntimeError(f"{tag}: kernel {k.name} was not launched")
+    idle = kernels.INTEGRATE_F32 if fusion is kernels.INTEGRATE else kernels.INTEGRATE
+    if launches[fusion.name] != N or launches[idle.name] != 0:
+        raise RuntimeError(f"{tag}: {launches[fusion.name]} {fusion.name} launches for "
+                           f"{N} frames and {launches[idle.name]} of {idle.name}")
     # a step on a camera that sees no Gaussian has no active tile and no
     # splat to differentiate; every other step launches K5 once
     if launches[kernels.SPLAT_BWD.name] != out["adam_steps_with_tiles"]:
@@ -270,18 +303,24 @@ def run_path(args, cams, iters: int, tag: str) -> dict:
     return out
 
 
-def main_path(args) -> dict:
-    """The forward-only path (no Adam steps), then the main path with
-    ADAM_STEPS per window over the same frames; the main path's eval PSNR
-    must be at least the forward-only one's."""
+def synthetic_cams(n: int, width: int, height: int):
     from gps_slam_torch.data import synthetic
 
-    W, H, N = 1200, 680, N_FRAMES
     t0 = time.monotonic()
-    cams = synthetic.make_cameras(n_frames=N, width=W, height=H, arc=0.75)
-    log(f"[data] {N} synthetic frames {W}x{H} in {time.monotonic() - t0:.1f} s")
-    fwd = run_path(args, cams, 0, "forward-only path")
-    out = run_path(args, cams, ADAM_STEPS, "main path")
+    cams = synthetic.make_cameras(n_frames=n, width=width, height=height, arc=0.75)
+    log(f"[data] {n} synthetic frames {width}x{height} in {time.monotonic() - t0:.1f} s")
+    return cams
+
+
+def main_path(args) -> dict:
+    """The forward-only path (no Adam steps), then the main path with
+    ADAM_STEPS per window over the same frames, at 1200x680 (K1's route);
+    the main path's eval PSNR must be at least the forward-only one's."""
+    from gps_slam_torch import kernels
+
+    cams = synthetic_cams(N_FRAMES, 1200, 680)
+    fwd = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
+    out = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
     if out["adam_steps"] != ADAM_STEPS * out["windows"]:
         raise RuntimeError(f"main path ran {out['adam_steps']} Adam steps")
     if not out["psnr_mean"] >= fwd["psnr_mean"]:
@@ -291,7 +330,94 @@ def main_path(args) -> dict:
     return out
 
 
-def kernel_phase(rec, launches: dict) -> list[dict]:
+def large_frame_paths(args, rec) -> list[tuple]:
+    """The frames above the JAX kernels' packed budget, on K2
+    (`integrate_f32_cuda`): 1296x968 forward only (the K2a route), then
+    1920x1080 with ADAM_STEPS per window (the K2b route), then the same
+    1920x1080 frames on K1's route as a witness of the f32 route's PSNR.
+    Returns, per K2 route, K2's row label, the TPU kernel it stands in
+    for, the arguments of the path's last `integrate_blocks` call and its
+    launch count."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.tsdf import integrate as tint
+
+    out = []
+    for n, w, h, iters, tag, route, tpu, body in (
+            (RESIDENT_FRAMES, 1296, 968, 0, "resident-route path", "resident",
+             "K2a", "gps_slam_tpu/tsdf/integrate_pallas.py:160"),
+            (N_FRAMES, 1920, 1080, ADAM_STEPS, "large-frame path", "pregather",
+             "K2b", "gps_slam_tpu/tsdf/integrate_pallas.py:112")):
+        if tint.integrate_route(w, h) != route:
+            raise RuntimeError(f"{w}x{h} takes route {tint.integrate_route(w, h)}")
+        cams = synthetic_cams(n, w, h)
+        r = run_path(args, cams, iters, tag, kernels.INTEGRATE_F32)
+        if r["adam_steps"] != iters * r["windows"]:
+            raise RuntimeError(f"{tag} ran {r['adam_steps']} Adam steps")
+        out.append((tpu, body, rec.last["integrate_blocks"][0],
+                    r["launches"][kernels.INTEGRATE_F32.name]))
+
+    saved = tint._RESIDENT_BYTES
+    tint._RESIDENT_BYTES = 2 ** 25
+    try:
+        if tint.integrate_route(w, h) != "packed":
+            raise RuntimeError("the raised budget did not select K1's route")
+        k1 = run_path(args, cams, ADAM_STEPS, "large-frame path, K1 route",
+                      kernels.INTEGRATE)
+    finally:
+        tint._RESIDENT_BYTES = saved
+    gap = r["psnr_mean"] - k1["psnr_mean"]
+    log("[route witness] " + json.dumps({
+        "width": w, "height": h, "psnr_f32_route": r["psnr_mean"],
+        "psnr_k1_route": k1["psnr_mean"], "gap_db": gap}))
+    if not abs(gap) <= ROUTE_PSNR_GAP_DB:
+        raise RuntimeError(f"{w}x{h}: the f32 route's PSNR is {gap} dB off K1's")
+    return out
+
+
+def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
+    """K2 (`integrate_f32_cuda`) against `integrate_blocks_plain` on the
+    arguments of one `integrate_blocks` call; the output of rows with
+    valid False is unwritten by the kernel and not compared."""
+    from gps_slam_torch.tsdf import integrate as tint
+    from gps_slam_torch.tsdf.volume import BLOCK_VOL
+
+    depth, rgbp, keys, valid = args[:4]
+    ok_out = tint.integrate_blocks(*args)
+    pl_out = tint.integrate_blocks_plain(*args)
+    torch.cuda.synchronize()
+    (fk, wk, ck, wck), (fp, wp, cp, wcp) = ([x[valid] for x in o] for o in (ok_out, pl_out))
+    weights_equal = torch.equal(wk, wp) and torch.equal(wck, wcp)
+    f_err = (fk - fp).abs().max().item()
+    c_err = (ck - cp).abs().max().item()
+    ok = weights_equal and f_err <= 1e-6 and c_err <= 1e-6
+    ms = time_ms(lambda: tint.integrate_blocks(*args), 50)
+    plain_ms = time_ms(lambda: tint.integrate_blocks_plain(*args), 5, 1)
+    V, Vv = keys.shape[0], int(valid.sum().item())
+    w2c, fx, fy, cx, cy, W, H, vs = args[8:16]
+    n_px = tap_pixels(keys[valid], w2c, fx, fy, cx, cy, W, H, vs)
+    # live rows only: the depth and rgb words of the pixels their voxels
+    # tap, each row's key and valid flag, four [512] input planes and six
+    # f32 output planes (sdf, weight, r, g, b, colour weight)
+    n_bytes = (n_px * 8 + Vv * 5
+               + Vv * BLOCK_VOL * 4 * 4 + Vv * BLOCK_VOL * 4 * 6)
+    n_ops = Vv * BLOCK_VOL * 110
+    b, by = bound_ms(n_bytes, n_ops)
+    return {"name": f"integrate_f32_cuda ({tag})", "tpu": tag, "route": "cuda",
+            "source": "gps_slam_torch/csrc/integrate_f32.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": float(max(f_err, c_err)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "ok": ok, "bytes": n_bytes, "ops": n_ops,
+            "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
+                       "tap_pixels": n_px},
+            "tolerance": "valid rows: weights equal, sdf and colour within 1e-6",
+            "sdf_err": f_err, "color_err": c_err}
+
+
+def kernel_phase(last: dict, launches: dict, k2: list) -> list[dict]:
+    """Each kernel against its plain version: K1, K3, K4 and K5 on the
+    inputs of their last main-path call (`last`, with the main path's
+    `launches`), K2 on each route's last call (`k2`: (tag, replaces,
+    arguments, launches) per route)."""
     from gps_slam_torch.gs import rasterize as trz
     from gps_slam_torch.tsdf import integrate as tint
     from gps_slam_torch.tsdf import raycast_tiles as trc
@@ -300,7 +426,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
     rows = []
 
     # ---- K1: integrate, on the last fused frame's inputs
-    (a, _) = rec.last["integrate_blocks_packed"]
+    (a, _) = last["integrate_blocks_packed"]
     depth, rgbp, keys, ptrs, state, color, summary = a[:7]
     rest = a[7:]
     pools = {}
@@ -334,11 +460,16 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
     st, co, su = state.clone(), color.clone(), summary.clone()
     plain_ms = time_ms(lambda: tint.integrate_blocks_packed_plain(depth, rgbp, keys, ptrs, st, co, su, *rest), 5, 1)
     V, Vv = keys.shape[0], sel.shape[0]
-    n_bytes = (depth.numel() * 4 + rgbp.numel() * 4 + V * 8
+    # the tapped pixels' depth and rgb words, every row's key and pool row,
+    # the integrated rows' state and colour read and written, their summary
+    w2c, fx, fy, cx, cy, vs = rest[:6]
+    n_px = tap_pixels(keys[ptrs >= 0], w2c, fx, fy, cx, cy, depth.shape[1],
+                      depth.shape[0], vs)
+    n_bytes = (n_px * 8 + V * 8
                + Vv * BLOCK_VOL * 4 * 4 + Vv * 128 * 4)
     n_ops = Vv * BLOCK_VOL * 110
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "integrate_cuda", "route": "cuda",
+    rows.append({"name": "integrate_cuda", "tpu": "K1", "route": "cuda",
                  "source": "gps_slam_torch/csrc/integrate.cu",
                  "replaces": "gps_slam_tpu/tsdf/integrate_pallas.py:239",
                  "launches": launches["integrate_cuda"],
@@ -347,7 +478,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
                  "library_ms": None, "ok": ok,
                  "bytes": n_bytes, "ops": n_ops,
                  "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
-                            "pool_rows": state.shape[0]},
+                            "pool_rows": state.shape[0], "tap_pixels": n_px},
                  "tolerance": "whole pools: rows outside the integration set "
                               "unchanged; weights equal, sdf within 1 quantum, "
                               "colour channels within 1, >= 99.9% of the "
@@ -355,8 +486,11 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
                               "summary within 1e-6",
                  "word_match": word_match, "color_match": col_match})
 
+    # ---- K2a / K2b: the f32-I/O update, on each route's last call
+    rows += [k2_row(*r) for r in k2]
+
     # ---- K3: raycast march, on the last raycast's inputs
-    (a, kw) = rec.last["march"]
+    (a, kw) = last["march"]
     gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b = a[:10]
     need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
     margs = (gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b, need_color)
@@ -380,7 +514,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
              + T * 256 * k_b * (20 + s_r * 60)       # per-pixel refine
              + T * 256 * 3 * 60)                      # colour read
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "raycast_cuda", "route": "cuda",
+    rows.append({"name": "raycast_cuda", "tpu": "K3", "route": "cuda",
                  "source": "gps_slam_torch/csrc/raycast.cu",
                  "replaces": "gps_slam_tpu/tsdf/raycast_pallas.py:51",
                  "launches": launches["raycast_cuda"], "max_abs_err": max_err,
@@ -395,7 +529,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
                  "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item()})
 
     # ---- K4: splat forward, on the last render's inputs
-    (a, _) = rec.last["splat_fwd"]
+    (a, _) = last["splat_fwd"]
     packed, gids, px, py, ref, delta, C = a[:7]
     ok_out = trz.splat_fwd(packed, gids, px, py, ref, delta, C)
     pl_out = trz.splat_fwd_plain(packed, gids, px, py, ref, delta, C)
@@ -411,7 +545,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
                + ok_out.numel() * 4)
     n_ops = n_pairs * (25 + 2 * (C + 1))
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "splat_fwd_cuda", "route": "cuda",
+    rows.append({"name": "splat_fwd_cuda", "tpu": "K4", "route": "cuda",
                  "source": "gps_slam_torch/csrc/splat_fwd.cu",
                  "replaces": "gps_slam_tpu/gs/splat_pallas.py:83",
                  "launches": launches["splat_fwd_cuda"], "max_abs_err": max_err,
@@ -423,7 +557,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
                  "tolerance": "rtol 1e-5 / atol 1e-5"})
 
     # ---- K5: splat backward, on the last Adam step's inputs
-    (a, _) = rec.last["splat_bwd"]
+    (a, _) = last["splat_bwd"]
     packed, gids, px, py, ref, v_out, delta, C = a[:8]
     bargs = (packed, gids, px, py, ref, v_out, delta, C)
     ok_out = trz.splat_bwd(*bargs)
@@ -445,7 +579,7 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
     # 6 + C running sums
     n_ops = n_pairs * (55 + 4 * C)
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "splat_bwd_cuda", "route": "cuda",
+    rows.append({"name": "splat_bwd_cuda", "tpu": "K5", "route": "cuda",
                  "source": "gps_slam_torch/csrc/splat_bwd.cu",
                  "replaces": "gps_slam_tpu/gs/splat_pallas.py:99",
                  "launches": launches["splat_bwd_cuda"], "max_abs_err": max_err,
@@ -468,10 +602,14 @@ def kernel_phase(rec, launches: dict) -> list[dict]:
 
 def reference_phase() -> dict:
     """Fusion + raycast at a small size on the card against the CPU plain
-    path: the same number of blocks and the same block keys (fusion's
-    candidate math divides by device tensors on both devices, and the hash
-    claim picks each slot's winner explicitly), equal hit masks and depth
-    within a voxel on every pixel both hit."""
+    path, on both integrate routes: K1's, and the f32 route with the port's
+    `_RESIDENT_BYTES` lowered to 0, so that K2 runs on the card.  Fusion's
+    math divides by device tensors and sums the camera pose term by term
+    on both devices, and the hash claim picks each slot's winner
+    explicitly, so each route requires the same block keys and, by key,
+    every state word's weights equal, its sdf within 1 quantum and colour
+    channels within 1.  The K1 route also raycasts one view: equal hit
+    masks and depth within a voxel on every pixel both hit."""
     from gps_slam_torch.data import synthetic
     from gps_slam_torch.tsdf import integrate as tint
     from gps_slam_torch.tsdf import raycast_tiles as trc
@@ -480,32 +618,69 @@ def reference_phase() -> dict:
     cams = synthetic.make_cameras(n_frames=6, width=128, height=96)
     p = tvol.TsdfParams(voxel_size=0.02, mu=0.08, hash_size=1 << 16,
                         block_capacity=1 << 13, visible_capacity=1 << 12)
-    maps = {}
-    for dev in ("cuda", "cpu"):
+
+    def fuse(dev):
         vol = tvol.create(p, dev)
         for c in cams:
             tint.fuse_frame(vol, torch.as_tensor(c.depth[..., 0], device=dev),
                             torch.as_tensor(c.image, device=dev),
                             torch.as_tensor(c.c2w, device=dev), c.K)
+        return vol
+
+    def by_key(vol):
+        keys = vol.block_coords[:vol.n_blocks].cpu()
+        order = torch.argsort(keys)
+        return (keys[order], vol.state[:vol.n_blocks].cpu()[order],
+                vol.color[:vol.n_blocks].cpu()[order])
+
+    def state_diff(a, b) -> dict:
+        (kc, sc, cc), (kp, sp, cp) = a, b
+        out = {"n_blocks_cuda": kc.numel(), "n_blocks_cpu": kp.numel(),
+               "same_keys": torch.equal(kc, kp)}
+        if out["same_keys"]:
+            out.update(
+                weight_mismatches=int(((sc >> 16) != (sp >> 16)).sum().item()),
+                max_sdf_quanta=(sdf_of(sc) - sdf_of(sp)).abs().max().item(),
+                max_color_step=max((((cc >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max().item()
+                                   for s in (0, 8, 16)),
+                integrated_voxels=int(((sc >> 16) & 0xFF).gt(0).sum().item()))
+        out["ok"] = (out["same_keys"] and out["weight_mismatches"] == 0
+                     and out["max_sdf_quanta"] <= 1 and out["max_color_step"] <= 1
+                     and out["integrated_voxels"] > 0)
+        return out
+
+    maps, states = {}, {}
+    for dev in ("cuda", "cpu"):
+        vol = fuse(dev)
         m = trc.raycast(vol, cams[3].c2w, cams[3].K, 128, 96, 24, 4, 8, 2)
-        keys = set(vol.block_coords[:vol.n_blocks].cpu().tolist())
-        maps[dev] = (vol.n_blocks, m["depth_map"][..., 0].cpu().numpy(), keys)
-    nb_c, d_c, k_c = maps["cuda"]
-    nb_p, d_p, k_p = maps["cpu"]
+        maps[dev] = m["depth_map"][..., 0].cpu().numpy()
+        states[dev] = by_key(vol)
+    d_c, d_p = maps["cuda"], maps["cpu"]
     hit_xor = float(np.mean((d_c > 0) != (d_p > 0)))
     both = (d_c > 0) & (d_p > 0)
     close = float(np.mean(np.abs(d_c - d_p)[both] < p.voxel_size))
     max_diff = float(np.abs(d_c - d_p)[both].max())
     gt = cams[3].depth[..., 0]
     med = float(np.median(np.abs(d_c - gt)[d_c > 0]))
-    res = {"n_blocks_cuda": nb_c, "n_blocks_cpu": nb_p,
-           "block_keys_only_cuda": len(k_c - k_p), "block_keys_only_cpu": len(k_p - k_c),
+    res = {**state_diff(states["cuda"], states["cpu"]),
            "hit_xor": hit_xor, "depth_within_voxel": close,
            "max_depth_diff": max_diff, "median_depth_err_vs_gt": med}
     log("[reference] " + json.dumps(res))
-    if (nb_c != nb_p or k_c != k_p or hit_xor > 0.0 or close < 1.0
-            or med > p.voxel_size):
+    if not res["ok"] or hit_xor > 0.0 or close < 1.0 or med > p.voxel_size:
         raise RuntimeError("card run disagrees with the CPU reference")
+
+    saved = tint._RESIDENT_BYTES
+    tint._RESIDENT_BYTES = 0
+    try:
+        if tint.integrate_route(128, 96) != "pregather":
+            raise RuntimeError("the lowered budget did not select the f32 route")
+        f32 = state_diff(*(by_key(fuse(dev)) for dev in ("cuda", "cpu")))
+    finally:
+        tint._RESIDENT_BYTES = saved
+    log("[reference f32 route] " + json.dumps(f32))
+    if not f32["ok"]:
+        raise RuntimeError("card run on the f32 route disagrees with the CPU reference")
+    res["f32_route"] = f32
     return res
 
 
@@ -557,7 +732,8 @@ def main() -> int:
 
     rec = Recorder()
     mp = main_path(args)
-    rows = kernel_phase(rec, mp["launches"])
+    main_last = dict(rec.last)
+    rows = kernel_phase(main_last, mp["launches"], large_frame_paths(args, rec))
     reference_phase()
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -190,8 +190,9 @@ def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
     `opt_cap`-row prefix, written back at the end; the render caps are the
     prefix and the configured active-tile cap.  Release configs (ssim and
     depth weights 0, no exposure) take the tile-space L1 path.  Updates
-    the pool in place; returns it with the loss of each step and the
-    binning overflows summed over the window's cameras."""
+    the pool in place; returns it with the loss of each step, the
+    binning overflows summed over the window's cameras and, per camera,
+    its (tile, span, active) overflows."""
     tile_w = -(-st.width // st.tile_size)
     tile_h = -(-st.height // st.tile_size)
     st = st._replace(visible_cap=min(st.visible_cap, opt_cap),
@@ -221,6 +222,8 @@ def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
         "n_tile_overflow": sum(b.n_tile_overflow for b in bins),
         "n_span_overflow": sum(b.n_span_overflow for b in bins),
         "n_active_overflow": sum(b.n_active_overflow for b in bins),
+        "bin_overflow": [(b.n_tile_overflow, b.n_span_overflow, b.n_active_overflow)
+                         for b in bins],
         # per camera; a step whose camera has none launches no splat kernel
         "active_tiles": [int(b.tiles.shape[0]) for b in bins],
     }

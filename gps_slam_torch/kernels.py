@@ -64,6 +64,9 @@ INTEGRATE = Kernel(
     "integrate_cuda", "integrate.cu", "integrate_packed",
     [P, P, P, P, P, P, P, I, I, I, I, F, F, F, F, F, F, I,
      F, F, F, F, F, F, F, F, F, F, F, F, P])
+INTEGRATE_F32 = Kernel(
+    "integrate_f32_cuda", "integrate_f32.cu", "integrate_f32",
+    [P] * 12 + [I, I, I, F, F, F, F, F, F, I] + [F] * 12 + [P])
 RAYCAST = Kernel(
     "raycast_cuda", "raycast.cu", "raycast_march",
     [P, P, P, P, P, P, I, I, I, I, I, I, I, I] + [F] * 20 + [P])
@@ -74,7 +77,7 @@ SPLAT_BWD = Kernel(
     "splat_bwd_cuda", "splat_bwd.cu", "splat_bwd",
     [P, P, P, P, P, P, P, I, I, I, I, F, P])
 
-ALL = (INTEGRATE, RAYCAST, SPLAT_FWD, SPLAT_BWD)
+ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 

@@ -79,6 +79,16 @@ def _spawn_mask(depth, vertex, rgb_render, alpha, gt, vis_min, vis_max,
     return mask, compute_normal_map(vertex)
 
 
+def padded_overflow(per_cam, n_padded: int) -> list[int]:
+    """The window's (tile, span, active) binning overflows as the JAX
+    package counts them: it pads the opt set to `n_padded` cameras with
+    copies of the last one and sums over all of them.  The port bins each
+    camera once (`per_cam`, one triple each) and adds the last camera's
+    triple once more for every copy."""
+    extra = max(n_padded - len(per_cam), 0)
+    return [sum(c[i] for c in per_cam) + extra * per_cam[-1][i] for i in range(3)]
+
+
 class SLAMPipeline:
     def __init__(self, cfg: Config, tsdf_engine: TsdfEngine, workspace_dir: str,
                  is_train: bool = True):
@@ -321,7 +331,8 @@ class SLAMPipeline:
         same numpy stream as the JAX package, on the compact pool prefix
         (the live count plus the spawn bound, read exactly).  Zero steps
         still bin the cameras, as the JAX call does, for the overflow
-        counts."""
+        counts, which are counted over the JAX package's padded opt set
+        (`padded_overflow`)."""
         p = self.pipe
         cams = self.opt_cam_list
         n_valid = len(cams)
@@ -352,9 +363,10 @@ class SLAMPipeline:
             model.opt_cap(extra=self.cfg.tpu.max_new_gaussians))
         self.curr_iter += p.local_opt_iters
         self._last_loss_hist = aux["loss_hist"]
-        for i, k in enumerate(("n_tile_overflow", "n_span_overflow",
-                               "n_active_overflow")):
-            self._bin_overflow[i] += aux[k]
+        counts = padded_overflow(
+            aux["bin_overflow"], p.localframe_cam_window_length + p.keyframe_select_max)
+        for i, n in enumerate(counts):
+            self._bin_overflow[i] += n
 
     def check_key_frame_error(self, model: GaussianModel) -> None:
         """(checkKeyFrameError :293-317): re-evaluate the sampled

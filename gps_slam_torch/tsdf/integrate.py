@@ -4,10 +4,20 @@ gps_slam_tpu/tsdf/integrate.py (gt-pose band path).
 Per frame: mu-band block candidates (`alloc_candidates`) -> dedup ->
 hash insert; the insert's per-candidate pool rows are the integration set
 (a prefix, since dedup parks EMPTY keys last); then the per-block voxel
-update.  On the card the update is the CUDA kernel `integrate_cuda`
-(csrc/integrate.cu); on the CPU it is `integrate_blocks_packed_plain`,
-the same function step by step in f32.  Both write the voxel state,
-colour and summary rows back into the pool in place.
+update, by the route the JAX package takes for the frame's size
+(`integrate_route`):
+
+  * "packed" (frames whose tile planes fit the JAX kernels' 10 MiB VMEM
+    budget, up to 1280x720): the packed-I/O update, on the card the CUDA
+    kernel `integrate_cuda` (csrc/integrate.cu), on the CPU
+    `integrate_blocks_packed_plain`;
+  * "resident" / "pregather" (larger frames): the f32-I/O update
+    `integrate_blocks` (colour in 0..1, exact f32 depth taps), on the card
+    the CUDA kernel `integrate_f32_cuda` (csrc/integrate_f32.cu), on the
+    CPU `integrate_blocks_plain`, with the repack and summary row in torch.
+
+Either way the voxel state, colour and summary rows are written back into
+the pool in place.
 """
 
 from __future__ import annotations
@@ -22,6 +32,22 @@ from .volume import (BLOCK, BLOCK_VOL, TsdfVolume, pack_state,
 
 PT = 32        # image tile edge of the per-block sampling window
 WIN = 2 * PT   # window edge: a block samples a 64x64 pixel window
+# the JAX package's VMEM budget for its integrate kernels' resident tile
+# planes (integrate_pallas._RESIDENT_BYTES); the port reads it only to take
+# the same route as the JAX package on a frame of the same size
+_RESIDENT_BYTES = 10 * 2 ** 20
+
+
+def integrate_route(width: int, height: int) -> str:
+    """The JAX package's integrate route for a width x height frame:
+    "packed" (K1) while its bf16 hi/lo + rgb tile planes, 10 bytes per
+    padded pixel, fit `_RESIDENT_BYTES`; else the f32-I/O update, from
+    "resident" f32 + u32 tile planes (8 bytes per padded pixel, K2a) while
+    those fit, else from "pregather"ed windows (K2b)."""
+    n_px = -(-width // PT) * -(-height // PT) * PT * PT
+    if n_px * 10 <= _RESIDENT_BYTES:
+        return "packed"
+    return "resident" if n_px * 8 <= _RESIDENT_BYTES else "pregather"
 
 
 def pack_rgb(rgb: torch.Tensor) -> torch.Tensor:
@@ -87,7 +113,7 @@ def alloc_candidates(depth, c2w, fx, fy, cx, cy, voxel_size, mu, frustum_min,
 
 
 # ---------------------------------------------------------------------------
-# the per-block voxel update (K1)
+# the per-block voxel update: K1 (packed I/O), K2 (f32 I/O)
 # ---------------------------------------------------------------------------
 
 def _window_anchor(keys, w2c, fx, fy, cx, cy, tw, th, voxel_size):
@@ -115,30 +141,21 @@ def _window_anchor(keys, w2c, fx, fy, cx, cy, tw, th, voxel_size):
     return ax, ay
 
 
-def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
-                                  summary, w2c, fx, fy, cx, cy, voxel_size,
-                                  mu, max_w) -> None:
-    """Plain PyTorch version of `integrate_cuda`: for each row with
-    ptrs >= 0, project the block's 512 voxels, take the nearest depth and
-    rgb tap inside the block's 64x64 window (anchored at the 2x2 32-px
-    tile pair of its 8-corner min projection), run the running-average
-    TSDF/colour update and write state, colour and the summary row back at
-    pool row ptrs[i].  f32 throughout; the mip is the f32 mean of the
-    unquantized new sdf."""
-    H, W = depth.shape
-    tw, th = -(-W // PT), -(-H // PT)
-    sel = ptrs >= 0
-    if not bool(sel.any()):
-        return
-    rows = ptrs[sel].to(torch.int64)
-    k = keys[sel]
-    ax, ay = _window_anchor(k, w2c, fx, fy, cx, cy, tw, th, voxel_size)
-    dev = depth.device
-    lin = torch.arange(BLOCK_VOL, device=dev)
+def _voxel_taps(keys, w2c, fx, fy, cx, cy, W, H, voxel_size):
+    """Project the 512 voxels of each block of `keys` into a W x H frame.
+    Returns [V, 512] planes: camera z; `seen`, the voxel projects inside
+    the image (1 px rim excluded) and its nearest pixel inside the block's
+    64x64 window (anchored at the 2x2 32-px tile pair of its 8-corner min
+    projection); the flat index of that pixel; and `inside`, the pixel
+    also lies in the frame (the TPU kernels read zero-padded tiles past
+    its edge, so a tap there reads 0)."""
+    ax, ay = _window_anchor(keys, w2c, fx, fy, cx, cy, -(-W // PT), -(-H // PT),
+                            voxel_size)
+    lin = torch.arange(BLOCK_VOL, device=keys.device)
     vlx = (lin % BLOCK).to(torch.float32)
     vly = ((lin // BLOCK) % BLOCK).to(torch.float32)
     vlz = (lin // (BLOCK * BLOCK)).to(torch.float32)
-    bx, by, bz = (c.to(torch.float32)[:, None] * BLOCK for c in vhash.unpack(k))
+    bx, by, bz = (c.to(torch.float32)[:, None] * BLOCK for c in vhash.unpack(keys))
     px = (bx + vlx) * voxel_size
     py = (by + vly) * voxel_size
     pz = (bz + vlz) * voxel_size
@@ -156,7 +173,38 @@ def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
     iv = rv - (ay * PT)[:, None]
     in_win = (iu >= 0) & (iu < WIN) & (iv >= 0) & (iv < WIN)
     inside = in_win & (ru >= 0) & (ru < W) & (rv >= 0) & (rv < H)
-    pix = (rv.clamp(0, H - 1) * W + ru.clamp(0, W - 1))
+    pix = rv.clamp(0, H - 1) * W + ru.clamp(0, W - 1)
+    return zc, in_img & in_win, pix, inside
+
+
+def _summary_rows(new_f, new_w) -> torch.Tensor:
+    """The raycaster's per-block summary rows [V, 128]: the f32 mean 2x2x2
+    sdf mip in lanes 0..63, the min sdf over voxels with weight in lane 64
+    (1 where none has), the max weight in lane 65, zeros after."""
+    srow = torch.zeros((new_f.shape[0], 128), dtype=torch.float32,
+                       device=new_f.device)
+    srow[:, :64] = new_f.reshape(-1, 4, 2, 4, 2, 4, 2).mean(dim=(2, 4, 6)).reshape(-1, 64)
+    srow[:, 64] = torch.where(new_w > 0, new_f, 1.0).amin(dim=1)
+    srow[:, 65] = new_w.amax(dim=1)
+    return srow
+
+
+def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
+                                  summary, w2c, fx, fy, cx, cy, voxel_size,
+                                  mu, max_w) -> None:
+    """Plain PyTorch version of `integrate_cuda`: for each row with
+    ptrs >= 0, project the block's 512 voxels, take the nearest depth and
+    rgb tap inside the block's 64x64 window (`_voxel_taps`), run the
+    running-average TSDF/colour update in 0..255 colour units and write
+    state, colour and the summary row back at pool row ptrs[i].  f32
+    throughout; the mip is the f32 mean of the unquantized new sdf."""
+    H, W = depth.shape
+    sel = ptrs >= 0
+    if not bool(sel.any()):
+        return
+    rows = ptrs[sel].to(torch.int64)
+    zc, seen, pix, inside = _voxel_taps(keys[sel], w2c, fx, fy, cx, cy, W, H,
+                                        voxel_size)
     d_meas = torch.where(inside, depth.reshape(-1)[pix], 0.0)
     c_meas = torch.where(inside[..., None],
                          unpack_rgb(rgb_packed.reshape(-1)[pix]), 0.0)
@@ -166,7 +214,7 @@ def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
     old_w = state_w_depth(st).to(torch.float32)
     old_wc = state_w_color(st).to(torch.float32)
     eta = d_meas - zc
-    update = in_img & in_win & (d_meas > 0) & (eta >= -mu)
+    update = seen & (d_meas > 0) & (eta >= -mu)
     # a device-tensor divisor: on CUDA torch multiplies by the reciprocal
     # of a host scalar, which rounds differently from the kernel's division
     eta_mu = eta / torch.full_like(eta, mu)
@@ -184,25 +232,25 @@ def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
 
     state[rows] = pack_state(new_f, new_w, new_wc)
     color[rows] = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
-    mip = new_f.reshape(-1, 4, 2, 4, 2, 4, 2).mean(dim=(2, 4, 6)).reshape(-1, 64)
-    srow = torch.zeros((rows.shape[0], 128), dtype=torch.float32, device=dev)
-    srow[:, :64] = mip
-    srow[:, 64] = torch.where(new_w > 0, new_f, 1.0).amin(dim=1)
-    srow[:, 65] = new_w.amax(dim=1)
-    summary[rows] = srow
+    summary[rows] = _summary_rows(new_f, new_w)
 
 
 def integrate_blocks_packed(depth, rgb_packed, keys, ptrs, state, color,
                             summary, w2c, fx, fy, cx, cy, voxel_size, mu,
                             max_w) -> None:
-    """The per-block voxel update in place on the pool (see the plain
-    version for the semantics).  CPU tensors take the plain version; CUDA
-    tensors launch `integrate_cuda` or raise."""
+    """The per-block voxel update in place on the pool, by the frame's
+    `integrate_route`.  "packed": see the plain version for the semantics;
+    CPU tensors take it, CUDA tensors launch `integrate_cuda` or raise.
+    Otherwise the f32-I/O update (`_integrate_f32_route`)."""
+    H, W = depth.shape
+    if integrate_route(W, H) != "packed":
+        return _integrate_f32_route(depth, rgb_packed, keys, ptrs, state, color,
+                                    summary, w2c, fx, fy, cx, cy, voxel_size,
+                                    mu, max_w)
     if depth.device.type != "cuda":
         return integrate_blocks_packed_plain(
             depth, rgb_packed, keys, ptrs, state, color, summary, w2c,
             fx, fy, cx, cy, voxel_size, mu, max_w)
-    H, W = depth.shape
     if H < WIN or W < WIN:
         raise ValueError(f"integrate_cuda: frames below {WIN}x{WIN} px are "
                          f"not supported (got {W}x{H})")
@@ -230,6 +278,118 @@ def integrate_blocks_packed(depth, rgb_packed, keys, ptrs, state, color,
                kernels.stream_ptr())
     k.launches += 1
     kernels.check(k, err)
+
+
+def integrate_blocks_plain(depth, rgb_packed, keys, valid, old_sdf, old_w,
+                           old_color, old_wc, w2c, fx, fy, cx, cy, width,
+                           height, voxel_size, mu, max_w):
+    """Plain PyTorch version of `integrate_f32_cuda`: the JAX package's
+    `integrate_pallas.integrate_blocks` (K2a/K2b, `_voxel_update`) on
+    f32 planes.  depth [H, W] f32, rgb_packed [H, W] int32, keys [V],
+    valid [V] bool, old_sdf / old_w / old_wc [V, 512] f32, old_color
+    [V, 512] packed rgb888.  Returns (new_f, new_w [V, 512], new_c
+    [V, 512, 3] in 0..1, new_wc [V, 512]).  The taps are K1's
+    (`_voxel_taps`), the depth read exactly; colour is in 0..1 units: the
+    old colour is its byte divided by 255, a new tap its byte times
+    f32(1/255), as the TPU kernels compute them.  `valid`, `width` and
+    `height` keep the JAX function's signature, against which the tests
+    hold this one; the fusion route (`_integrate_f32_route`) passes only
+    its gathered rows, all valid, and the depth image's own size.  Rows
+    with valid False are computed all the same (the kernel leaves them
+    unwritten): callers drop them."""
+    zc, seen, pix, inside = _voxel_taps(keys, w2c, fx, fy, cx, cy, width,
+                                        height, voxel_size)
+    d_meas = torch.where(inside, depth.reshape(-1)[pix], 0.0)
+    c_meas = torch.where(inside[..., None],
+                         unpack_rgb(rgb_packed.reshape(-1)[pix]) * (1.0 / 255.0),
+                         0.0)
+    # device-tensor divisors: on CUDA torch multiplies by the reciprocal of
+    # a host scalar, where the JAX package and the kernel divide
+    mu_d, c255 = (torch.tensor(x, dtype=torch.float32, device=depth.device)
+                  for x in (mu, 255.0))
+    eta = d_meas - zc
+    update = seen & (d_meas > 0) & (eta >= -mu)
+    eta_mu = eta / mu_d
+    den = old_w + 1.0
+    new_f = torch.where(update, (old_w * old_sdf + torch.clamp(eta_mu, max=1.0))
+                        / den, old_sdf)
+    new_w = torch.where(update, torch.clamp(den, max=float(max_w)), old_w)
+    cu = update & (eta <= mu) & (eta_mu.abs() < 0.25)
+    oc = unpack_rgb(old_color) / c255
+    wc_den = old_wc + 1.0
+    new_c = torch.where(cu[..., None], (oc * old_wc[..., None] + c_meas)
+                        / wc_den[..., None], oc)
+    new_wc = torch.where(cu, torch.clamp(wc_den, max=float(max_w)), old_wc)
+    return new_f, new_w, new_c, new_wc
+
+
+def integrate_blocks(depth, rgb_packed, keys, valid, old_sdf, old_w,
+                     old_color, old_wc, w2c, fx, fy, cx, cy, width, height,
+                     voxel_size, mu, max_w):
+    """The f32-I/O per-block update (see the plain version for arguments
+    and semantics).  CPU tensors take the plain version; CUDA tensors
+    launch `integrate_f32_cuda` or raise.  On the card, rows with valid
+    False come back unwritten."""
+    if depth.device.type != "cuda":
+        return integrate_blocks_plain(
+            depth, rgb_packed, keys, valid, old_sdf, old_w, old_color, old_wc,
+            w2c, fx, fy, cx, cy, width, height, voxel_size, mu, max_w)
+    W, H = int(width), int(height)
+    if H < WIN or W < WIN:
+        raise ValueError(f"integrate_f32_cuda: frames below {WIN}x{WIN} px are "
+                         f"not supported (got {W}x{H})")
+    V = keys.shape[0]
+    k = kernels.INTEGRATE_F32
+    for name, t, dtype in (
+            ("depth", depth, torch.float32), ("rgb_packed", rgb_packed, torch.int32),
+            ("keys", keys, torch.int32), ("valid", valid, torch.bool),
+            ("old_sdf", old_sdf, torch.float32), ("old_w", old_w, torch.float32),
+            ("old_color", old_color, torch.int32), ("old_wc", old_wc, torch.float32)):
+        shape = ((H, W) if name in ("depth", "rgb_packed") else (V,)
+                 if name in ("keys", "valid") else (V, BLOCK_VOL))
+        kernels.check_tensor(k, name, t, dtype, shape)
+    new_f, new_w, new_wc = (torch.empty_like(old_sdf) for _ in range(3))
+    new_c = old_sdf.new_empty((V, BLOCK_VOL, 3))
+    if V == 0:
+        return new_f, new_w, new_c, new_wc
+    m = w2c.detach().to("cpu", torch.float32).tolist()
+    err = k.fn(depth.data_ptr(), rgb_packed.data_ptr(), keys.data_ptr(),
+               valid.data_ptr(), old_sdf.data_ptr(), old_w.data_ptr(),
+               old_color.data_ptr(), old_wc.data_ptr(), new_f.data_ptr(),
+               new_w.data_ptr(), new_c.data_ptr(), new_wc.data_ptr(), V, W, H,
+               float(fx), float(fy), float(cx), float(cy),
+               float(voxel_size), float(mu), int(max_w),
+               m[0][0], m[0][1], m[0][2], m[1][0], m[1][1], m[1][2],
+               m[2][0], m[2][1], m[2][2], m[0][3], m[1][3], m[2][3],
+               kernels.stream_ptr())
+    k.launches += 1
+    kernels.check(k, err)
+    return new_f, new_w, new_c, new_wc
+
+
+def _integrate_f32_route(depth, rgb_packed, keys, ptrs, state, color,
+                         summary, w2c, fx, fy, cx, cy, voxel_size, mu,
+                         max_w) -> None:
+    """The JAX package's route for frames above the packed budget
+    (`integrate_blocks_packed`, integrate_pallas.py:427-451): unpack the
+    integration rows (ptrs >= 0) to f32 planes, run `integrate_blocks`,
+    repack (sdf round(clip(f) * 32767), colour clip(c * 255 + 0.5)),
+    build the summary rows and write all three back into the pool in
+    place."""
+    H, W = depth.shape
+    sel = ptrs >= 0
+    rows = ptrs[sel].to(torch.int64)
+    if rows.numel() == 0:
+        return
+    st = state[rows]
+    new_f, new_w, new_c, new_wc = integrate_blocks(
+        depth, rgb_packed, keys[sel], torch.ones_like(rows, dtype=torch.bool),
+        state_sdf_f32(st), state_w_depth(st).to(torch.float32), color[rows],
+        state_w_color(st).to(torch.float32), w2c, fx, fy, cx, cy, W, H,
+        voxel_size, mu, max_w)
+    state[rows] = pack_state(new_f, new_w, new_wc)
+    color[rows] = pack_rgb(new_c)
+    summary[rows] = _summary_rows(new_f, new_w)
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +449,7 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
     new_wc = torch.where(cu, torch.clamp(old_wc + 1.0, max=float(p.max_w)), old_wc)
     vol.state[rows] = pack_state(new_f, new_w, new_wc)
     vol.color[rows] = pack_rgb(new_c)
-    mip = new_f.reshape(-1, 4, 2, 4, 2, 4, 2).mean(dim=(2, 4, 6)).reshape(-1, 64)
-    srow = torch.zeros((rows.shape[0], 128), device=depth.device)
-    srow[:, :64] = mip
-    srow[:, 64] = torch.where(new_w > 0, new_f, 1.0).amin(dim=1)
-    srow[:, 65] = new_w.amax(dim=1)
-    vol.summary[rows] = srow
+    vol.summary[rows] = _summary_rows(new_f, new_w)
 
 
 def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,

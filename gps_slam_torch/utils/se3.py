@@ -12,11 +12,16 @@ import torch.nn.functional as F
 
 
 def pose_inv(c2w: torch.Tensor) -> torch.Tensor:
-    """Invert a rigid 4x4 transform analytically."""
+    """Invert a rigid 4x4 transform analytically.  The translation is
+    summed term by term, not by a matmul: CPU and CUDA matmuls round a
+    3x3 product differently, and one ulp of translation can move a voxel's
+    nearest tap across a pixel edge, so fusion on the card would stop
+    matching fusion on the CPU."""
     R = c2w[..., :3, :3]
     t = c2w[..., :3, 3:4]
     Rt = R.transpose(-1, -2)
-    t_inv = -(Rt @ t)
+    t_inv = -(Rt[..., :, 0:1] * t[..., 0:1, :] + Rt[..., :, 1:2] * t[..., 1:2, :]
+              + Rt[..., :, 2:3] * t[..., 2:3, :])
     top = torch.cat([Rt, t_inv], dim=-1)
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w.dtype,
                           device=c2w.device).expand(*top.shape[:-2], 1, 4)

@@ -88,6 +88,51 @@ def test_integrate_cuda_matches_plain(cuda_device, fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width,height", [(1296, 968), (1920, 1080)])
+def test_integrate_f32_cuda_matches_plain(cuda_device, width, height):
+    """integrate_f32_cuda against its plain version at the two frame sizes
+    that take the f32 route (the JAX package's K2a and K2b): a grid of
+    blocks across the frustum of an identity camera, a noisy depth plane
+    behind it, random old planes and 10% of the rows invalid.  On valid
+    rows both evaluate the same f32 expressions (nvcc -fmad=false,
+    device-tensor divisors in the plain version): weights equal, sdf and
+    colour within 1e-6."""
+    import numpy as np
+
+    from gps_slam_torch.tsdf import hash as thash
+
+    rng = np.random.default_rng(7)
+    f = float(width)
+    depth = rng.normal(1.1, 0.01, (height, width)).astype(np.float32)
+    depth[rng.random((height, width)) < 0.05] = 0.0
+    rgbp = rng.integers(0, 2 ** 24, (height, width), dtype=np.int32)
+    b = np.stack(np.meshgrid(np.arange(-13, 13), np.arange(-10, 10), np.arange(26, 30),
+                             indexing="ij"), -1).reshape(-1, 3)
+    V = b.shape[0]
+    keys = thash.pack(*(torch.as_tensor(b[:, k]) for k in range(3)))
+    valid = rng.random(V) > 0.1
+    planes = (rng.uniform(-1, 1, (V, 512)), rng.integers(0, 50, (V, 512)),
+              rng.integers(0, 2 ** 24, (V, 512), dtype=np.int32),
+              rng.integers(0, 50, (V, 512)))
+    args = [torch.as_tensor(depth), torch.as_tensor(rgbp), keys, torch.as_tensor(valid)]
+    args += [torch.as_tensor(p if p.dtype == np.int32 else p.astype(np.float32))
+             for p in planes]
+    args = [a.to(cuda_device) for a in args] + [
+        torch.eye(4, device=cuda_device), f, f, width / 2, height / 2, width, height,
+        0.005, 0.02, 100]
+    ok = tint.integrate_blocks(*args)
+    op = tint.integrate_blocks_plain(*args)
+    torch.cuda.synchronize()
+    sel = args[3]
+    (fk, wk, ck, wck), (fp, wp, cp, wcp) = ([x[sel].cpu() for x in o] for o in (ok, op))
+    assert torch.equal(wk, wp) and torch.equal(wck, wcp)
+    assert (wk != args[5][sel].cpu()).float().mean() > 0.1
+    assert (wck != args[7][sel].cpu()).float().mean() > 0.01
+    torch.testing.assert_close(fk, fp, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ck, cp, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k_blocks", [1, 2])
 def test_raycast_cuda_matches_plain(cuda_device, fused, k_blocks):
     """raycast_cuda against its plain version: both evaluate the same f32
@@ -261,6 +306,12 @@ def test_wrappers_refuse_bad_input(cuda_device):
         tint.integrate_blocks_packed(
             torch.zeros((32, 32), device=cuda_device), None, None, None, None,
             None, None, None, 1.0, 1.0, 1.0, 1.0, 0.01, 0.02, 100)
+    d = torch.zeros((72, 96), device=cuda_device)
+    planes = [torch.zeros((4, 512), device=cuda_device)] * 4
+    with pytest.raises(ValueError):  # an int32 colour plane given as f32
+        tint.integrate_blocks(d, d.int(), x[:, 0].int(), x[:, 0].bool(), *planes,
+                              torch.eye(4, device=cuda_device), 1.0, 1.0, 1.0, 1.0,
+                              96, 72, 0.01, 0.02, 100)
 
 
 def test_check_tensor_refuses_what_the_kernels_do_not_take():

@@ -10,8 +10,10 @@ its kernel branch, with its four Pallas kernels (integrate, raycast march,
 splat forward and backward) in interpret mode, as the JAX package's own
 kernel tests run them on the CPU, and onto its eager per-phase window
 (no one-dispatch megastep), which is the path the port follows.  The
-spawn's random pixel choice differs (jax.random vs torch.Generator);
-everything else is deterministic."""
+spawn's random pixel choice (jax.random vs torch.Generator) is taken out
+of both runs: each spawn is handed the pixels of one numpy draw, the same
+for the n-th spawn of either package (`_same_spawn_pixels`), so both
+spawn from the same pixels wherever their spawn masks agree."""
 
 import copy
 import functools
@@ -57,6 +59,28 @@ def _jax_on_kernel_branch(mp):
     mp.setattr(SLAMPipeline, "disable_megastep", True, raising=False)
 
 
+def _same_spawn_pixels(mp, model_mod, to_mask):
+    """Replace the package's random spawn sample by a numpy one: of the
+    spawn mask's n pixels, the k-th spawn call keeps the floor(ratio x n)
+    with the lowest priority in a numpy draw seeded by k, and hands the
+    package that set (`to_mask(bool array, like=mask)`) with ratio 1, so
+    the package takes every pixel of it, in an order of its own."""
+    orig = model_mod.add_gaussians
+    n_calls = [0]
+
+    def add(pool, vertex, color, normal, mask, ratio, *a, **k):
+        m = np.asarray(mask.cpu() if hasattr(mask, "cpu") else mask).reshape(-1)
+        n_want = int(np.float32(m.sum()) * np.float32(ratio))
+        prio = np.random.default_rng(1000 + n_calls[0]).random(m.shape[0])
+        n_calls[0] += 1
+        keep = np.zeros(m.shape[0], bool)
+        keep[np.argsort(np.where(m, prio, np.inf), kind="stable")[:n_want]] = True
+        return orig(pool, vertex, color, normal, to_mask(keep.reshape(mask.shape), mask),
+                    1.0, *a, **k)
+
+    mp.setattr(model_mod, "add_gaussians", add)
+
+
 def _record_windows(mp, model_mod, windows):
     """Record each window_optimize call: the camera id of every Adam step,
     the step losses and the epoch length (each epoch is a permutation of
@@ -89,17 +113,23 @@ def runs(tmp_path_factory):
         paths[name] = (str(tmp / f"cfg_{name}.yaml"), d["workspace_dir"], d)
         with open(paths[name][0], "w") as f:
             yaml.safe_dump(d, f)
+    import jax.numpy as jnp
+    import torch
+
     import gps_slam_tpu.gs.model as jmodel
     import gps_slam_torch.gs.model as tmodel
 
     windows = {"jax": [], "torch": []}
     with pytest.MonkeyPatch.context() as mp:
         _jax_on_kernel_branch(mp)
+        _same_spawn_pixels(mp, jmodel, lambda keep, like: jnp.asarray(keep))
         _record_windows(mp, jmodel, windows["jax"])
         import slam_trainer
 
         slam_trainer.main(paths["jax"][0])
     with pytest.MonkeyPatch.context() as mp:
+        _same_spawn_pixels(mp, tmodel,
+                           lambda keep, like: torch.as_tensor(keep, device=like.device))
         _record_windows(mp, tmodel, windows["torch"])
         import slam_trainer_torch
 
@@ -162,14 +192,18 @@ def test_slice_artifacts(runs):
 
 
 def test_slice_time_log_counts_bin_overflow(runs):
-    """time_log.txt carries the window binning's real overflow count, a
-    number, where the forward-only slice wrote a constant 0."""
+    """time_log.txt carries the window binning's real overflow count, the
+    JAX run's number: both count the opt set padded to window length +
+    keyframe_select_max cameras with copies of the last one."""
     import re
 
-    log = open(os.path.join(runs["torch"][1], "time_log.txt")).read()
-    m = re.search(r"^Bin overflow: (\d+)$", log, re.M)
-    assert m is not None, log
-    assert int(m.group(1)) >= 0
+    counts = []
+    for name in ("jax", "torch"):
+        log = open(os.path.join(runs[name][1], "time_log.txt")).read()
+        m = re.search(r"^Bin overflow: (\d+)$", log, re.M)
+        assert m is not None, (name, log)
+        counts.append(int(m.group(1)))
+    assert counts[1] == counts[0], counts
 
 
 def test_slice_adam_windows_visit_the_same_cameras(runs):
@@ -225,10 +259,10 @@ def test_slice_voxels_match_by_key(runs):
 
 
 def test_slice_gaussian_count_close(runs):
-    """The spawn takes floor(ratio x masked pixels) in both packages; the
-    masks agree up to the few pixels the rendered alpha gate and the
-    random pixel choice move, and the prune acts on kNN scales of
-    different samples: counts within 5%."""
+    """The spawn takes floor(ratio x masked pixels) in both packages, from
+    the same numpy draw (`_same_spawn_pixels`); the masks agree up to the
+    few pixels the rendered alpha gate moves, and the prune acts on the
+    kNN scales of those samples: counts within 5%."""
     gj, gt = _gs_count(runs["jax"][1]), _gs_count(runs["torch"][1])
     assert gj > 100
     assert abs(gt - gj) <= 0.05 * gj, (gj, gt)
@@ -236,8 +270,7 @@ def test_slice_gaussian_count_close(runs):
 
 def test_slice_eval_psnr_close(runs):
     """Eval PSNR (JPEG renders vs gt, as test_slam reads them) within
-    1.5 dB of the JAX run's mean; the difference is the spawn's random
-    pixel choice."""
+    1.5 dB of the JAX run's mean."""
     nj, pj = _psnr_dir(runs["jax"][1])
     nt, pt = _psnr_dir(runs["torch"][1])
     assert nj == nt and len(nj) == N_FRAMES

@@ -10,6 +10,8 @@ splat kernels run in interpret mode, the port through its kernels' plain
 PyTorch versions (the CUDA kernels are held against those in
 test_torch_cuda.py)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from gps_slam_torch import convert
 from gps_slam_torch.config import Config as TConfig
 from gps_slam_torch.gs import model as tmodel
 from gps_slam_torch.gs import optim as toptim
+from gps_slam_torch.slam import pipeline as tpipe
 
 ITERS = 10
 ROW_KEYS = ("means", "scales", "quats", "features_dc", "features_rest", "opacities")
@@ -46,18 +49,15 @@ def _config_dict(tmp, cam):
     return synthetic.default_config_dict(str(tmp), node)
 
 
-def _window(tmp, W, H, seed):
-    """Gaussians spawned by the JAX package on each of three synthetic
-    cameras (they overlap little), and the window batch of the three: gt images, a reference
-    depth near the gt depth with an empty band (as a raycast leaves holes)
-    and a noisy base colour.  Returns the JAX model, the port's pool, the
-    two configs and the batches."""
-    rng = np.random.default_rng(seed)
+@functools.lru_cache(maxsize=None)
+def _spawned(tmp, W, H):
+    """The pool (numpy params, alive mask) of Gaussians spawned by the JAX
+    package on each of three synthetic W x H cameras (they overlap
+    little).  The spawn draws from the model's own key, so one W x H
+    spawn serves every test of the file; callers copy what they keep."""
     cams = synthetic.make_cameras(n_frames=3, width=W, height=H)
-    d = _config_dict(tmp, cams[0])
-    jcfg, tcfg = JConfig.from_dict(d), TConfig.from_dict(d)
+    jcfg = JConfig.from_dict(_config_dict(tmp, cams[0]))
     jm = jmodel.GaussianModel(jcfg, W, H)
-    jm.statics = jm.statics._replace(splat_impl="pallas_interpret")
     mask = jnp.zeros((H, W), bool).at[::4, ::4].set(True)
     for cam in cams:
         fm = cam.get_frame_maps()
@@ -66,8 +66,26 @@ def _window(tmp, W, H, seed):
             1024, jcfg.model.default_opacities,
             (jcfg.model.min_init_scale, jcfg.model.max_init_scale), jm.next_rng())
         assert int(n_added) > 50
-    pool_np = {k: np.array(v) for k, v in jm.pool.params.items()}
-    alive = np.array(jm.pool.alive)
+    return {k: np.array(v) for k, v in jm.pool.params.items()}, np.array(jm.pool.alive)
+
+
+def _window(tmp, W, H, seed):
+    """The JAX spawn of `_spawned` and the window batch of its three
+    cameras: gt images, a reference depth near the gt depth with an empty
+    band (as a raycast leaves holes) and a noisy base colour.  Returns the
+    JAX model holding that pool, the pool's numpy params and alive mask,
+    the port's pool, the two configs and the batches."""
+    rng = np.random.default_rng(seed)
+    cams = synthetic.make_cameras(n_frames=3, width=W, height=H)
+    d = _config_dict(tmp, cams[0])
+    jcfg, tcfg = JConfig.from_dict(d), TConfig.from_dict(d)
+    jm = jmodel.GaussianModel(jcfg, W, H)
+    jm.statics = jm.statics._replace(splat_impl="pallas_interpret")
+    spawned, alive = _spawned(str(tmp.parent), W, H)
+    pool_np = {k: v.copy() for k, v in spawned.items()}
+    alive = alive.copy()
+    jm.pool = jm.pool.with_params({k: jnp.asarray(v) for k, v in pool_np.items()}).replace(
+        alive=jnp.asarray(alive), n_alive=jnp.asarray(alive.sum(), jnp.int32))
     ref = np.stack([c.depth[..., 0] * rng.uniform(0.98, 1.02, (H, W)) for c in cams])
     ref[:, :, :6] = 0.0
     base = np.clip(np.stack([c.image for c in cams])
@@ -255,6 +273,34 @@ def test_window_optimize_matches_jax(tmp_path, path):
     for k in ("n_tile_overflow", "n_span_overflow", "n_active_overflow"):
         assert aux_t[k] == int(aux_j[k]), k
     _check_final_params(pool_t, pool_j, alive, tcfg, ITERS)
+
+
+def test_window_overflow_counts_the_padded_opt_set(tmp_path):
+    """The window's binning overflow counts as the JAX pipeline reports
+    them: its local_optimize pads the opt set (here 3 cameras) to M = 5
+    with copies of the last one and window_optimize sums the overflows of
+    all 5; the port bins the 3 cameras once and its pipeline pads the sum
+    (`padded_overflow`).  With 1 tile per Gaussian, 2 slots per tile list
+    and 2 active tiles every count is > 0, and the three are equal.  The
+    JAX side renders through its XLA splat: the counts come from the
+    binning alone."""
+    W, H, M = 64, 48, 5
+    jm, pool_np, alive, pt, jcfg, tcfg, bj, bt = _window(tmp_path, W, H, seed=21)
+    st_j = jm.statics._replace(tiles_per_gaussian_cap=1, tile_cap=2, active_tile_cap=2,
+                               splat_impl="xla")
+    st_t = tmodel.RenderStatics(*st_j[:-1])
+    opt_cap = jm.opt_cap()
+    idx = [0, 2]
+    pad = [min(i, 2) for i in range(M)]
+    bj_pad = {k: v[jnp.asarray(pad)] for k, v in bj.items()}
+    _, aux_j = jmodel.window_optimize(
+        jm.pool, bj_pad, jnp.asarray(idx, jnp.int32), st_j, jmodel.tx_cfg_tuple(jcfg.model),
+        jcfg.pipe.max_iterations, 0.0, 0.0, opt_cap, None)
+    _, aux_t = tmodel.window_optimize(pt, bt, idx, st_t, tcfg.model,
+                                      tcfg.pipe.max_iterations, 0.0, 0.0, opt_cap)
+    counts = tpipe.padded_overflow(aux_t["bin_overflow"], M)
+    for k, n in zip(("n_tile_overflow", "n_span_overflow", "n_active_overflow"), counts):
+        assert n == int(aux_j[k]) > 0, k
 
 
 def test_window_optimize_f32_matches_f64(tmp_path):
