@@ -29,8 +29,9 @@ Phases (any failure exits non-zero before the final line):
      ROUTE_PSNR_GAP_DB of the f32 route's: a gap to the 1200x680 PSNR is
      then the frame size's, not the route's;
   6. kernels: each kernel against its plain PyTorch version on the inputs
-     of its last call on its path (K2 once per route), with CUDA-event
-     timings and the least time the card could take for the same work;
+     of its last call on its path (K2 once per route, K3 on the main path
+     and on the 1920x1080 path), with CUDA-event timings, the least time
+     the card could take for the same work and the kernel's design;
   7. reference: fusion at 128x96 on the card against the plain CPU path,
      on K1's route and on the f32 route (budget 0): the same block set and,
      by key, every state word's weights equal, sdf within 1 quantum and
@@ -90,6 +91,38 @@ def tap_pixels(keys, w2c, fx, fy, cx, cy, W, H, voxel_size) -> int:
     return torch.unique(pix[seen]).numel()
 
 
+def march_work(margs, chunk: int = 128) -> dict:
+    """What a `march` call's data asks of it, from the plain version's own
+    coarse pass (`raycast_tiles._coarse`) and pick rule: the (quad, block)
+    pairs whose slab test hits (only they take the coarse mip samples), the
+    picks the quads make (min(k_blocks, their keys < inf): only they are
+    refined, at each of the quad's 4 pixels), and the distinct blocks that
+    any quad picks (only their state rows are read)."""
+    from gps_slam_torch.tsdf import raycast_tiles as trc
+
+    gids, _, _, summary, bc, cam, tw, s_c, _, k_b = margs[:10]
+    T, LB = gids.shape
+    hit_pairs = picks = 0
+    picked_rows = []
+    slots = torch.arange(LB, device=gids.device)[None, :, None]
+    for a in range(0, T, chunk):
+        g = gids[a:a + chunk]
+        tiles = torch.arange(a, a + g.shape[0], device=gids.device)
+        _, gsafe, _, hit, key, _, _, _ = trc._coarse(tiles, g, summary, bc, cam, tw, s_c)
+        hit_pairs += int(hit.sum().item())
+        picked = torch.zeros(g.shape, dtype=torch.bool, device=g.device)
+        for _ in range(k_b):
+            kmin = key.amin(1)                                       # [n, 64]
+            slot = torch.where(torch.isfinite(kmin), key.argmin(1), LB)
+            mark = slots == slot[:, None, :]                         # [n, LB, 64]
+            picked |= mark.any(2)
+            key = torch.where(mark, torch.inf, key)
+            picks += int((slot < LB).sum().item())
+        picked_rows.append(gsafe[picked])
+    return {"hit_pairs": hit_pairs, "picks": picks,
+            "picked_rows": torch.unique(torch.cat(picked_rows)).numel()}
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     tb = n_bytes / H100_BYTES_PER_S * 1e3
     to = n_ops / H100_F32_FLOP_PER_S * 1e3
@@ -99,10 +132,17 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 _L2_FLUSH = None
 
 
+# cycles the card spins before each timed launch (~1 ms at H100 clocks),
+# so that the host has queued the launch before the start event runs
+_HOST_LEAD_CYCLES = 2_000_000
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean CUDA-event time of fn over `reps` launches, each after a write
-    of 128 MiB that evicts the 50 MB L2: the main path reaches each kernel
-    with its pool rows cold."""
+    of 128 MiB that evicts the 50 MB L2 (the main path reaches each kernel
+    with its pool rows cold) and a spin of the card that keeps it busy
+    while the host runs the wrapper: the events then time the device work
+    of fn alone, not the host's Python before the launch."""
     global _L2_FLUSH
     if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
@@ -112,6 +152,7 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
           for _ in range(reps)]
     for a, b in ev:
         _L2_FLUSH.zero_()
+        torch.cuda._sleep(_HOST_LEAD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -330,14 +371,15 @@ def main_path(args) -> dict:
     return out
 
 
-def large_frame_paths(args, rec) -> list[tuple]:
+def large_frame_paths(args, rec) -> tuple[list, tuple]:
     """The frames above the JAX kernels' packed budget, on K2
     (`integrate_f32_cuda`): 1296x968 forward only (the K2a route), then
     1920x1080 with ADAM_STEPS per window (the K2b route), then the same
     1920x1080 frames on K1's route as a witness of the f32 route's PSNR.
     Returns, per K2 route, K2's row label, the TPU kernel it stands in
     for, the arguments of the path's last `integrate_blocks` call and its
-    launch count."""
+    launch count; and K3's (tag, last `march` call, launches) on the
+    1920x1080 path, its largest device consumer."""
     from gps_slam_torch import kernels
     from gps_slam_torch.tsdf import integrate as tint
 
@@ -355,6 +397,7 @@ def large_frame_paths(args, rec) -> list[tuple]:
             raise RuntimeError(f"{tag} ran {r['adam_steps']} Adam steps")
         out.append((tpu, body, rec.last["integrate_blocks"][0],
                     r["launches"][kernels.INTEGRATE_F32.name]))
+    k3 = (f"{w}x{h}", rec.last["march"], r["launches"][kernels.RAYCAST.name])
 
     saved = tint._RESIDENT_BYTES
     tint._RESIDENT_BYTES = 2 ** 25
@@ -371,13 +414,14 @@ def large_frame_paths(args, rec) -> list[tuple]:
         "psnr_k1_route": k1["psnr_mean"], "gap_db": gap}))
     if not abs(gap) <= ROUTE_PSNR_GAP_DB:
         raise RuntimeError(f"{w}x{h}: the f32 route's PSNR is {gap} dB off K1's")
-    return out
+    return out, k3
 
 
 def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
     """K2 (`integrate_f32_cuda`) against `integrate_blocks_plain` on the
     arguments of one `integrate_blocks` call; the output of rows with
     valid False is unwritten by the kernel and not compared."""
+    from gps_slam_torch import kernels
     from gps_slam_torch.tsdf import integrate as tint
     from gps_slam_torch.tsdf.volume import BLOCK_VOL
 
@@ -402,7 +446,8 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
                + Vv * BLOCK_VOL * 4 * 4 + Vv * BLOCK_VOL * 4 * 6)
     n_ops = Vv * BLOCK_VOL * 110
     b, by = bound_ms(n_bytes, n_ops)
-    return {"name": f"integrate_f32_cuda ({tag})", "tpu": tag, "route": "cuda",
+    return {"name": f"integrate_f32_cuda ({tag})", "tpu": tag,
+            "design": kernels.INTEGRATE_F32.design, "route": "cuda",
             "source": "gps_slam_torch/csrc/integrate_f32.cu", "replaces": replaces,
             "launches": launches, "max_abs_err": float(max(f_err, c_err)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
@@ -413,14 +458,72 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
             "sdf_err": f_err, "color_err": c_err}
 
 
-def kernel_phase(last: dict, launches: dict, k2: list) -> list[dict]:
-    """Each kernel against its plain version: K1, K3, K4 and K5 on the
-    inputs of their last main-path call (`last`, with the main path's
+def k3_row(tag: str | None, call: tuple, launches: int) -> dict:
+    """K3 (`raycast_cuda`) against `march_plain` on the arguments of one
+    `march` call (`call`: args, kwargs); `tag` names the path when it is
+    not the main path."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.tsdf import raycast_tiles as trc
+
+    a, kw = call
+    gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b = a[:10]
+    need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
+    margs = (gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b, need_color)
+    ok_out = trc.march(*margs)
+    pl_out = trc.march_plain(*margs)
+    torch.cuda.synchronize()
+    hk, hp = ok_out[:, 5] > 0, pl_out[:, 5] > 0
+    hit_flips = int((hk != hp).sum().item())
+    px_err = (ok_out[:, :5] - pl_out[:, :5]).abs().amax(1)[hk & hp]
+    max_err = px_err.max().item() if px_err.numel() else 0.0
+    ok3 = hit_flips == 0 and max_err < 1e-4
+    ms = time_ms(lambda: trc.march(*margs), 20)
+    plain_ms = time_ms(lambda: trc.march_plain(*margs), 2, 1)
+    T, LB = gids.shape
+    valid = gids[gids >= 0]
+    n_rows = torch.unique(valid).numel()
+    n_slots = valid.numel()
+    work = march_work(margs)
+    n_hit = int(hp.sum().item())
+    # colour words: the hit pixels' 8 corner words, at most each picked
+    # block's whole row
+    col_words = min(work["picked_rows"] * 512, n_hit * 8) if need_color else 0
+    # the lists, each listed block's mip row, max weight and coordinate
+    # key, the picked blocks' state rows, the colour words, the output
+    n_bytes = (gids.numel() * 4 + n_rows * (64 + 1 + 1) * 4
+               + work["picked_rows"] * 512 * 4 + col_words * 4 + ok_out.numel() * 4)
+    n_ops = (n_slots * 64 * 20                        # quad slab test, every listed pair
+             + work["hit_pairs"] * s_c * 60           # coarse mip samples, pairs that hit
+             + work["picks"] * 4 * (20 + s_r * 60)    # refine, the picked quads' pixels
+             + (n_hit * 3 * 60 if need_color else 0))  # colour read, pixels that hit
+    b, by = bound_ms(n_bytes, n_ops)
+    return {"name": "raycast_cuda" + (f" ({tag})" if tag else ""), "tpu": "K3",
+            "design": kernels.RAYCAST.design, "route": "cuda",
+            "source": "gps_slam_torch/csrc/raycast.cu",
+            "replaces": "gps_slam_tpu/tsdf/raycast_pallas.py:51",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "ok": ok3,
+            "bytes": n_bytes, "ops": n_ops,
+            "shapes": {"T": T, "LB": LB, "valid_slots": n_slots,
+                       "distinct_blocks": n_rows, "hit_pairs": work["hit_pairs"],
+                       "picks": work["picks"], "picked_rows": work["picked_rows"],
+                       "hit_pixels": n_hit, "k_blocks": k_b,
+                       "s_coarse": s_c, "s_refine": s_r, "need_color": bool(need_color)},
+            "tolerance": "hit masks equal; t*, confidence, colour within "
+                         "1e-4 wherever both hit",
+            "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item()}
+
+
+def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
+    """Each kernel against its plain version: K1, K4 and K5 on the inputs
+    of their last main-path call (`last`, with the main path's
     `launches`), K2 on each route's last call (`k2`: (tag, replaces,
-    arguments, launches) per route)."""
+    arguments, launches) per route), K3 on the last call of the main path
+    and of the 1920x1080 path (`k3`: (tag, call, launches) per path)."""
+    from gps_slam_torch import kernels
     from gps_slam_torch.gs import rasterize as trz
     from gps_slam_torch.tsdf import integrate as tint
-    from gps_slam_torch.tsdf import raycast_tiles as trc
     from gps_slam_torch.tsdf.volume import BLOCK_VOL
 
     rows = []
@@ -469,7 +572,8 @@ def kernel_phase(last: dict, launches: dict, k2: list) -> list[dict]:
                + Vv * BLOCK_VOL * 4 * 4 + Vv * 128 * 4)
     n_ops = Vv * BLOCK_VOL * 110
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "integrate_cuda", "tpu": "K1", "route": "cuda",
+    rows.append({"name": "integrate_cuda", "tpu": "K1",
+                 "design": kernels.INTEGRATE.design, "route": "cuda",
                  "source": "gps_slam_torch/csrc/integrate.cu",
                  "replaces": "gps_slam_tpu/tsdf/integrate_pallas.py:239",
                  "launches": launches["integrate_cuda"],
@@ -489,44 +593,8 @@ def kernel_phase(last: dict, launches: dict, k2: list) -> list[dict]:
     # ---- K2a / K2b: the f32-I/O update, on each route's last call
     rows += [k2_row(*r) for r in k2]
 
-    # ---- K3: raycast march, on the last raycast's inputs
-    (a, kw) = last["march"]
-    gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b = a[:10]
-    need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
-    margs = (gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b, need_color)
-    ok_out = trc.march(*margs)
-    pl_out = trc.march_plain(*margs)
-    torch.cuda.synchronize()
-    hk, hp = ok_out[:, 5] > 0, pl_out[:, 5] > 0
-    hit_flips = int((hk != hp).sum().item())
-    px_err = (ok_out[:, :5] - pl_out[:, :5]).abs().amax(1)[hk & hp]
-    max_err = px_err.max().item() if px_err.numel() else 0.0
-    ok3 = hit_flips == 0 and max_err < 1e-4
-    ms = time_ms(lambda: trc.march(*margs), 20)
-    plain_ms = time_ms(lambda: trc.march_plain(*margs), 2, 1)
-    T, LB = gids.shape
-    valid = gids[gids >= 0]
-    n_rows = torch.unique(valid).numel()
-    n_slots = valid.numel()
-    n_bytes = (gids.numel() * 4 + n_rows * (512 * 4 * 2 + 128 * 4 + 4)
-               + ok_out.numel() * 4)
-    n_ops = (n_slots * 64 * (20 + s_c * 60)          # quad slab + coarse mip samples
-             + T * 256 * k_b * (20 + s_r * 60)       # per-pixel refine
-             + T * 256 * 3 * 60)                      # colour read
-    b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "raycast_cuda", "tpu": "K3", "route": "cuda",
-                 "source": "gps_slam_torch/csrc/raycast.cu",
-                 "replaces": "gps_slam_tpu/tsdf/raycast_pallas.py:51",
-                 "launches": launches["raycast_cuda"], "max_abs_err": max_err,
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                 "library_ms": None, "ok": ok3,
-                 "bytes": n_bytes, "ops": n_ops,
-                 "shapes": {"T": T, "LB": LB, "valid_slots": n_slots,
-                            "distinct_blocks": n_rows, "k_blocks": k_b,
-                            "s_coarse": s_c, "s_refine": s_r},
-                 "tolerance": "hit masks equal; t*, confidence, colour within "
-                              "1e-4 wherever both hit",
-                 "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item()})
+    # ---- K3: raycast march, on the last raycast's inputs of each path
+    rows += [k3_row(*r) for r in k3]
 
     # ---- K4: splat forward, on the last render's inputs
     (a, _) = last["splat_fwd"]
@@ -545,7 +613,8 @@ def kernel_phase(last: dict, launches: dict, k2: list) -> list[dict]:
                + ok_out.numel() * 4)
     n_ops = n_pairs * (25 + 2 * (C + 1))
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "splat_fwd_cuda", "tpu": "K4", "route": "cuda",
+    rows.append({"name": "splat_fwd_cuda", "tpu": "K4",
+                 "design": kernels.SPLAT_FWD.design, "route": "cuda",
                  "source": "gps_slam_torch/csrc/splat_fwd.cu",
                  "replaces": "gps_slam_tpu/gs/splat_pallas.py:83",
                  "launches": launches["splat_fwd_cuda"], "max_abs_err": max_err,
@@ -579,7 +648,8 @@ def kernel_phase(last: dict, launches: dict, k2: list) -> list[dict]:
     # 6 + C running sums
     n_ops = n_pairs * (55 + 4 * C)
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "splat_bwd_cuda", "tpu": "K5", "route": "cuda",
+    rows.append({"name": "splat_bwd_cuda", "tpu": "K5",
+                 "design": kernels.SPLAT_BWD.design, "route": "cuda",
                  "source": "gps_slam_torch/csrc/splat_bwd.cu",
                  "replaces": "gps_slam_tpu/gs/splat_pallas.py:99",
                  "launches": launches["splat_bwd_cuda"], "max_abs_err": max_err,
@@ -723,7 +793,8 @@ def main() -> int:
     kernels.build_all()
     log(f"[build] {len(kernels.ALL)} kernels in {time.monotonic() - t0:.1f} s")
     for k, v in kernels.build_log.items():
-        regs = [ln.strip() for ln in v.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in v.splitlines()
+                if "registers" in ln or "stack frame" in ln or "spill" in ln]
         log(f"[build] {k}: {regs}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -733,7 +804,9 @@ def main() -> int:
     rec = Recorder()
     mp = main_path(args)
     main_last = dict(rec.last)
-    rows = kernel_phase(main_last, mp["launches"], large_frame_paths(args, rec))
+    k2, k3_large = large_frame_paths(args, rec)
+    k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large]
+    rows = kernel_phase(main_last, mp["launches"], k2, k3)
     reference_phase()
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

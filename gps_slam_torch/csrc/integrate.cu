@@ -39,11 +39,9 @@ __global__ void __launch_bounds__(VOL)
 integrate_kernel(const float* __restrict__ depth, const int* __restrict__ rgb,
                  const int* __restrict__ keys, const int* __restrict__ ptrs,
                  int* __restrict__ state, int* __restrict__ color,
-                 float* __restrict__ summary, int W, int H,
-                 float fx, float fy, float cx, float cy, float vs, float mu,
-                 int max_w, float r00, float r01, float r02, float r10,
-                 float r11, float r12, float r20, float r21, float r22,
-                 float t0, float t1, float t2) {
+                 float* __restrict__ summary, const float* __restrict__ pose,
+                 int W, int H, float fx, float fy, float cx, float cy,
+                 float vs, float mu, int max_w) {
   __shared__ float s_f[VOL];
   __shared__ float s_red[2][VOL / 32];
   __shared__ float s_uv[2][8];
@@ -53,6 +51,10 @@ integrate_kernel(const float* __restrict__ depth, const int* __restrict__ rgb,
   if (row < 0) return;  // dropped candidate: nothing to update
   const int key = keys[blk];
   const int lin = threadIdx.x;
+  // w2c rows [R | t], 3 x 4, read from the device (no host read-back)
+  const float r00 = pose[0], r01 = pose[1], r02 = pose[2], t0 = pose[3];
+  const float r10 = pose[4], r11 = pose[5], r12 = pose[6], t1 = pose[7];
+  const float r20 = pose[8], r21 = pose[9], r22 = pose[10], t2 = pose[11];
   const float bxw = (float)((key & 1023) - 512) * BLOCK;
   const float byw = (float)(((key >> 10) & 1023) - 512) * BLOCK;
   const float bzw = (float)(((key >> 20) & 1023) - 512) * BLOCK;
@@ -180,17 +182,13 @@ integrate_kernel(const float* __restrict__ depth, const int* __restrict__ rgb,
 
 extern "C" int integrate_packed(
     const float* depth, const int* rgb, const int* keys, const int* ptrs,
-    int* state, int* color, float* summary, int V, int W, int H, int B,
-    float fx, float fy, float cx, float cy, float voxel_size, float mu,
-    int max_w, float r00, float r01, float r02, float r10, float r11,
-    float r12, float r20, float r21, float r22, float t0, float t1, float t2,
-    cudaStream_t stream) {
-  (void)B;
+    int* state, int* color, float* summary, const float* pose, int V, int W,
+    int H, float fx, float fy, float cx, float cy, float voxel_size,
+    float mu, int max_w, cudaStream_t stream) {
   if (V > 0) {
     integrate_kernel<<<V, VOL, 0, stream>>>(
-        depth, rgb, keys, ptrs, state, color, summary, W, H, fx, fy, cx, cy,
-        voxel_size, mu, max_w, r00, r01, r02, r10, r11, r12, r20, r21, r22,
-        t0, t1, t2);
+        depth, rgb, keys, ptrs, state, color, summary, pose, W, H, fx, fy,
+        cx, cy, voxel_size, mu, max_w);
   }
   return (int)cudaGetLastError();
 }

@@ -56,16 +56,19 @@ integrate_f32_kernel(const float* __restrict__ depth, const int* __restrict__ rg
                      const float* __restrict__ old_wc,
                      float* __restrict__ new_f, float* __restrict__ new_w,
                      float* __restrict__ new_c, float* __restrict__ new_wc,
-                     int W, int H, float fx, float fy, float cx, float cy,
-                     float vs, float mu, int max_w, float r00, float r01,
-                     float r02, float r10, float r11, float r12, float r20,
-                     float r21, float r22, float t0, float t1, float t2) {
+                     const float* __restrict__ pose, int W, int H, float fx,
+                     float fy, float cx, float cy, float vs, float mu,
+                     int max_w) {
   __shared__ float s_uv[2][8];
 
   const int blk = blockIdx.x;
   if (!valid[blk]) return;  // padding row: nothing to compute or write
   const int key = keys[blk];
   const int lin = threadIdx.x;
+  // w2c rows [R | t], 3 x 4, read from the device (no host read-back)
+  const float r00 = pose[0], r01 = pose[1], r02 = pose[2], t0 = pose[3];
+  const float r10 = pose[4], r11 = pose[5], r12 = pose[6], t1 = pose[7];
+  const float r20 = pose[8], r21 = pose[9], r22 = pose[10], t2 = pose[11];
   const float bxw = (float)((key & 1023) - 512) * BLOCK;
   const float byw = (float)(((key >> 10) & 1023) - 512) * BLOCK;
   const float bzw = (float)(((key >> 20) & 1023) - 512) * BLOCK;
@@ -145,15 +148,14 @@ extern "C" int integrate_f32(
     const float* depth, const int* rgb, const int* keys,
     const unsigned char* valid, const float* old_sdf, const float* old_w,
     const int* old_color, const float* old_wc, float* new_f, float* new_w,
-    float* new_c, float* new_wc, int V, int W, int H, float fx, float fy,
-    float cx, float cy, float voxel_size, float mu, int max_w, float r00,
-    float r01, float r02, float r10, float r11, float r12, float r20,
-    float r21, float r22, float t0, float t1, float t2, cudaStream_t stream) {
+    float* new_c, float* new_wc, const float* pose, int V, int W, int H,
+    float fx, float fy, float cx, float cy, float voxel_size, float mu,
+    int max_w, cudaStream_t stream) {
   if (V > 0) {
     integrate_f32_kernel<<<V, VOL, 0, stream>>>(
         depth, rgb, keys, valid, old_sdf, old_w, old_color, old_wc, new_f,
-        new_w, new_c, new_wc, W, H, fx, fy, cx, cy, voxel_size, mu, max_w,
-        r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2);
+        new_w, new_c, new_wc, pose, W, H, fx, fy, cx, cy, voxel_size, mu,
+        max_w);
   }
   return (int)cudaGetLastError();
 }

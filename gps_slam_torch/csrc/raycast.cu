@@ -1,45 +1,88 @@
 // raycast_cuda — per-tile TSDF march over each 16x16 tile's candidate blocks.
 //
 // Replaces the TPU kernel gps_slam_tpu/tsdf/raycast_pallas.py `_kernel`
-// (entries `raycast`, `raycast_batch`).  The candidate lists (gids [T, LB],
-// -1 = empty slot) come from the torch binning `raycast_tiles._tile_bins`,
-// as the TPU version's came from XLA.
+// (:51; entries `raycast`, `raycast_batch`).  The candidate lists (gids
+// [T, LB], -1 = empty slot) come from the torch binning
+// `raycast_tiles._tile_bins`, as the TPU version's came from XLA.  The TPU
+// kernel needed its operands dense, so its caller staged [T, LB, 512] sdf
+// and [T, LB, 1536] colour copies; here each CTA reads the tile's block ids
+// and fetches rows from the pool by id.  Nothing is staged in device memory.
 //
-// What bounds it on the H100: memory latency of the per-pixel cube reads,
-// not bytes or flops.  The work per pixel is LB x s_coarse mip samples
-// (8 taps each, from shared memory) plus k_blocks x s_refine fine samples
-// (8 taps each) read from the sdf rows of the pool.  The TPU kernel needed
-// its operands dense, so the caller staged [T, LB, 512] sdf and
-// [T, LB, 1536] colour copies (~158 MB of colour per camera at 1200x680).
-// Here each thread block reads the tile's LB block ids and fetches rows
-// from the pool by id: the 4 KiB mip/borg header of the tile goes to
-// shared memory once, and the fine sdf and colour taps are 4-byte reads of
-// the packed pool rows, which the 2x2 pixels of a quad (and neighbouring
-// quads) share through L1.  Nothing is staged in device memory.
+// What bounds it on the H100: arithmetic and latency, not bytes.  A tile
+// needs its LB mip rows (256 B each), the state rows of the blocks it
+// refines (2 KiB each) and its 6 x 256 outputs, a few tens of MB per
+// camera; the work is 64 x LB quad slab tests with s_coarse trilinear mip
+// samples each, then k_blocks x s_refine trilinear sdf samples and one
+// colour read per pixel, ~1.3 G f32 ops per camera at 1200x680, all built
+// with -fmad=false (two instructions per multiply-add) so that they round
+// like the plain PyTorch version.  So the design runs no operation twice
+// and serves every sample's reads from shared memory.  One CTA per tile,
+// 256 threads:
 //
-// One thread block per tile, one thread per pixel.  Ranking runs at
-// 2x2-quad resolution exactly as on the TPU: each thread recomputes its
-// quad's coarse pass from the mean of the quad's four ray directions, so
-// the four threads of a quad agree bit for bit without a shuffle.
-// Trilinear reads sum the two non-zero hat taps per axis, x first, then y,
-// then z, which is the order the plain PyTorch version uses.
+//   0. the tile's LB block ids, origins, max weights and 4^3 mip rows go to
+//      shared memory; 64 threads compute the 2x2-quad ray directions (the
+//      mean of the quad's four pixel directions, in that order), and the
+//      coarse and refine sample fractions (f64 divisions) are computed
+//      once for the CTA;
+//   1. coarse pass over the 64 x LB (quad, block) pairs, spread over the
+//      CTA's threads: each pair's slab test and s_coarse mip samples run
+//      once (a thread per pixel ran its quad's pass four times over), and
+//      only for the slots that hold a block (an empty slot never hits);
+//      each pair leaves its key, first negative sample and NEAR flag in
+//      shared memory as [LB][64] arrays;
+//   2. one thread per quad picks its k_blocks slots (smallest key, first
+//      slot on a tie) and ORs them into the tile's mask of picked blocks;
+//   3. one thread copies the picked blocks' 2 KiB state rows into shared
+//      memory with TMA bulk copies that complete on an mbarrier, while the
+//      other threads compute their pixel directions;
+//   4. the staged rows' packed sdf words are decoded to f32 once, in
+//      place, and each thread refines its pixel from them (virtual entry
+//      crossing, s_refine samples, secant step), then reads the winner's
+//      colour with one load per corner word and unpacks all three channels
+//      from it.
+//
+// Colour rows are not staged: a pixel reads only its winner's 8 corner
+// words, once, after the refine.  Staging them as well (2 KiB more per
+// picked block, 77 KiB per CTA at LB 16, so 2 CTAs per SM instead of 4)
+// was measured slower on an H100 SXM at 700 W: 0.216 against 0.170 ms on
+// the 1200x680 eval raycast and 0.475 against 0.369 ms at 1920x1080
+// (chip_smoke.py's [kernel] rows, both builds in one run, before the sdf
+// decode and the sample fractions left the samples, which then took the
+// eval raycast from 0.170 to 0.151 ms and from 0.369 to 0.320 ms).
+//
+// Every f32 expression keeps the order of the plain version
+// (`raycast_tiles._march_chunk`): trilinear reads sum the two non-zero hat
+// taps per axis, x first, then y, then z.  Dynamic shared memory is LB x
+// (2 KiB of staged row + 768 B of mip, keys and flags) plus the sample
+// fractions: 45 KiB at LB 16, so 4 CTAs fit on an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int TILE = 16;
 constexpr int NPIX = TILE * TILE;
+constexpr int NQ = NPIX / 4;  // 2x2 pixel quads per tile
 constexpr int MAX_LB = 32;
+constexpr int ROW = 512;      // voxels of a block row
 constexpr float NEAR = 0.9f;
+// dynamic shared memory per candidate slot: one staged state row, its mip
+// row, its per-quad keys and its per-quad flags
+constexpr int SLOT_BYTES = ROW * 4 + 64 * 4 + NQ * 4 * 2;
 
 struct Cam {
   float fx, fy, cx, cy;
   float r00, r01, r02, r10, r11, r12, r20, r21, r22;
   float ox, oy, oz;
   float inv_vox, ext, fmin, fmax;
+};
+
+struct Intr {
+  float fx, fy, cx, cy, inv_vox, ext, fmin, fmax;
 };
 
 __device__ __forceinline__ void pixel_dir(const Cam& c, float tx0, float ty0,
@@ -107,44 +150,43 @@ __device__ __forceinline__ float tri_mip(const float* m, float lx, float ly,
   return acc_z;
 }
 
-__device__ __forceinline__ float sdf_at(const int* row, int i) {
-  int su = row[i] & 0xFFFF;
+__device__ __forceinline__ float sdf_of(int word) {
+  int su = word & 0xFFFF;
   su = su >= 32768 ? su - 65536 : su;
   return (float)su * (1.0f / 32767.0f);
 }
 
-__device__ __forceinline__ float col_at(const int* row, int i, int ch) {
-  return (float)((row[i] >> (8 * ch)) & 0xFF);
+// trilinear weights and corner indices in an 8^3 voxel row (x + 8y + 64z)
+struct Taps {
+  float wx0, wx1, wy0, wy1, wz[2];
+  int idx[2][2][2];  // [z][y][x]
+};
+
+__device__ __forceinline__ Taps row_taps(float lx, float ly, float lz) {
+  Taps t;
+  int x0, x1, y0, y1, z0, z1;
+  hat2(lx, 8, x0, x1, t.wx0, t.wx1);
+  hat2(ly, 8, y0, y1, t.wy0, t.wy1);
+  hat2(lz, 8, z0, z1, t.wz[0], t.wz[1]);
+  const int zs[2] = {z0 * 64, z1 * 64};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    t.idx[k][0][0] = zs[k] + y0 * 8 + x0;
+    t.idx[k][0][1] = zs[k] + y0 * 8 + x1;
+    t.idx[k][1][0] = zs[k] + y1 * 8 + x0;
+    t.idx[k][1][1] = zs[k] + y1 * 8 + x1;
+  }
+  return t;
 }
 
-// trilinear of an 8^3 voxel row (voxel x + 8y + 64z); ch < 0 reads sdf
-__device__ __forceinline__ float tri_row(const int* row, int ch, float lx,
-                                         float ly, float lz) {
-  int x0, x1, y0, y1, z0, z1;
-  float wx0, wx1, wy0, wy1, wz0, wz1;
-  hat2(lx, 8, x0, x1, wx0, wx1);
-  hat2(ly, 8, y0, y1, wy0, wy1);
-  hat2(lz, 8, z0, z1, wz0, wz1);
-  const int zs[2] = {z0 * 64, z1 * 64};
-  const float wz[2] = {wz0, wz1};
+// the trilinear sum of corner values c[z][y][x] with the weights of `t`
+__device__ __forceinline__ float tri_sum(const Taps& t, const float c[2][2][2]) {
   float acc_z = 0.0f;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    float c00, c01, c10, c11;
-    if (ch < 0) {
-      c00 = sdf_at(row, zs[k] + y0 * 8 + x0);
-      c01 = sdf_at(row, zs[k] + y0 * 8 + x1);
-      c10 = sdf_at(row, zs[k] + y1 * 8 + x0);
-      c11 = sdf_at(row, zs[k] + y1 * 8 + x1);
-    } else {
-      c00 = col_at(row, zs[k] + y0 * 8 + x0, ch);
-      c01 = col_at(row, zs[k] + y0 * 8 + x1, ch);
-      c10 = col_at(row, zs[k] + y1 * 8 + x0, ch);
-      c11 = col_at(row, zs[k] + y1 * 8 + x1, ch);
-    }
-    const float ra = (c00 * wx0 + c01 * wx1) * wy0;
-    const float rb = (c10 * wx0 + c11 * wx1) * wy1;
-    const float term = (ra + rb) * wz[k];
+    const float ra = (c[k][0][0] * t.wx0 + c[k][0][1] * t.wx1) * t.wy0;
+    const float rb = (c[k][1][0] * t.wx0 + c[k][1][1] * t.wx1) * t.wy1;
+    const float term = (ra + rb) * t.wz[k];
     acc_z = k == 0 ? term : acc_z + term;
   }
   return acc_z;
@@ -154,15 +196,49 @@ __global__ void __launch_bounds__(NPIX)
 march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
              const int* __restrict__ color, const float* __restrict__ summary,
              const int* __restrict__ block_coords, float* __restrict__ out,
-             int LB, int tw, int s_coarse, int s_refine, int k_blocks,
-             int need_color, Cam c) {
+             const float* __restrict__ pose, int LB, int tw, int s_coarse,
+             int s_refine, int k_blocks, int need_color, Intr in) {
+  // c2w rows [R | t], 3 x 4, read from the device (no host read-back)
+  const Cam c{in.fx, in.fy, in.cx, in.cy, pose[0], pose[1], pose[2],
+              pose[4], pose[5], pose[6], pose[8], pose[9], pose[10],
+              pose[3], pose[7], pose[11], in.inv_vox, in.ext, in.fmin,
+              in.fmax};
+  __shared__ __align__(8) uint64_t s_bar;
   __shared__ int s_gid[MAX_LB];
+  __shared__ int s_row[MAX_LB];  // staged row of each picked slot
   __shared__ float s_borg[3][MAX_LB];
   __shared__ float s_maxw[MAX_LB];
-  __shared__ float s_mip[MAX_LB * 64];
+  __shared__ float s_dq[3][NQ];
+  __shared__ unsigned char s_pick[MAX_LB][NQ];
+  __shared__ unsigned char s_qcand[NQ];
+  __shared__ int s_live[MAX_LB];  // the non-empty slots, in slot order
+  __shared__ int s_nlive;
+  __shared__ unsigned s_mask;
+  extern __shared__ __align__(128) int s_dyn[];
+  int* s_rows = s_dyn;                                          // [LB][512]
+  float* s_mip = reinterpret_cast<float*>(s_dyn + LB * ROW);    // [LB][64]
+  float* s_key = s_mip + LB * 64;                               // [LB][NQ]
+  int* s_info = reinterpret_cast<int*>(s_key + LB * NQ);        // [LB][NQ]
+  float* s_cs = reinterpret_cast<float*>(s_info + LB * NQ);     // [s_coarse]
+  float* s_fr = s_cs + s_coarse;                                // [s_refine]
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
+  const float tx0 = (float)(tile % tw) * TILE;
+  const float ty0 = (float)(tile / tw) * TILE;
+  const uint32_t bar = tma::smem_addr(&s_bar);
+
+  // ---- 0. the tile's candidates and the quad directions ----
+  if (p == 0) {
+    tma::mbar_init(bar);
+    s_mask = 0u;
+  }
+  if (p < 32) {  // warp 0: list the non-empty slots (LB <= 32)
+    const bool live = p < LB && gids[(size_t)tile * LB + p] >= 0;
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (live) s_live[__popc(m & ((1u << p) - 1u))] = p;
+    if (p == 0) s_nlive = __popc(m);
+  }
   if (p < LB) {
     const int g = gids[(size_t)tile * LB + p];
     s_gid[p] = g;
@@ -181,95 +257,145 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
     const int g = gids[(size_t)tile * LB + i / 64];
     s_mip[i] = g >= 0 ? summary[(size_t)g * 128 + (i % 64)] : 0.0f;
   }
+  // the coarse and refine sample fractions, once per CTA (f64 divisions)
+  for (int s = p; s < s_coarse; s += NPIX)
+    s_cs[s] = (float)(((double)s + 0.5) / (double)s_coarse);
+  for (int s = p; s < s_refine; s += NPIX)
+    s_fr[s] = (float)((double)s / (double)(s_refine - 1));
+  if (p < NQ) {
+    const int p0 = (p / 8) * 2 * TILE + (p % 8) * 2;
+    float qd[4][3];
+    pixel_dir(c, tx0, ty0, p0, qd[0][0], qd[0][1], qd[0][2]);
+    pixel_dir(c, tx0, ty0, p0 + 1, qd[1][0], qd[1][1], qd[1][2]);
+    pixel_dir(c, tx0, ty0, p0 + TILE, qd[2][0], qd[2][1], qd[2][2]);
+    pixel_dir(c, tx0, ty0, p0 + TILE + 1, qd[3][0], qd[3][1], qd[3][2]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      s_dq[a][p] = (((qd[0][a] + qd[1][a]) + qd[2][a]) + qd[3][a]) * 0.25f;
+  }
   __syncthreads();
 
-  const float tx0 = (float)(tile % tw) * TILE;
-  const float ty0 = (float)(tile / tw) * TILE;
-  float dx, dy, dz;
-  pixel_dir(c, tx0, ty0, p, dx, dy, dz);
-
-  // ---- coarse pass at quad resolution ----
-  const int q = ((p / TILE) / 2) * 8 + (p % TILE) / 2;
-  const int p0 = (q / 8) * 2 * TILE + (q % 8) * 2;
-  float qd[4][3];
-  pixel_dir(c, tx0, ty0, p0, qd[0][0], qd[0][1], qd[0][2]);
-  pixel_dir(c, tx0, ty0, p0 + 1, qd[1][0], qd[1][1], qd[1][2]);
-  pixel_dir(c, tx0, ty0, p0 + TILE, qd[2][0], qd[2][1], qd[2][2]);
-  pixel_dir(c, tx0, ty0, p0 + TILE + 1, qd[3][0], qd[3][1], qd[3][2]);
-  float dq[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    dq[a] = (((qd[0][a] + qd[1][a]) + qd[2][a]) + qd[3][a]) * 0.25f;
-
+  // ---- 1. coarse pass, once per (quad, non-empty block) pair ----
+  // an empty slot never hits (its origin is 1e9): key INF, no flags
+  for (int i = p; i < LB * NQ; i += NPIX) {
+    if (s_gid[i / NQ] < 0) {
+      s_key[i] = INFINITY;
+      s_info[i] = 0;
+    }
+  }
   const float half = c.inv_vox * 0.5f;
-  float key[MAX_LB], sfirst[MAX_LB];
-  unsigned has_neg = 0u;
-  bool cand = false;
-  for (int l = 0; l < LB; ++l) {
+  for (int j = p; j < s_nlive * NQ; j += NPIX) {
+    const int l = s_live[j / NQ], q = j % NQ, i = l * NQ + q;
+    const float dq[3] = {s_dq[0][q], s_dq[1][q], s_dq[2][q]};
+    const float bo[3] = {s_borg[0][l], s_borg[1][l], s_borg[2][l]};
     float t0, t1;
-    slab(s_borg[0][l], s_borg[1][l], s_borg[2][l], dq[0], dq[1], dq[2], c.ext,
-         c.fmin, c.fmax, t0, t1);
+    slab(bo[0], bo[1], bo[2], dq[0], dq[1], dq[2], c.ext, c.fmin, c.fmax, t0, t1);
     const bool hit = t1 > t0;
-    float minval = INFINITY, sf = 0.0f;
-    bool neg_any = false;
+    float minval = INFINITY;
+    int sf = 0;
+    bool neg_any = false, cand = false;
     for (int s = 0; s < s_coarse; ++s) {
-      const float cs = (float)(((double)s + 0.5) / (double)s_coarse);
-      const float ts = t0 + (t1 - t0) * cs;
+      const float ts = t0 + (t1 - t0) * s_cs[s];
       float lq[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
-        lq[a] = fminf(fmaxf((dq[a] * ts - s_borg[a][l]) * half - 0.5f, 0.0f), 3.0f);
+        lq[a] = fminf(fmaxf((dq[a] * ts - bo[a]) * half - 0.5f, 0.0f), 3.0f);
       const float v = tri_mip(s_mip + l * 64, lq[0], lq[1], lq[2]);
       const bool neg = (v < 0.0f) && hit;
-      if (neg && !neg_any) sf = (float)s;
+      if (neg && !neg_any) sf = s;
       if (hit) minval = fminf(minval, v);
       neg_any = neg_any || neg;
       cand = cand || ((v < NEAR) && hit);
     }
-    if (neg_any) has_neg |= 1u << l;
-    sfirst[l] = sf;
-    key[l] = neg_any ? t0 - 1e4f : (minval < NEAR ? minval : INFINITY);
+    s_key[i] = neg_any ? t0 - 1e4f : (minval < NEAR ? minval : INFINITY);
+    s_info[i] = (sf << 2) | ((int)neg_any << 1) | (int)cand;
   }
+  __syncthreads();
 
-  // ---- refine the best k_blocks candidates at pixel resolution ----
+  // ---- 2. each quad picks its k_blocks slots ----
+  const int kb = k_blocks < LB ? k_blocks : LB;  // later picks find none
+  if (p < NQ) {
+    bool qcand = false;
+    for (int l = 0; l < LB; ++l) qcand = qcand || (s_info[l * NQ + p] & 1);
+    s_qcand[p] = qcand;
+    unsigned picked = 0u;
+    for (int k = 0; k < kb; ++k) {
+      float kmin = INFINITY;
+      for (int l = 0; l < LB; ++l) kmin = fminf(kmin, s_key[l * NQ + p]);
+      int slot = LB;
+      if (kmin < INFINITY) {
+        for (int l = 0; l < LB; ++l) {
+          if (s_key[l * NQ + p] <= kmin) {
+            slot = l;
+            break;
+          }
+        }
+        s_key[slot * NQ + p] = INFINITY;
+        picked |= 1u << slot;
+      }
+      s_pick[k][p] = (unsigned char)slot;
+    }
+    if (picked) atomicOr(&s_mask, picked);
+  }
+  __syncthreads();
+
+  // ---- 3. stage the picked blocks' state rows (TMA bulk copies) ----
+  if (p == 0) {
+    unsigned m = s_mask;
+    tma::mbar_expect_tx(bar, __popc(m) * ROW * 4);
+    for (int r = 0; m; ++r, m &= m - 1) {
+      const int l = __ffs(m) - 1;
+      s_row[l] = r;
+      tma::bulk_copy(s_rows + r * ROW, state + (size_t)s_gid[l] * ROW, ROW * 4, bar);
+    }
+  }
+  float dx, dy, dz;
+  pixel_dir(c, tx0, ty0, p, dx, dy, dz);
+  const int q = ((p / TILE) / 2) * 8 + (p % TILE) / 2;
+  __syncthreads();  // s_row
+  tma::mbar_wait(bar, 0);
+  // decode the staged rows' sdf once, in place (as f32 bits), for every
+  // sample to read
+  for (int i = p; i < __popc(s_mask) * ROW; i += NPIX)
+    s_rows[i] = __float_as_int(sdf_of(s_rows[i]));
+  __syncthreads();
+
+  // ---- 4. refine the picked candidates at pixel resolution ----
   bool found = false;
   float t_star = 0.0f;
   int win = -1;
-  for (int k = 0; k < k_blocks; ++k) {
-    float kmin = INFINITY;
-    for (int l = 0; l < LB; ++l) kmin = fminf(kmin, key[l]);
-    int slot = LB;
-    if (kmin < INFINITY) {
-      for (int l = 0; l < LB; ++l) {
-        if (key[l] <= kmin) {
-          slot = l;
-          break;
-        }
-      }
-      key[slot] = INFINITY;
-    }
+  for (int k = 0; k < kb; ++k) {
+    const int slot = s_pick[k][q];
     if (slot >= LB) continue;
     const float bx = s_borg[0][slot], by = s_borg[1][slot], bz = s_borg[2][slot];
     float t0s, t1s;
     slab(bx, by, bz, dx, dy, dz, c.ext, c.fmin, c.fmax, t0s, t1s);
     t1s = fmaxf(t1s, t0s);
-    const bool an = (has_neg >> slot) & 1u;
+    const int info = s_info[slot * NQ + q];
+    const bool an = (info >> 1) & 1;
     const float dt = (t1s - t0s) / (float)s_coarse;
-    const float ts_neg = t0s + (sfirst[slot] + 0.5f) * dt;
+    const float ts_neg = t0s + ((float)(info >> 2) + 0.5f) * dt;
     const float lo = an ? fmaxf(ts_neg - 1.5f * dt, t0s) : t0s;
     const float hi = an ? fminf(ts_neg + 0.5f * dt, t1s) : t1s;
-    const int* row = state + (size_t)s_gid[slot] * 512;
-    // stage: virtual entry (lo, 1e-3) then s_refine samples over [lo, hi]
+    const int* row = s_rows + s_row[slot] * ROW;
+    // virtual entry (lo, 1e-3) then s_refine samples over [lo, hi]
     float t_prev = lo, v_prev = 1e-3f;
     bool fk = false;
     float tlo = 0.0f, thi = 0.0f, vlo = 0.0f, vhi = 0.0f;
     for (int qq = 0; qq < s_refine; ++qq) {
-      const float f = (float)((double)qq / (double)(s_refine - 1));
-      const float tq = lo + (hi - lo) * f;
+      const float tq = lo + (hi - lo) * s_fr[qq];
       const float lx = fminf(fmaxf((dx * tq - bx) * c.inv_vox, 0.0f), 7.0f);
       const float ly = fminf(fmaxf((dy * tq - by) * c.inv_vox, 0.0f), 7.0f);
       const float lz = fminf(fmaxf((dz * tq - bz) * c.inv_vox, 0.0f), 7.0f);
-      const float v = tri_row(row, -1, lx, ly, lz);
+      const Taps t = row_taps(lx, ly, lz);
+      float cv[2][2][2];
+#pragma unroll
+      for (int z = 0; z < 2; ++z)
+#pragma unroll
+        for (int y = 0; y < 2; ++y)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) cv[z][y][x] = __int_as_float(row[t.idx[z][y][x]]);
+      const float v = tri_sum(t, cv);
       if (!fk && v_prev >= 0.0f && v_prev < 1e9f && v < 0.0f) {
         tlo = t_prev;
         thi = tq;
@@ -292,7 +418,7 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
   }
 
   // the quad's candidate flag: any of its blocks dipped below NEAR
-  found = found && cand;
+  found = found && s_qcand[q];
   const float fm = found ? 1.0f : 0.0f;
   const float conf = win >= 0 ? s_maxw[win] : 0.0f;
   float* o = out + (size_t)tile * 6 * NPIX + p;
@@ -304,10 +430,27 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
     const float lx = fminf(fmaxf((dx * t_star - bx) * c.inv_vox, 0.0f), 7.0f);
     const float ly = fminf(fmaxf((dy * t_star - by) * c.inv_vox, 0.0f), 7.0f);
     const float lz = fminf(fmaxf((dz * t_star - bz) * c.inv_vox, 0.0f), 7.0f);
-    const int* crow = color + (size_t)s_gid[win] * 512;
+    const int* crow = color + (size_t)s_gid[win] * ROW;
+    const Taps t = row_taps(lx, ly, lz);
+    int w[2][2][2];  // the 8 corner words, each loaded once
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      rgb[ch] = tri_row(crow, ch, lx, ly, lz) * (1.0f / 255.0f) * fm;
+    for (int z = 0; z < 2; ++z)
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) w[z][y][x] = __ldg(crow + t.idx[z][y][x]);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float cv[2][2][2];
+#pragma unroll
+      for (int z = 0; z < 2; ++z)
+#pragma unroll
+        for (int y = 0; y < 2; ++y)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+            cv[z][y][x] = (float)((w[z][y][x] >> (8 * ch)) & 0xFF);
+      rgb[ch] = tri_sum(t, cv) * (1.0f / 255.0f) * fm;
+    }
   }
   o[2 * NPIX] = rgb[0];
   o[3 * NPIX] = rgb[1];
@@ -319,19 +462,22 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
 
 extern "C" int raycast_march(
     const int* gids, const int* state, const int* color, const float* summary,
-    const int* block_coords, float* out, int T, int LB, int tw, int s_coarse,
-    int s_refine, int k_blocks, int need_color, int B, float fx, float fy,
-    float cx, float cy, float r00, float r01, float r02, float r10, float r11,
-    float r12, float r20, float r21, float r22, float ox, float oy, float oz,
-    float inv_vox, float ext, float fmin, float fmax, cudaStream_t stream) {
-  (void)B;
+    const int* block_coords, const float* pose, float* out, int T, int LB,
+    int tw, int s_coarse, int s_refine, int k_blocks, int need_color,
+    float fx, float fy, float cx, float cy, float inv_vox, float ext,
+    float fmin, float fmax, cudaStream_t stream) {
   if (LB > MAX_LB || LB < 1) return (int)cudaErrorInvalidValue;
-  Cam c{fx, fy, cx, cy, r00, r01, r02, r10, r11, r12, r20, r21, r22,
-        ox, oy, oz, inv_vox, ext, fmin, fmax};
+  const int smem = LB * SLOT_BYTES + (s_coarse + s_refine) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Intr in{fx, fy, cx, cy, inv_vox, ext, fmin, fmax};
   if (T > 0) {
-    march_kernel<<<T, NPIX, 0, stream>>>(gids, state, color, summary,
-                                         block_coords, out, LB, tw, s_coarse,
-                                         s_refine, k_blocks, need_color, c);
+    march_kernel<<<T, NPIX, smem, stream>>>(
+        gids, state, color, summary, block_coords, out, pose, LB, tw,
+        s_coarse, s_refine, k_blocks, need_color, in);
   }
   return (int)cudaGetLastError();
 }

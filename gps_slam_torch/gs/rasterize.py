@@ -174,7 +174,7 @@ def splat_fwd(packed, gids, px, py, ref_tiles, delta_depth: float,
     A, L = gids.shape
     P = px.shape[1]
     rows, cols = packed.shape
-    if P != 256 or L > 256 or C + 1 > 8 or cols < 7 + C:
+    if P != 256 or L > 256 or C + 1 > 8 or cols < 7 + C or cols > 16 or cols % 4:
         raise ValueError(f"splat_fwd_cuda: unsupported shape P={P} L={L} C={C} "
                          f"cols={cols}")
     k = kernels.SPLAT_FWD
@@ -184,6 +184,9 @@ def splat_fwd(packed, gids, px, py, ref_tiles, delta_depth: float,
                                   ("py", py, torch.float32, (A, P)),
                                   ("ref_tiles", ref_tiles, torch.float32, (A, P))):
         kernels.check_tensor(k, name, t, dtype, shape)
+    if packed.data_ptr() % 16:
+        raise ValueError("splat_fwd_cuda: packed rows must be 16-byte aligned "
+                         "(the kernel copies them with TMA)")
     out = torch.empty((A, C + 1, P), dtype=torch.float32, device=packed.device)
     if A == 0:
         return out

@@ -4,8 +4,9 @@ Each kernel lives in one `csrc/*.cu` file with a plain C entry point.  The
 first call that needs a kernel compiles every source with `nvcc` for
 sm_90a into `build/` at the repository root (one `nvcc` process per
 source, all started together) and loads the shared libraries with
-`ctypes`.  Libraries are named by a hash of their source, so an edited
-source is rebuilt and a stale library is never loaded.
+`ctypes`.  Libraries are named by a hash of their source and of the
+`csrc/` headers it includes, so an edited source or header is rebuilt and
+a stale library is never loaded.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check`
 raises when it is not 0.  Each kernel carries a launch counter that its
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -28,16 +30,19 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+_LOCAL_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 
 class Kernel:
     """One CUDA source, its C entry point and its launch count."""
 
-    def __init__(self, name: str, source: str, entry: str, argtypes: list):
+    def __init__(self, name: str, source: str, entry: str, argtypes: list,
+                 design: str):
         self.name = name
         self.source = source
         self.entry = entry
         self.argtypes = argtypes
+        self.design = design  # one line, printed beside each measurement
         self.launches = 0
         self._fn = None
 
@@ -46,8 +51,13 @@ class Kernel:
         return CSRC / self.source
 
     def lib_path(self) -> Path:
-        digest = hashlib.sha1(self.path.read_bytes()).hexdigest()[:12]
-        return BUILD / f"lib{self.path.stem}_{digest}.so"
+        src = self.path.read_bytes()
+        h = hashlib.sha1(src)
+        # the local headers the source includes (`#include "x.cuh"`, found
+        # beside it in csrc/) take part in the name, one level deep
+        for name in _LOCAL_INCLUDE.findall(src.decode()):
+            h.update((CSRC / name).read_bytes())
+        return BUILD / f"lib{self.path.stem}_{h.hexdigest()[:12]}.so"
 
     @property
     def fn(self):
@@ -62,20 +72,25 @@ F = ctypes.c_float
 
 INTEGRATE = Kernel(
     "integrate_cuda", "integrate.cu", "integrate_packed",
-    [P, P, P, P, P, P, P, I, I, I, I, F, F, F, F, F, F, I,
-     F, F, F, F, F, F, F, F, F, F, F, F, P])
+    [P] * 8 + [I, I, I] + [F] * 6 + [I, P],
+    "thread per voxel, CTA per block")
 INTEGRATE_F32 = Kernel(
     "integrate_f32_cuda", "integrate_f32.cu", "integrate_f32",
-    [P] * 12 + [I, I, I, F, F, F, F, F, F, I] + [F] * 12 + [P])
+    [P] * 13 + [I, I, I] + [F] * 6 + [I, P],
+    "thread per voxel, CTA per block")
 RAYCAST = Kernel(
     "raycast_cuda", "raycast.cu", "raycast_march",
-    [P, P, P, P, P, P, I, I, I, I, I, I, I, I] + [F] * 20 + [P])
+    [P] * 7 + [I] * 7 + [F] * 8 + [P],
+    "coarse once per (quad, block) pair; picked rows staged by TMA, "
+    "sdf decoded once")
 SPLAT_FWD = Kernel(
     "splat_fwd_cuda", "splat_fwd.cu", "splat_fwd",
-    [P, P, P, P, P, P, I, I, I, I, F, P])
+    [P, P, P, P, P, P, I, I, I, I, F, P],
+    "live rows staged by TMA; 4 pixels per thread")
 SPLAT_BWD = Kernel(
     "splat_bwd_cuda", "splat_bwd.cu", "splat_bwd",
-    [P, P, P, P, P, P, P, I, I, I, I, F, P])
+    [P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "warp per list slot, fixed shuffle tree")
 
 ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD)
 _lock = threading.Lock()
@@ -141,6 +156,16 @@ def check_tensor(kernel: Kernel, name: str, t, dtype, shape=None) -> None:
         raise ValueError(f"{kernel.name}: {name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel.name}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def pose_rows(m):
+    """The rows [R | t] of a 4 x 4 (or 3 x 4) pose as the contiguous f32
+    3 x 4 that the integrate and raycast kernels read from the device.
+    Built on the pose's own device: a wrapper never reads a pose back to
+    the host."""
+    import torch
+
+    return m[:3].to(torch.float32).contiguous()
 
 
 def reset_counts() -> None:

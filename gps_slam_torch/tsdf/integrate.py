@@ -257,25 +257,23 @@ def integrate_blocks_packed(depth, rgb_packed, keys, ptrs, state, color,
     V = keys.shape[0]
     B = state.shape[0]
     k = kernels.INTEGRATE
+    pose = kernels.pose_rows(w2c)
     for name, t, dtype, shape in (
             ("depth", depth, torch.float32, None),
             ("rgb_packed", rgb_packed, torch.int32, (H, W)),
             ("keys", keys, torch.int32, (V,)), ("ptrs", ptrs, torch.int32, (V,)),
             ("state", state, torch.int32, (B, BLOCK_VOL)),
             ("color", color, torch.int32, (B, BLOCK_VOL)),
-            ("summary", summary, torch.float32, (B, 128))):
+            ("summary", summary, torch.float32, (B, 128)),
+            ("w2c", pose, torch.float32, (3, 4))):
         kernels.check_tensor(k, name, t, dtype, shape)
     if V == 0:
         return
-    m = w2c.detach().to("cpu", torch.float32).tolist()
     err = k.fn(depth.data_ptr(), rgb_packed.data_ptr(), keys.data_ptr(),
                ptrs.data_ptr(), state.data_ptr(), color.data_ptr(),
-               summary.data_ptr(), V, W, H, B,
+               summary.data_ptr(), pose.data_ptr(), V, W, H,
                float(fx), float(fy), float(cx), float(cy),
-               float(voxel_size), float(mu), int(max_w),
-               m[0][0], m[0][1], m[0][2], m[1][0], m[1][1], m[1][2],
-               m[2][0], m[2][1], m[2][2], m[0][3], m[1][3], m[2][3],
-               kernels.stream_ptr())
+               float(voxel_size), float(mu), int(max_w), kernels.stream_ptr())
     k.launches += 1
     kernels.check(k, err)
 
@@ -340,27 +338,28 @@ def integrate_blocks(depth, rgb_packed, keys, valid, old_sdf, old_w,
                          f"not supported (got {W}x{H})")
     V = keys.shape[0]
     k = kernels.INTEGRATE_F32
-    for name, t, dtype in (
-            ("depth", depth, torch.float32), ("rgb_packed", rgb_packed, torch.int32),
-            ("keys", keys, torch.int32), ("valid", valid, torch.bool),
-            ("old_sdf", old_sdf, torch.float32), ("old_w", old_w, torch.float32),
-            ("old_color", old_color, torch.int32), ("old_wc", old_wc, torch.float32)):
-        shape = ((H, W) if name in ("depth", "rgb_packed") else (V,)
-                 if name in ("keys", "valid") else (V, BLOCK_VOL))
+    pose = kernels.pose_rows(w2c)
+    plane = (V, BLOCK_VOL)
+    for name, t, dtype, shape in (
+            ("depth", depth, torch.float32, (H, W)),
+            ("rgb_packed", rgb_packed, torch.int32, (H, W)),
+            ("keys", keys, torch.int32, (V,)), ("valid", valid, torch.bool, (V,)),
+            ("old_sdf", old_sdf, torch.float32, plane),
+            ("old_w", old_w, torch.float32, plane),
+            ("old_color", old_color, torch.int32, plane),
+            ("old_wc", old_wc, torch.float32, plane),
+            ("w2c", pose, torch.float32, (3, 4))):
         kernels.check_tensor(k, name, t, dtype, shape)
     new_f, new_w, new_wc = (torch.empty_like(old_sdf) for _ in range(3))
     new_c = old_sdf.new_empty((V, BLOCK_VOL, 3))
     if V == 0:
         return new_f, new_w, new_c, new_wc
-    m = w2c.detach().to("cpu", torch.float32).tolist()
     err = k.fn(depth.data_ptr(), rgb_packed.data_ptr(), keys.data_ptr(),
                valid.data_ptr(), old_sdf.data_ptr(), old_w.data_ptr(),
                old_color.data_ptr(), old_wc.data_ptr(), new_f.data_ptr(),
-               new_w.data_ptr(), new_c.data_ptr(), new_wc.data_ptr(), V, W, H,
-               float(fx), float(fy), float(cx), float(cy),
-               float(voxel_size), float(mu), int(max_w),
-               m[0][0], m[0][1], m[0][2], m[1][0], m[1][1], m[1][2],
-               m[2][0], m[2][1], m[2][2], m[0][3], m[1][3], m[2][3],
+               new_w.data_ptr(), new_c.data_ptr(), new_wc.data_ptr(),
+               pose.data_ptr(), V, W, H, float(fx), float(fy), float(cx),
+               float(cy), float(voxel_size), float(mu), int(max_w),
                kernels.stream_ptr())
     k.launches += 1
     kernels.check(k, err)

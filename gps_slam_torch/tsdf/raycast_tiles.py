@@ -175,8 +175,14 @@ def _slab(bmins, dirs, ext, fmin, fmax):
     return t0, t1
 
 
-def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
-                 s_coarse, s_refine, k_blocks, need_color):
+def _coarse(tiles, gids, summary, block_coords, cam, tw, s_coarse):
+    """The quad-resolution pass of the march over `tiles` (lists `gids`
+    [n, LB]).  Returns the pixel directions (3 x [n, P]), the clamped
+    block ids [n, LB], the block origins relative to the camera (3 x
+    [n, LB], 1e9 for an empty slot), and per (slot, quad) [n, LB, 64] the
+    slab hit, the ranking key (inf where the block is no candidate), the
+    first negative coarse sample and whether there is one, and per quad
+    [n, 64] whether any block dipped below NEAR."""
     dev = gids.device
     n, LB = gids.shape
     ext, inv_vox = cam["ext"], cam["inv_vox"]
@@ -188,7 +194,6 @@ def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
     t_cam = cam["t"]
     borg = [torch.where(valid, c.to(torch.float32) * ext - t_cam[a], 1e9)
             for a, c in enumerate((bxi, byi, bzi))]                 # [n, LB]
-    maxw = torch.where(valid, summary[gsafe, 65], 0.0)
     mip = summary[gsafe, :64]                                       # [n, LB, 64]
 
     # quad-resolution directions: mean of each 2x2 pixel quad
@@ -218,6 +223,18 @@ def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
         cand_q = cand_q | ((v < NEAR) & hit).any(1)
     key = torch.where(has_neg, t0 - 1e4,
                       torch.where(minval < NEAR, minval, torch.inf))  # [n, LB, 64]
+    return (dxp, dyp, dzp), gsafe, borg, hit, key, s_first, has_neg, cand_q
+
+
+def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
+                 s_coarse, s_refine, k_blocks, need_color):
+    dev = gids.device
+    n, LB = gids.shape
+    ext, inv_vox = cam["ext"], cam["inv_vox"]
+    fmin, fmax = cam["fmin"], cam["fmax"]
+    (dxp, dyp, dzp), gsafe, borg, _, key, s_first, has_neg, cand_q = _coarse(
+        tiles, gids, summary, block_coords, cam, tw, s_coarse)
+    maxw = torch.where(gids >= 0, summary[gsafe, 65], 0.0)
 
     quad_of_p = ((torch.arange(P, device=dev) // TILE) // 2) * 8 \
         + (torch.arange(P, device=dev) % TILE) // 2
@@ -329,26 +346,26 @@ def march(gids, state, color, summary, block_coords, cam: dict, tw: int,
         raise ValueError(f"raycast_cuda: LB={LB} s_refine={s_refine} "
                          f"s_coarse={s_coarse} out of the kernel's range")
     k = kernels.RAYCAST
+    pose = kernels.pose_rows(torch.cat((cam["R"], cam["t"][:, None]), 1))
     for name, t, dtype, shape in (
             ("gids", gids, torch.int32, None), ("state", state, torch.int32, (B, 512)),
             ("color", color, torch.int32, (B, 512)),
             ("summary", summary, torch.float32, (B, 128)),
-            ("block_coords", block_coords, torch.int32, (B,))):
+            ("block_coords", block_coords, torch.int32, (B,)),
+            ("c2w", pose, torch.float32, (3, 4))):
         kernels.check_tensor(k, name, t, dtype, shape)
+    if state.data_ptr() % 16:
+        raise ValueError("raycast_cuda: state rows must be 16-byte aligned "
+                         "(the kernel copies them with TMA)")
     out = torch.empty((T, N_OUT, P), dtype=torch.float32, device=gids.device)
     if T == 0:
         return out
-    R = cam["R"].detach().to("cpu", torch.float32).tolist()
-    t = cam["t"].detach().to("cpu", torch.float32).tolist()
     err = k.fn(gids.data_ptr(), state.data_ptr(), color.data_ptr(),
-               summary.data_ptr(), block_coords.data_ptr(), out.data_ptr(),
-               T, LB, tw, s_coarse, s_refine, k_blocks, int(need_color), B,
-               float(cam["fx"]), float(cam["fy"]), float(cam["cx"]),
-               float(cam["cy"]),
-               R[0][0], R[0][1], R[0][2], R[1][0], R[1][1], R[1][2],
-               R[2][0], R[2][1], R[2][2], t[0], t[1], t[2],
-               float(cam["inv_vox"]), float(cam["ext"]),
-               float(cam["fmin"]), float(cam["fmax"]),
+               summary.data_ptr(), block_coords.data_ptr(), pose.data_ptr(),
+               out.data_ptr(), T, LB, tw, s_coarse, s_refine, k_blocks,
+               int(need_color), float(cam["fx"]), float(cam["fy"]),
+               float(cam["cx"]), float(cam["cy"]), float(cam["inv_vox"]),
+               float(cam["ext"]), float(cam["fmin"]), float(cam["fmax"]),
                kernels.stream_ptr())
     k.launches += 1
     kernels.check(k, err)

@@ -46,33 +46,38 @@ def _to(vol, device):
     return convert.volume_from_numpy(arrays, vol.params, device)
 
 
-@pytest.mark.cuda
-def test_integrate_cuda_matches_plain(cuda_device, fused):
-    """integrate_cuda against its plain version over the whole pools: both
-    round the same f32 expressions (nvcc -fmad=false), so rows outside the
-    integration set come back untouched, weights are equal, sdf and colour
-    channels within one step everywhere (a value on a rounding tie may
-    flip) and state and colour words equal on >= 99.9% of the integrated
-    voxels; summary rows within 1e-6."""
-    vol, cams = fused
-    vol = _to(vol, cuda_device)
-    cam = cams[3]
-    d = torch.as_tensor(cam.depth[..., 0], device=cuda_device)
-    rgbp = tint.pack_rgb(torch.as_tensor(cam.image, device=cuda_device))
+def _k1_inputs(vol, cam, device):
+    """K1's arguments for frame `cam` over every block of `vol` (pool row
+    i for block i): depth, packed rgb, keys, ptrs and the pose tail."""
+    d = torch.as_tensor(cam.depth[..., 0], device=device)
+    rgbp = tint.pack_rgb(torch.as_tensor(cam.image, device=device))
     n = vol.n_blocks
     keys = vol.block_coords[:n].contiguous()
-    ptrs = torch.arange(n, dtype=torch.int32, device=cuda_device)
-    w2c = pose_inv(torch.as_tensor(cam.c2w, device=cuda_device))
+    ptrs = torch.arange(n, dtype=torch.int32, device=device)
+    w2c = pose_inv(torch.as_tensor(cam.c2w, device=device))
+    tail = (w2c, cam.fx, cam.fy, cam.cx, cam.cy, vol.params.voxel_size,
+            vol.params.mu, vol.params.max_w)
+    return d, rgbp, keys, ptrs, tail
+
+
+def _k1_check(vol, d, rgbp, keys, ptrs, tail):
+    """Run integrate_cuda and its plain version on copies of the pools and
+    hold them to each other over the whole pools: both round the same f32
+    expressions (nvcc -fmad=false), so rows outside the integration set
+    (ptrs -1 included) come back untouched, weights are equal, sdf and
+    colour channels within one step everywhere (a value on a rounding tie
+    may flip) and state and colour words equal on >= 99.9% of the
+    integrated voxels; summary rows within 1e-6.  Returns the card's
+    state pool and the integrated rows."""
     outs = []
     for fn in (tint.integrate_blocks_packed, tint.integrate_blocks_packed_plain):
         st, co, su = (x.clone() for x in (vol.state, vol.color, vol.summary))
-        fn(d, rgbp, keys, ptrs, st, co, su, w2c, cam.fx, cam.fy, cam.cx, cam.cy,
-           vol.params.voxel_size, vol.params.mu, vol.params.max_w)
+        fn(d, rgbp, keys, ptrs, st, co, su, *tail)
         torch.cuda.synchronize()
         outs.append((st.cpu(), co.cpu(), su.cpu()))
     (sk, ck, uk), (sp, cp, up) = outs
     rows = torch.zeros(sk.shape[0], dtype=torch.bool)
-    rows[:n] = True
+    rows[ptrs[ptrs >= 0].long().cpu()] = True
     for x, y, orig in zip((sk, ck, uk), (sp, cp, up), (vol.state, vol.color, vol.summary)):
         orig = orig.cpu()
         assert torch.equal(x[~rows], orig[~rows]) and torch.equal(y[~rows], orig[~rows])
@@ -85,6 +90,40 @@ def test_integrate_cuda_matches_plain(cuda_device, fused):
     assert (sk[rows] == sp[rows]).float().mean() >= 0.999
     assert (ck[rows] == cp[rows]).float().mean() >= 0.999
     torch.testing.assert_close(uk, up, rtol=0, atol=1e-6)
+    return sk, rows
+
+
+@pytest.mark.cuda
+def test_integrate_cuda_matches_plain(cuda_device, fused):
+    """integrate_cuda against its plain version over the whole pools, every
+    block integrated (see `_k1_check` for the limits)."""
+    vol, cams = fused
+    vol = _to(vol, cuda_device)
+    _k1_check(vol, *_k1_inputs(vol, cams[3], cuda_device))
+
+
+@pytest.mark.cuda
+def test_integrate_cuda_dropped_rows_and_max_w(cuda_device, fused):
+    """integrate_cuda with every third candidate dropped (ptrs -1) and the
+    depth and colour weights of half the blocks at max_w - 1 or max_w:
+    dropped rows come back untouched, weights clamp at max_w, and the
+    pools agree with the plain version as in `_k1_check`."""
+    vol, cams = fused
+    vol = _to(vol, cuda_device)
+    d, rgbp, keys, ptrs, tail = _k1_inputs(vol, cams[3], cuda_device)
+    n = keys.shape[0]
+    i = torch.arange(n, device=cuda_device)
+    ptrs = torch.where(i % 3 == 0, -1, ptrs).to(torch.int32)
+    max_w = vol.params.max_w
+    w = torch.where(i % 4 == 1, max_w - 1, max_w).to(torch.int32)[:, None]
+    heavy = (i % 4 == 1) | (i % 4 == 2)
+    st = vol.state[:n]
+    vol.state[:n] = torch.where(heavy[:, None], (st & 0xFFFF) | (w << 16) | (w << 24), st)
+    sk, rows = _k1_check(vol, d, rgbp, keys, ptrs, tail)
+    wk = (sk >> 16) & 0xFF
+    assert wk.max() == max_w
+    lifted = rows[:n] & (i % 4 == 1).cpu()  # integrated, from max_w - 1
+    assert (wk[:n][lifted] == max_w).any()
 
 
 @pytest.mark.cuda
@@ -132,34 +171,88 @@ def test_integrate_f32_cuda_matches_plain(cuda_device, width, height):
     torch.testing.assert_close(ck, cp, rtol=0, atol=1e-6)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k_blocks", [1, 2])
-def test_raycast_cuda_matches_plain(cuda_device, fused, k_blocks):
-    """raycast_cuda against its plain version: both evaluate the same f32
-    expressions in the same order (nvcc -fmad=false, device-tensor
-    divisions in the plain version), so hit masks are equal and t*,
-    confidence and colour agree within 1e-4 wherever both hit."""
-    vol, cams = fused
-    vol = _to(vol, cuda_device)
-    cam = cams[2]
-    c2w = torch.as_tensor(cam.c2w, device=cuda_device)
+def _march_args(vol, cam, lb, s_refine, k_blocks, need_color, device):
+    c2w = torch.as_tensor(cam.c2w, device=device)
     tw = -(-cam.width // trc.TILE)
     gids, _ = trc._tile_bins(vol, pose_inv(c2w), cam.fx, cam.fy, cam.cx, cam.cy,
-                             cam.width, cam.height, vol.params.visible_capacity, 24, 6)
+                             cam.width, cam.height, vol.params.visible_capacity, lb, 6)
     camd = {"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy,
             "R": c2w[:3, :3], "t": c2w[:3, 3], "inv_vox": 1.0 / vol.params.voxel_size,
             "ext": vol.params.voxel_size * 8, "fmin": vol.params.frustum_min,
             "fmax": vol.params.frustum_max}
-    args = (gids, vol.state, vol.color, vol.summary, vol.block_coords, camd, tw,
-            4, 8, k_blocks)
+    return (gids, vol.state, vol.color, vol.summary, vol.block_coords, camd, tw,
+            4, s_refine, k_blocks, need_color)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lb,s_refine,k_blocks,need_color", [
+    pytest.param(24, 8, 1, True, id="1"), pytest.param(24, 8, 2, True, id="2"),
+    *(pytest.param(lb, sr, kb, lb != 16, id=f"lb{lb}-sr{sr}-k{kb}")
+      for lb in (1, 16, 32) for sr in (2, 16) for kb in (1, 2))])
+def test_raycast_cuda_matches_plain(cuda_device, fused, lb, s_refine, k_blocks,
+                                    need_color):
+    """raycast_cuda against its plain version over the kernel's range (LB
+    1 to 32, s_refine 2 to 16, k_blocks 1 and 2, with and without colour):
+    both evaluate the same f32 expressions in the same order (nvcc
+    -fmad=false, device-tensor divisions in the plain version), so hit
+    masks are equal and t*, confidence and colour agree within 1e-4
+    wherever both hit; a second launch gives the same bits.  From LB 16
+    on, most pixels hit; at LB 1 each tile keeps only its nearest block,
+    a band block in front of the surface, so almost none do."""
+    vol, cams = fused
+    vol = _to(vol, cuda_device)
+    args = _march_args(vol, cams[2], lb, s_refine, k_blocks, need_color, cuda_device)
     ok = trc.march(*args)
+    again = trc.march(*args)
     op = trc.march_plain(*args)
     torch.cuda.synchronize()
+    assert torch.equal(ok, again)
     hk, hp = ok[:, 5] > 0, op[:, 5] > 0
-    assert hk.float().mean() > 0.5
+    if lb >= 16:
+        assert hk.float().mean() > 0.5
     assert torch.equal(hk, hp)
     err = (ok[:, :5] - op[:, :5]).abs().amax(1)[hk & hp]
-    assert err.max() < 1e-4
+    assert err.numel() == 0 or err.max() < 1e-4
+    miss = ~(hk & hp)[:, None].expand(-1, 5, -1)
+    assert torch.equal(ok[:, :5][miss], op[:, :5][miss])
+    if not need_color:
+        assert not ok[:, 2:5].any()
+
+
+@pytest.mark.cuda
+def test_wrappers_never_read_back(cuda_device, fused):
+    """The K1, K2 and K3 wrappers launch under
+    torch.cuda.set_sync_debug_mode("error"): none of them copies a CUDA
+    tensor to the host or otherwise waits on the card (the pose goes to
+    the kernels as a device pointer)."""
+    from gps_slam_torch import kernels
+
+    vol, cams = fused
+    vol = _to(vol, cuda_device)
+    d, rgbp, keys, ptrs, tail = _k1_inputs(vol, cams[3], cuda_device)
+    n = keys.shape[0]
+    st = vol.state[:n]
+    f32 = (tvol.state_sdf_f32(st), tvol.state_w_depth(st).to(torch.float32),
+           vol.color[:n].contiguous(), tvol.state_w_color(st).to(torch.float32))
+    valid = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    margs = _march_args(vol, cams[2], 16, 6, 2, True, cuda_device)
+    kernels.build_all()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tint.integrate_blocks_packed(d, rgbp, keys, ptrs, vol.state, vol.color,
+                                     vol.summary, *tail)
+        w2c, fx, fy, cx, cy, vs, mu, max_w = tail
+        tint.integrate_blocks(d, rgbp, keys, valid, *f32, w2c, fx, fy, cx, cy,
+                              d.shape[1], d.shape[0], vs, mu, max_w)
+        trc.march(*margs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
+                                "raycast_cuda": 1, "splat_fwd_cuda": 0,
+                                "splat_bwd_cuda": 0}
 
 
 @pytest.mark.cuda
@@ -207,6 +300,48 @@ def _splat_inputs(device, seed=3, H=64, W=96, n=300, L=64):
     px, py = trz._tile_pixels(bins.tiles, W // 16, 16)
     ref = torch.rand(px.shape, generator=g) + 0.8
     return packed, bins.gids.to(device), px.to(device), py.to(device), ref.to(device)
+
+
+@pytest.mark.cuda
+def test_splat_fwd_cuda_skips_dead_slots(cuda_device):
+    """splat_fwd_cuda on lists whose NULL padding is shuffled between the
+    live slots and where a fifth of the Gaussians have an opacity below
+    1/255 (zero among them) and a tenth exactly 1/255; tile 0's list holds
+    two Gaussians centred on a pixel (sigma exactly 0 there), one of
+    opacity exactly 1/255 and one just above it, so that both add their
+    opacity to that pixel.  The kernel drops only the slots that cannot
+    contribute and sums the rest in list order, so it gives the plain
+    version's bits, and the same bits on a second launch."""
+    packed, gids, px, py, ref = _splat_inputs(cuda_device, seed=5)
+    g = torch.Generator().manual_seed(6)
+    A, L = gids.shape
+    order = torch.argsort(torch.rand((A, L), generator=g), 1).to(cuda_device)
+    gids = torch.gather(gids, 1, order).contiguous()
+    n = packed.shape[0] - 1
+    pick = torch.rand(n, generator=g).to(cuda_device)
+    opac = torch.where(pick < 0.1, 0.0,
+                       torch.where(pick < 0.2, 0.5 / 255.0, packed[:n, 10]))
+    gmin = torch.tensor(1.0 / 255.0, device=cuda_device)
+    packed[:n, 10] = torch.where((pick >= 0.2) & (pick < 0.3), gmin, opac)
+    assert (gids == n).any(1).float().mean() > 0.5
+    # the edge: rows 0 and 1 sit on tile 0's pixels 0 and 17, narrow and
+    # in front of the reference depth
+    above = torch.nextafter(gmin, torch.tensor(1.0, device=cuda_device))
+    for row, pix, op_r in ((0, 0, gmin), (1, 17, above)):
+        packed[row, :2] = torch.stack((px[0, pix], py[0, pix]))
+        packed[row, 2:5] = torch.tensor([0.5, 0.0, 0.5], device=cuda_device)
+        packed[row, 9] = 0.5
+        packed[row, 10] = op_r
+    gids[0] = n
+    gids[0, 3], gids[0, 40] = 0, 1
+    ok = trz.splat_fwd(packed, gids, px, py, ref, 0.1, 4)
+    again = trz.splat_fwd(packed, gids, px, py, ref, 0.1, 4)
+    op = trz.splat_fwd_plain(packed, gids, px, py, ref, 0.1, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, again)
+    assert ok[:, 4].max() > 0.5
+    assert op[0, 4, 0] == gmin and op[0, 4, 17] == above
+    assert torch.equal(ok, op)
 
 
 @pytest.mark.cuda
@@ -343,3 +478,24 @@ def test_entry_points_never_fall_back_to_the_cpu():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device(None)
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by its source and the csrc/ headers it
+    includes (runs without a card): editing either renames the library, so
+    a stale build is never loaded; the shipped sources that stage rows
+    include the shared TMA header."""
+    from gps_slam_torch import kernels
+
+    for k in (kernels.RAYCAST, kernels.SPLAT_FWD):
+        assert '#include "tma.cuh"' in k.path.read_text()
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    k = kernels.Kernel("k", "k.cu", "k", [], "test")
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "h.cuh"\nint x;\n')
+    (tmp_path / "h.cuh").write_text("int y;\n")
+    first = k.lib_path()
+    (tmp_path / "h.cuh").write_text("int z;\n")
+    second = k.lib_path()
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "h.cuh"\nint w;\n')
+    assert len({first, second, k.lib_path()}) == 3
+    assert first.name.startswith("libk_") and first.parent == kernels.BUILD

@@ -209,8 +209,12 @@ def _jax_fused_volume():
     return jv, convert.volume_from_numpy(_jax_arrays(jv), tp, "cpu"), cams
 
 
-@pytest.mark.parametrize("k_blocks", [1, 2])
-def test_raycast_plain_matches_pallas_interpret(k_blocks):
+@pytest.mark.parametrize("lb,s_refine,k_blocks", [
+    pytest.param(24, 8, 1, id="1"), pytest.param(24, 8, 2, id="2"),
+    # the main path's window raycast (engine.run_raycast_batch at the
+    # smoke's bench config: LB 16, s_coarse 4, s_refine 6, k_blocks 1)
+    pytest.param(16, 6, 1, id="window")])
+def test_raycast_plain_matches_pallas_interpret(lb, s_refine, k_blocks):
     """K3's plain version against raycast_pallas.raycast(interpret=True) on
     the same fused volume (carried across with volume_from_numpy).  The
     TPU kernel reads sdf and mip as bf16, the port as f32, so: hit masks
@@ -223,10 +227,10 @@ def test_raycast_plain_matches_pallas_interpret(k_blocks):
     jv, tv, cams = _jax_fused_volume()
     cam = cams[2]
     out_p = rcp.raycast(jv, jnp.asarray(cam.c2w), jnp.asarray(cam.K),
-                        cam.width, cam.height, 24, 4, 8, k_blocks, 4,
+                        cam.width, cam.height, lb, 4, s_refine, k_blocks, 4,
                         interpret=True)
-    out_t = trc.raycast(tv, cam.c2w, cam.K, cam.width, cam.height, 24, 4, 8,
-                        k_blocks)
+    out_t = trc.raycast(tv, cam.c2w, cam.K, cam.width, cam.height, lb, 4,
+                        s_refine, k_blocks)
     dp = np.asarray(out_p["depth_map"])[..., 0]
     dt = out_t["depth_map"].numpy()[..., 0]
     assert np.mean((dp > 0) != (dt > 0)) < 0.01
