@@ -640,7 +640,10 @@ def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
     ms = time_ms(lambda: trz.splat_bwd(*bargs), 50)
     plain_ms = time_ms(lambda: trz.splat_bwd_plain(*bargs), 5, 1)
     A, L = gids.shape
-    n_pairs = int((gids < packed.shape[0] - 1).sum().item()) * 256
+    # live slots: opacity >= 1/255 (a slot below it is exactly zero, and
+    # the kernel skips it), per tile
+    live = (packed[gids.long(), 6 + C] >= trz.GMIN_ALPHA).sum(1)
+    n_pairs = int(live.sum().item()) * 256
     n_rows = live_rows(packed, gids)
     n_bytes = (n_rows * packed.shape[1] * 4 + gids.numel() * 4 + 3 * px.numel() * 4
                + v_out.numel() * 4 + ok_out.numel() * 4)
@@ -657,11 +660,15 @@ def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
                  "library_ms": None, "ok": ok5,
                  "bytes": n_bytes, "ops": n_ops,
                  "shapes": {"A": A, "L": L, "C": C, "gaussians": packed.shape[0] - 1,
-                            "live_rows": n_rows, "live_pairs": n_pairs},
+                            "live_rows": n_rows, "live_pairs": n_pairs,
+                            "live_slots_mean": live.float().mean().item(),
+                            "live_slots_max": int(live.max().item()),
+                            "tiles_no_live_slot": int((live == 0).sum().item())},
                  "max_rel_col_err": (col_err / col_max.clamp(min=1e-30)).max().item(),
                  "tolerance": "each column within 1e-4 of its largest |value| "
-                              "(pixel sums in another order); the same bits on "
-                              "a second launch"})
+                              "(pixel sums in another order, built with "
+                              "multiply-add contraction); the same bits on a "
+                              "second launch"})
     for r in rows:
         log("[kernel] " + json.dumps(r))
     bad = [r["name"] for r in rows if not r["ok"]]
@@ -793,8 +800,10 @@ def main() -> int:
     kernels.build_all()
     log(f"[build] {len(kernels.ALL)} kernels in {time.monotonic() - t0:.1f} s")
     for k, v in kernels.build_log.items():
-        regs = [ln.strip() for ln in v.splitlines()
-                if "registers" in ln or "stack frame" in ln or "spill" in ln]
+        # one entry per distinct line: a source with several instances of a
+        # kernel (K5, one per colour count) repeats its lines
+        regs = list(dict.fromkeys(ln.strip() for ln in v.splitlines()
+                                  if "registers" in ln or "stack frame" in ln or "spill" in ln))
         log(f"[build] {k}: {regs}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

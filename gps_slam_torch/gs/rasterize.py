@@ -251,7 +251,7 @@ def splat_bwd(packed, gids, px, py, ref_tiles, v_out, delta_depth: float,
     A, L = gids.shape
     P = px.shape[1]
     rows, cols = packed.shape
-    if P != 256 or L > 256 or C + 1 > 8 or cols < 7 + C:
+    if P != 256 or L > 256 or C + 1 > 8 or cols < 7 + C or cols > 16 or cols % 4:
         raise ValueError(f"splat_bwd_cuda: unsupported shape P={P} L={L} C={C} "
                          f"cols={cols}")
     k = kernels.SPLAT_BWD
@@ -262,6 +262,9 @@ def splat_bwd(packed, gids, px, py, ref_tiles, v_out, delta_depth: float,
                                   ("ref_tiles", ref_tiles, torch.float32, (A, P)),
                                   ("v_out", v_out, torch.float32, (A, C + 1, P))):
         kernels.check_tensor(k, name, t, dtype, shape)
+        if name != "gids" and t.data_ptr() % 16:
+            raise ValueError(f"splat_bwd_cuda: {name} must be 16-byte aligned "
+                             "(the kernel copies its rows with TMA)")
     out = torch.empty((A, L, 6 + C), dtype=torch.float32, device=packed.device)
     if A == 0:
         return out

@@ -4,9 +4,9 @@ Each kernel lives in one `csrc/*.cu` file with a plain C entry point.  The
 first call that needs a kernel compiles every source with `nvcc` for
 sm_90a into `build/` at the repository root (one `nvcc` process per
 source, all started together) and loads the shared libraries with
-`ctypes`.  Libraries are named by a hash of their source and of the
-`csrc/` headers it includes, so an edited source or header is rebuilt and
-a stale library is never loaded.
+`ctypes`.  Libraries are named by a hash of their source, of the `csrc/`
+headers it includes and of their nvcc flags, so an edited source, header
+or flag is rebuilt and a stale library is never loaded.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check`
 raises when it is not 0.  Each kernel carries a launch counter that its
@@ -25,11 +25,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-# -fmad=false: no multiply-add contraction, so each kernel rounds exactly
-# like its plain PyTorch version (which runs one op per elementwise pass)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# no multiply-add contraction, so a kernel rounds exactly like its plain
+# PyTorch version (which runs one op per elementwise pass): every kernel
+# but K5, which sums its pixels in another order than its plain version
+# and is held to a tolerance, not to its bits
+EXACT = ("-fmad=false",)
 _LOCAL_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 
@@ -37,12 +39,13 @@ class Kernel:
     """One CUDA source, its C entry point and its launch count."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: list,
-                 design: str):
+                 design: str, flags: tuple = EXACT):
         self.name = name
         self.source = source
         self.entry = entry
         self.argtypes = argtypes
         self.design = design  # one line, printed beside each measurement
+        self.flags = tuple(flags)  # nvcc flags of this kernel alone
         self.launches = 0
         self._fn = None
 
@@ -50,13 +53,18 @@ class Kernel:
     def path(self) -> Path:
         return CSRC / self.source
 
+    def nvcc_flags(self) -> list[str]:
+        return [*NVCC_FLAGS, *self.flags]
+
     def lib_path(self) -> Path:
         src = self.path.read_bytes()
         h = hashlib.sha1(src)
         # the local headers the source includes (`#include "x.cuh"`, found
-        # beside it in csrc/) take part in the name, one level deep
+        # beside it in csrc/) take part in the name, one level deep, and
+        # so do the flags it is built with
         for name in _LOCAL_INCLUDE.findall(src.decode()):
             h.update((CSRC / name).read_bytes())
+        h.update("\0".join(self.nvcc_flags()).encode())
         return BUILD / f"lib{self.path.stem}_{h.hexdigest()[:12]}.so"
 
     @property
@@ -73,7 +81,8 @@ F = ctypes.c_float
 INTEGRATE = Kernel(
     "integrate_cuda", "integrate.cu", "integrate_packed",
     [P] * 8 + [I, I, I] + [F] * 6 + [I, P],
-    "thread per voxel, CTA per block")
+    "128 threads per block, 4 x-voxels each as 16-byte words loaded first; "
+    "anchor and mip by shuffles, one barrier")
 INTEGRATE_F32 = Kernel(
     "integrate_f32_cuda", "integrate_f32.cu", "integrate_f32",
     [P] * 13 + [I, I, I] + [F] * 6 + [I, P],
@@ -90,7 +99,10 @@ SPLAT_FWD = Kernel(
 SPLAT_BWD = Kernel(
     "splat_bwd_cuda", "splat_bwd.cu", "splat_bwd",
     [P, P, P, P, P, P, P, I, I, I, I, F, P],
-    "warp per list slot, fixed shuffle tree")
+    "live slots compacted, planes and live rows staged by TMA; (slot, pixel "
+    "chunk) items balanced over 128 threads, chunk sums in fixed order; "
+    "contraction on",
+    flags=("-fmad=true",))
 
 ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD)
 _lock = threading.Lock()
@@ -117,7 +129,7 @@ def build_all() -> None:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(k.path)]
+            cmd = [_nvcc(), *k.nvcc_flags(), "-o", str(tmp), str(k.path)]
             procs.append((k, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -267,6 +267,10 @@ def integrate_blocks_packed(depth, rgb_packed, keys, ptrs, state, color,
             ("summary", summary, torch.float32, (B, 128)),
             ("w2c", pose, torch.float32, (3, 4))):
         kernels.check_tensor(k, name, t, dtype, shape)
+    if any(t.data_ptr() % 16 for t in (state, color, summary)):
+        raise ValueError("integrate_cuda: the state, colour and summary pools "
+                         "must be 16-byte aligned (read and written as 16-byte "
+                         "words)")
     if V == 0:
         return
     err = k.fn(depth.data_ptr(), rgb_packed.data_ptr(), keys.data_ptr(),

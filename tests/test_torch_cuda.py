@@ -127,6 +127,24 @@ def test_integrate_cuda_dropped_rows_and_max_w(cuda_device, fused):
 
 
 @pytest.mark.cuda
+def test_integrate_cuda_permuted_rows(cuda_device, fused):
+    """integrate_cuda on candidates whose pool rows are a random
+    permutation (every CTA writes another pool row than its index), one
+    candidate short of the pool and every fifth dropped: the pools agree
+    with the plain version as in `_k1_check`, the rows left out included."""
+    vol, cams = fused
+    vol = _to(vol, cuda_device)
+    d, rgbp, keys, ptrs, tail = _k1_inputs(vol, cams[5], cuda_device)
+    n = keys.shape[0]
+    g = torch.Generator().manual_seed(11)
+    perm = torch.randperm(n, generator=g).to(cuda_device)
+    keys = keys[perm][:n - 1].contiguous()
+    ptrs = torch.where(torch.arange(n - 1, device=cuda_device) % 5 == 2, -1,
+                       ptrs[perm][:n - 1]).to(torch.int32).contiguous()
+    _k1_check(vol, d, rgbp, keys, ptrs, tail)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("width,height", [(1296, 968), (1920, 1080)])
 def test_integrate_f32_cuda_matches_plain(cuda_device, width, height):
     """integrate_f32_cuda against its plain version at the two frame sizes
@@ -365,6 +383,124 @@ def test_splat_bwd_cuda_matches_plain(cuda_device):
     assert ((ok - op).abs().amax((0, 1)) <= 1e-4 * scale).all()
 
 
+def _dead_slot_scene(device):
+    """One 16x16 tile whose list holds 8 narrow Gaussians (C = 4), each
+    centred on its own pixel in front of the reference depth, at opacities
+    0, 0.5/255, just below 1/255, exactly 1/255, just above it, 0.3, 0.5
+    and 0.9, shuffled between two NULL slots; and a random cotangent.
+    Returns the splat_bwd arguments, the opacity of each slot's row and
+    the slot, pixel and row of the Gaussian at exactly 1/255."""
+    g = torch.Generator().manual_seed(21)
+    gmin = torch.tensor(1.0 / 255.0)
+    opac = torch.stack([torch.tensor(0.0), torch.tensor(0.5 / 255.0),
+                        torch.nextafter(gmin, torch.tensor(0.0)), gmin,
+                        torch.nextafter(gmin, torch.tensor(1.0)),
+                        torch.tensor(0.3), torch.tensor(0.5), torch.tensor(0.9)])
+    n = opac.shape[0]
+    pix = torch.tensor([0, 17, 34, 51, 68, 85, 102, 119])
+    px, py = trz._tile_pixels(torch.tensor([0]), 1, 16)
+    m2d = torch.stack((px[0, pix], py[0, pix]), 1)
+    conics = torch.tensor([0.5, 0.0, 0.5]).expand(n, 3)
+    packed = trz._pack_attrs(m2d, conics, torch.rand((n, 4), generator=g),
+                             torch.full((n,), 0.5), opac)
+    gids = torch.cat([torch.randperm(n, generator=g), torch.tensor([n, n])])
+    gids = gids[torch.randperm(n + 2, generator=g)].to(torch.int32)[None]
+    v_out = torch.randn((1, 5, 256), generator=g)
+    ref = torch.ones((1, 256))
+    args = tuple(x.to(device).contiguous() for x in (packed, gids, px, py, ref, v_out))
+    slot = int((gids[0] == 3).nonzero()[0, 0])
+    return args, packed[gids[0].long(), 10], (slot, int(pix[3]))
+
+
+def test_splat_bwd_plain_dead_slots_are_exact_zeros():
+    """The rule K5's skip rests on, in its plain version (runs without a
+    card): a slot whose row has opacity below 1/255 (the NULL row's is 0)
+    keeps no pixel, so its [6+C] output row is exactly zero; a Gaussian at
+    exactly 1/255 keeps the one pixel it is centred on (alpha = 1/255
+    there), so its colour columns are exactly 1/255 times that pixel's
+    cotangent."""
+    args, op, (slot, p) = _dead_slot_scene("cpu")
+    out = trz.splat_bwd_plain(*args, 0.1, 4)[0]
+    dead = op < 1.0 / 255.0
+    assert int(dead.sum()) == 5  # 3 rows below 1/255 and 2 NULL slots
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+    assert (out[~dead].abs().amax(1) > 0).all()
+    v_out = args[5]
+    gmin = torch.tensor(1.0 / 255.0)
+    assert torch.equal(out[slot, 5:9], gmin * v_out[0, :4, p])
+
+
+@pytest.mark.cuda
+def test_splat_bwd_cuda_dead_slot_edge(cuda_device):
+    """splat_bwd_cuda on `_dead_slot_scene`: the slots below 1/255 and the
+    NULL slots come back as exact zeros, the Gaussians at exactly 1/255 and
+    just above it are computed, and every column is within 1e-4 of its
+    largest |value| of the plain version."""
+    args, op, (slot, p) = _dead_slot_scene(cuda_device)
+    ok = trz.splat_bwd(*args, 0.1, 4)
+    pl = trz.splat_bwd_plain(*args, 0.1, 4)
+    torch.cuda.synchronize()
+    ok, pl, op = ok[0].cpu(), pl[0].cpu(), op.cpu()
+    dead = op < 1.0 / 255.0
+    assert torch.equal(ok[dead], torch.zeros_like(ok[dead]))
+    assert (ok[~dead].abs().amax(1) > 0).all()
+    assert ((ok - pl).abs().amax(0) <= 1e-4 * pl.abs().amax(0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,C", [(1, 1), (1, 4), (64, 1), (64, 4), (256, 1), (256, 4)])
+def test_splat_bwd_cuda_live_slots(cuda_device, L, C):
+    """splat_bwd_cuda against its plain version over the kernel's range of
+    list lengths and colour counts (L 1, 64, 256; C 1, 4; L (6+C) both a
+    multiple of 4 and not): NULL padding shuffled between the live slots,
+    a fifth of the Gaussians below opacity 1/255 (0 among them), a tenth
+    at exactly 1/255 and a tenth just above it; tile 0's list holds no live
+    slot and tile 1's L slots are all live.  Each column within 1e-4 of its
+    largest |value| (the pixels are summed in another order), the same
+    bits on a second launch, dead slots exact zeros."""
+    g = torch.Generator().manual_seed(30 + L + C)
+    H, W, n = 64, 96, 300
+    m2d = torch.rand((n, 2), generator=g) * torch.tensor([W, H])
+    conics = torch.rand((n, 3), generator=g) * torch.tensor([0.3, 0.02, 0.3]) \
+        + torch.tensor([0.02, -0.01, 0.02])
+    pick = torch.rand(n, generator=g)
+    gmin = torch.tensor(1.0 / 255.0)
+    opac = torch.where(pick < 0.1, 0.0, torch.where(pick < 0.2, 0.5 / 255.0,
+                                                      torch.rand(n, generator=g)))
+    opac = torch.where((pick >= 0.2) & (pick < 0.3), gmin, opac)
+    opac = torch.where((pick >= 0.3) & (pick < 0.4),
+                       torch.nextafter(gmin, torch.tensor(1.0)), opac)
+    radii = torch.full((n,), 12, dtype=torch.int32)
+    bins = trz.bin_gaussians_active(m2d, radii, 16, W // 16, H // 16, n, 9, L, 64)
+    packed = trz._pack_attrs(m2d, conics, torch.rand((n, C), generator=g),
+                             torch.rand(n, generator=g) + 0.5, opac)
+    A = bins.gids.shape[0]
+    order = torch.argsort(torch.rand((A, L), generator=g), 1)
+    gids = torch.gather(bins.gids, 1, order)
+    dead_rows = torch.nonzero(opac < gmin)[:, 0]
+    live_rows = torch.nonzero(opac >= gmin)[:, 0]
+    gids[0] = torch.where(torch.rand(L, generator=g) < 0.5, n,
+                          dead_rows[torch.randint(len(dead_rows), (L,), generator=g)])
+    gids[1] = live_rows[torch.randint(len(live_rows), (L,), generator=g)]
+    px, py = trz._tile_pixels(bins.tiles, W // 16, 16)
+    ref = torch.rand(px.shape, generator=g) + 0.8
+    v_out = torch.randn((A, C + 1, 256), generator=g)
+    args = tuple(x.to(cuda_device).contiguous() for x in
+                 (packed, gids.to(torch.int32), px, py, ref, v_out))
+    ok = trz.splat_bwd(*args, 0.1, C)
+    again = trz.splat_bwd(*args, 0.1, C)
+    op = trz.splat_bwd_plain(*args, 0.1, C)
+    torch.cuda.synchronize()
+    assert ok.shape == op.shape == (A, L, 6 + C)
+    assert torch.equal(ok, again)
+    dead = packed[gids.long(), 6 + C].to(cuda_device) < gmin.to(cuda_device)
+    assert dead.any() and (~dead).any() and dead[0].all() and not dead[1].any()
+    assert torch.equal(ok[dead], torch.zeros_like(ok[dead]))
+    scale = op.abs().amax((0, 1))
+    assert (scale > 0).all()
+    assert ((ok - op).abs().amax((0, 1)) <= 1e-4 * scale).all()
+
+
 @pytest.mark.cuda
 def test_window_optimize_cuda_matches_cpu(cuda_device, tmp_path):
     """One window of 10 Adam steps over three synthetic cameras on the card
@@ -441,6 +577,12 @@ def test_wrappers_refuse_bad_input(cuda_device):
         tint.integrate_blocks_packed(
             torch.zeros((32, 32), device=cuda_device), None, None, None, None,
             None, None, None, 1.0, 1.0, 1.0, 1.0, 0.01, 0.02, 100)
+    gids = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    px, v_out = torch.zeros((4, 256), device=cuda_device), torch.zeros((4, 5, 256), device=cuda_device)
+    for packed in (torch.zeros(3 * 16 + 1, device=cuda_device)[1:].view(3, 16),  # misaligned
+                   torch.zeros((3, 14), device=cuda_device)):                    # cols % 4
+        with pytest.raises(ValueError):
+            trz.splat_bwd(packed, gids, px, px, px, v_out, 0.1, 4)
     d = torch.zeros((72, 96), device=cuda_device)
     planes = [torch.zeros((4, 512), device=cuda_device)] * 4
     with pytest.raises(ValueError):  # an int32 colour plane given as f32
@@ -499,3 +641,26 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "h.cuh"\nint w;\n')
     assert len({first, second, k.lib_path()}) == 3
     assert first.name.startswith("libk_") and first.parent == kernels.BUILD
+
+
+def test_library_name_follows_nvcc_flags(tmp_path, monkeypatch):
+    """A kernel's flags take part in its library's name (runs without a
+    card), so a library built with other flags is never loaded; every
+    kernel is built without multiply-add contraction, so that it rounds
+    like its plain version, except K5, which is held to a tolerance."""
+    from gps_slam_torch import kernels
+
+    for k in kernels.ALL:
+        fl = k.nvcc_flags()
+        assert fl[:len(kernels.NVCC_FLAGS)] == kernels.NVCC_FLAGS
+        if k is kernels.SPLAT_BWD:
+            assert "-fmad=true" in fl and "-fmad=false" not in fl
+        else:
+            assert "-fmad=false" in fl and "-fmad=true" not in fl
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text("int x;\n")
+    exact = kernels.Kernel("k", "k.cu", "k", [], "test")
+    fused = kernels.Kernel("k", "k.cu", "k", [], "test", flags=("-fmad=true",))
+    assert exact.flags == kernels.EXACT
+    assert exact.lib_path() != fused.lib_path()
+    assert exact.lib_path() == kernels.Kernel("k", "k.cu", "k", [], "other").lib_path()
