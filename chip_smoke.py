@@ -33,9 +33,11 @@ Phases (any failure exits non-zero before the final line):
      and on the 1920x1080 path), with CUDA-event timings, the least time
      the card could take for the same work and the kernel's design;
   7. reference: fusion at 128x96 on the card against the plain CPU path,
-     on K1's route and on the f32 route (budget 0): the same block set and,
-     by key, every state word's weights equal, sdf within 1 quantum and
-     colour within 1; on K1's route also a raycast (depths within a voxel).
+     on K1's route and on the f32 route (budget 0), and at 48x40 (the
+     torch branch of frames below 64 px, on both devices): the same block
+     set and, by key, every state word's weights equal, sdf within 1
+     quantum and colour within 1; on K1's route and at 48x40 also a
+     raycast (equal hit masks, depths within a voxel).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -430,10 +432,10 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
     pl_out = tint.integrate_blocks_plain(*args)
     torch.cuda.synchronize()
     (fk, wk, ck, wck), (fp, wp, cp, wcp) = ([x[valid] for x in o] for o in (ok_out, pl_out))
-    weights_equal = torch.equal(wk, wp) and torch.equal(wck, wcp)
     f_err = (fk - fp).abs().max().item()
     c_err = (ck - cp).abs().max().item()
-    ok = weights_equal and f_err <= 1e-6 and c_err <= 1e-6
+    bitwise_equal = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                        for x, y in ((fk, fp), (wk, wp), (ck, cp), (wck, wcp)))
     ms = time_ms(lambda: tint.integrate_blocks(*args), 50)
     plain_ms = time_ms(lambda: tint.integrate_blocks_plain(*args), 5, 1)
     V, Vv = keys.shape[0], int(valid.sum().item())
@@ -451,11 +453,11 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
             "source": "gps_slam_torch/csrc/integrate_f32.cu", "replaces": replaces,
             "launches": launches, "max_abs_err": float(max(f_err, c_err)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, "ok": ok, "bytes": n_bytes, "ops": n_ops,
+            "library_ms": None, "ok": bitwise_equal, "bytes": n_bytes, "ops": n_ops,
             "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
                        "tap_pixels": n_px},
-            "tolerance": "valid rows: weights equal, sdf and colour within 1e-6",
-            "sdf_err": f_err, "color_err": c_err}
+            "tolerance": "valid rows: bit for bit",
+            "sdf_err": f_err, "color_err": c_err, "bitwise_equal": bitwise_equal}
 
 
 def k3_row(tag: str | None, call: tuple, launches: int) -> dict:
@@ -678,25 +680,28 @@ def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
 
 
 def reference_phase() -> dict:
-    """Fusion + raycast at a small size on the card against the CPU plain
-    path, on both integrate routes: K1's, and the f32 route with the port's
-    `_RESIDENT_BYTES` lowered to 0, so that K2 runs on the card.  Fusion's
-    math divides by device tensors and sums the camera pose term by term
-    on both devices, and the hash claim picks each slot's winner
-    explicitly, so each route requires the same block keys and, by key,
-    every state word's weights equal, its sdf within 1 quantum and colour
-    channels within 1.  The K1 route also raycasts one view: equal hit
-    masks and depth within a voxel on every pixel both hit."""
+    """Fusion + raycast at small sizes on the card against the CPU plain
+    path: K1's route at 128x96; the f32 route at 128x96 with the port's
+    `_RESIDENT_BYTES` lowered to 0, so that K2 runs on the card; and 48x40,
+    below the 64 px that the window kernels need, where both devices take
+    the torch branch of narrow frames (no integrate kernel) and the raycast
+    runs K3 on partial 16 px tiles.  Fusion's math divides by device
+    tensors and sums the camera pose term by term on both devices, and the
+    hash claim picks each slot's winner explicitly, so each route requires
+    the same block keys and, by key, every state word's weights equal, its
+    sdf within 1 quantum and colour channels within 1.  K1's route and the
+    narrow frames also raycast one view: equal hit masks and depth within
+    a voxel on every pixel both hit."""
+    from gps_slam_torch import kernels
     from gps_slam_torch.data import synthetic
     from gps_slam_torch.tsdf import integrate as tint
     from gps_slam_torch.tsdf import raycast_tiles as trc
     from gps_slam_torch.tsdf import volume as tvol
 
-    cams = synthetic.make_cameras(n_frames=6, width=128, height=96)
     p = tvol.TsdfParams(voxel_size=0.02, mu=0.08, hash_size=1 << 16,
                         block_capacity=1 << 13, visible_capacity=1 << 12)
 
-    def fuse(dev):
+    def fuse(cams, dev):
         vol = tvol.create(p, dev)
         for c in cams:
             tint.fuse_frame(vol, torch.as_tensor(c.depth[..., 0], device=dev),
@@ -726,38 +731,57 @@ def reference_phase() -> dict:
                      and out["integrated_voxels"] > 0)
         return out
 
-    maps, states = {}, {}
-    for dev in ("cuda", "cpu"):
-        vol = fuse(dev)
-        m = trc.raycast(vol, cams[3].c2w, cams[3].K, 128, 96, 24, 4, 8, 2)
-        maps[dev] = m["depth_map"][..., 0].cpu().numpy()
-        states[dev] = by_key(vol)
-    d_c, d_p = maps["cuda"], maps["cpu"]
-    hit_xor = float(np.mean((d_c > 0) != (d_p > 0)))
-    both = (d_c > 0) & (d_p > 0)
-    close = float(np.mean(np.abs(d_c - d_p)[both] < p.voxel_size))
-    max_diff = float(np.abs(d_c - d_p)[both].max())
-    gt = cams[3].depth[..., 0]
-    med = float(np.median(np.abs(d_c - gt)[d_c > 0]))
-    res = {**state_diff(states["cuda"], states["cpu"]),
-           "hit_xor": hit_xor, "depth_within_voxel": close,
-           "max_depth_diff": max_diff, "median_depth_err_vs_gt": med}
-    log("[reference] " + json.dumps(res))
-    if not res["ok"] or hit_xor > 0.0 or close < 1.0 or med > p.voxel_size:
-        raise RuntimeError("card run disagrees with the CPU reference")
+    def fused_and_raycast(cams, tag) -> dict:
+        width, height = cams[0].width, cams[0].height
+        maps, states, launches = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            kernels.reset_counts()
+            vol = fuse(cams, dev)
+            launches[dev] = kernels.counts()
+            m = trc.raycast(vol, cams[3].c2w, cams[3].K, width, height, 24, 4, 8, 2)
+            maps[dev] = m["depth_map"][..., 0].cpu().numpy()
+            states[dev] = by_key(vol)
+        torch.cuda.synchronize()
+        d_c, d_p = maps["cuda"], maps["cpu"]
+        both = (d_c > 0) & (d_p > 0)
+        gt = cams[3].depth[..., 0]
+        res = {**state_diff(states["cuda"], states["cpu"]),
+               "width": width, "height": height,
+               "fusion_launches_cuda": launches["cuda"],
+               "hit_xor": float(np.mean((d_c > 0) != (d_p > 0))),
+               "hit_pixels": int(both.sum()),
+               "depth_within_voxel": float(np.mean(np.abs(d_c - d_p)[both] < p.voxel_size)),
+               "max_depth_diff": float(np.abs(d_c - d_p)[both].max()),
+               "median_depth_err_vs_gt": float(np.median(np.abs(d_c - gt)[d_c > 0]))}
+        log(f"[{tag}] " + json.dumps(res))
+        if (not res["ok"] or res["hit_xor"] > 0.0 or res["depth_within_voxel"] < 1.0
+                or res["median_depth_err_vs_gt"] > p.voxel_size):
+            raise RuntimeError(f"{tag}: the card run disagrees with the CPU reference")
+        return res
+
+    cams = synthetic.make_cameras(n_frames=6, width=128, height=96)
+    res = fused_and_raycast(cams, "reference")
 
     saved = tint._RESIDENT_BYTES
     tint._RESIDENT_BYTES = 0
     try:
         if tint.integrate_route(128, 96) != "pregather":
             raise RuntimeError("the lowered budget did not select the f32 route")
-        f32 = state_diff(*(by_key(fuse(dev)) for dev in ("cuda", "cpu")))
+        f32 = state_diff(*(by_key(fuse(cams, dev)) for dev in ("cuda", "cpu")))
     finally:
         tint._RESIDENT_BYTES = saved
     log("[reference f32 route] " + json.dumps(f32))
     if not f32["ok"]:
         raise RuntimeError("card run on the f32 route disagrees with the CPU reference")
     res["f32_route"] = f32
+
+    narrow = fused_and_raycast(synthetic.make_cameras(n_frames=6, width=48, height=40),
+                               "reference narrow")
+    fused_kernels = {k: n for k, n in narrow["fusion_launches_cuda"].items()
+                     if k in (kernels.INTEGRATE.name, kernels.INTEGRATE_F32.name)}
+    if any(fused_kernels.values()):
+        raise RuntimeError(f"narrow frames launched an integrate kernel: {fused_kernels}")
+    res["narrow"] = narrow
     return res
 
 

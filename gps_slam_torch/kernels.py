@@ -86,7 +86,8 @@ INTEGRATE = Kernel(
 INTEGRATE_F32 = Kernel(
     "integrate_f32_cuda", "integrate_f32.cu", "integrate_f32",
     [P] * 13 + [I, I, I] + [F] * 6 + [I, P],
-    "thread per voxel, CTA per block")
+    "256 threads per row, 2 x-voxels each; valid first, old planes as "
+    "8-byte words loaded next; anchor by shuffles, no barrier; streaming stores")
 RAYCAST = Kernel(
     "raycast_cuda", "raycast.cu", "raycast_march",
     [P] * 7 + [I] * 7 + [F] * 8 + [P],

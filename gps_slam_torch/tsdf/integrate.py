@@ -354,6 +354,10 @@ def integrate_blocks(depth, rgb_packed, keys, valid, old_sdf, old_w,
             ("old_wc", old_wc, torch.float32, plane),
             ("w2c", pose, torch.float32, (3, 4))):
         kernels.check_tensor(k, name, t, dtype, shape)
+    if any(t.data_ptr() % 8 for t in (old_sdf, old_w, old_color, old_wc)):
+        raise ValueError("integrate_f32_cuda: the old sdf, weight, colour and "
+                         "colour weight planes must be 8-byte aligned (read "
+                         "as 8-byte words)")
     new_f, new_w, new_wc = (torch.empty_like(old_sdf) for _ in range(3))
     new_c = old_sdf.new_empty((V, BLOCK_VOL, 3))
     if V == 0:
@@ -403,49 +407,59 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
                            cx, cy):
     """Frames narrower or shorter than two 32-px tiles: the JAX package
     runs its XLA branch there (nearest depth over the whole image, bilinear
-    colour, integrate.py:442-528).  CPU only."""
+    colour, integrate.py:442-528), on every device; so does the port, in
+    plain torch on the card and on the CPU alike.  Both round the same:
+    the camera point is summed term by term (a matmul may sum in another
+    order on the card) and every division is by a device tensor."""
     p = vol.params
     H, W = depth.shape
     sel = ptrs >= 0
     if not bool(sel.any()):
         return
     rows = ptrs[sel].to(torch.int64)
+    dev = depth.device
     bx, by, bz = (c.to(torch.float32) * BLOCK for c in vhash.unpack(keys[sel]))
-    lin = torch.arange(BLOCK_VOL, device=depth.device)
-    local = torch.stack([lin % BLOCK, (lin // BLOCK) % BLOCK,
-                         lin // (BLOCK * BLOCK)], -1).to(torch.float32)
-    base = torch.stack([bx, by, bz], -1)
-    pos_w = (base[:, None, :] + local[None]) * p.voxel_size
-    pc = pos_w @ w2c[:3, :3].T + w2c[:3, 3]
-    z = pc[..., 2]
-    u = fx * pc[..., 0] / z + cx
-    v = fy * pc[..., 1] / z + cy
+    lin = torch.arange(BLOCK_VOL, device=dev)
+    px = (bx[:, None] + (lin % BLOCK).to(torch.float32)) * p.voxel_size
+    py = (by[:, None] + ((lin // BLOCK) % BLOCK).to(torch.float32)) * p.voxel_size
+    pz = (bz[:, None] + (lin // (BLOCK * BLOCK)).to(torch.float32)) * p.voxel_size
+    R, t = w2c[:3, :3], w2c[:3, 3]
+    z = R[2, 0] * px + R[2, 1] * py + R[2, 2] * pz + t[2]
+    u = fx * (R[0, 0] * px + R[0, 1] * py + R[0, 2] * pz + t[0]) / z + cx
+    v = fy * (R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]) / z + cy
+    # device-tensor divisors: on CUDA torch multiplies by the reciprocal of
+    # a host scalar, where the JAX package divides
+    mu_d, c255 = (torch.tensor(x, dtype=torch.float32, device=dev)
+                  for x in (p.mu, 255.0))
     in_img = (z > 0) & (u >= 1) & (u <= W - 2) & (v >= 1) & (v <= H - 2)
-    ui = torch.round(u.nan_to_num(0).clamp(-1e7, 1e7)).to(torch.int64).clamp(0, W - 1)
-    vi = torch.round(v.nan_to_num(0).clamp(-1e7, 1e7)).to(torch.int64).clamp(0, H - 1)
+    uc = u.nan_to_num(0).clamp(-1e7, 1e7)
+    vc = v.nan_to_num(0).clamp(-1e7, 1e7)
+    ui = torch.round(uc).to(torch.int64).clamp(0, W - 1)
+    vi = torch.round(vc).to(torch.int64).clamp(0, H - 1)
     d_meas = depth[vi, ui]
     eta = d_meas - z
+    eta_mu = eta / mu_d
     update = in_img & (d_meas > 0) & (eta >= -p.mu)
     st = vol.state[rows]
     old_f = state_sdf_f32(st)
     old_w = state_w_depth(st).to(torch.float32)
-    new_f = torch.where(update, (old_w * old_f + torch.clamp(eta / p.mu, max=1.0))
+    new_f = torch.where(update, (old_w * old_f + torch.clamp(eta_mu, max=1.0))
                         / (old_w + 1.0), old_f)
     new_w = torch.where(update, torch.clamp(old_w + 1.0, max=float(p.max_w)), old_w)
-    cu = update & (eta <= p.mu) & ((eta / p.mu).abs() < 0.25)
-    uc = u.nan_to_num(0).clamp(-1e7, 1e7)
-    vc = v.nan_to_num(0).clamp(-1e7, 1e7)
+    cu = update & (eta <= p.mu) & (eta_mu.abs() < 0.25)
     u0 = torch.floor(uc).to(torch.int64).clamp(0, W - 2)
     v0 = torch.floor(vc).to(torch.int64).clamp(0, H - 2)
-    du = (uc - u0).clamp(0.0, 1.0)[..., None]
-    dv = (vc - v0).clamp(0.0, 1.0)[..., None]
+    du = (uc - u0).clamp(0.0, 1.0)
+    dv = (vc - v0).clamp(0.0, 1.0)
 
-    def tap(vv, uu):
-        return unpack_rgb(rgb_packed[vv, uu]) / 255.0
+    def tap(vv, uu, wgt):
+        # each corner's weight is the product of its two, as the JAX
+        # package weights it
+        return unpack_rgb(rgb_packed[vv, uu]) / c255 * wgt[..., None]
 
-    c_meas = (tap(v0, u0) * (1 - du) * (1 - dv) + tap(v0, u0 + 1) * du * (1 - dv)
-              + tap(v0 + 1, u0) * (1 - du) * dv + tap(v0 + 1, u0 + 1) * du * dv)
-    old_c = unpack_rgb(vol.color[rows]) / 255.0
+    c_meas = (tap(v0, u0, (1 - du) * (1 - dv)) + tap(v0, u0 + 1, du * (1 - dv))
+              + tap(v0 + 1, u0, (1 - du) * dv) + tap(v0 + 1, u0 + 1, du * dv))
+    old_c = unpack_rgb(vol.color[rows]) / c255
     old_wc = state_w_color(st).to(torch.float32)
     new_c = torch.where(cu[..., None], (old_c * old_wc[..., None] + c_meas)
                         / (old_wc[..., None] + 1.0), old_c)
@@ -481,9 +495,6 @@ def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
     w2c = pose_inv(c2w)
     rgb_packed = pack_rgb(rgb)
     if W < WIN or H < WIN:
-        if depth.device.type == "cuda":
-            raise ValueError(f"frames below {WIN}x{WIN} px are not supported "
-                             f"on the card (got {W}x{H})")
         _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c,
                                fx, fy, cx, cy)
     else:

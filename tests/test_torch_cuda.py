@@ -144,6 +144,58 @@ def test_integrate_cuda_permuted_rows(cuda_device, fused):
     _k1_check(vol, d, rgbp, keys, ptrs, tail)
 
 
+def _k2_args(device, width, height, blocks, valid_frac=0.9, seed=7):
+    """integrate_blocks' arguments for an identity camera (fx = fy = width,
+    principal point in the middle) looking at a noisy depth plane at 1.1 m
+    (5% holes) over the blocks `blocks` [V, 3] (5 mm voxels, mu 2 cm,
+    max_w 100): random old planes (weights 0..49, colour bytes and
+    weights random) and a fraction `valid_frac` of the rows valid."""
+    import numpy as np
+
+    from gps_slam_torch.tsdf import hash as thash
+
+    rng = np.random.default_rng(seed)
+    f = float(width)
+    depth = rng.normal(1.1, 0.01, (height, width)).astype(np.float32)
+    depth[rng.random((height, width)) < 0.05] = 0.0
+    rgbp = rng.integers(0, 2 ** 24, (height, width), dtype=np.int32)
+    V = blocks.shape[0]
+    keys = thash.pack(*(torch.as_tensor(blocks[:, k]) for k in range(3)))
+    valid = rng.random(V) < valid_frac
+    planes = (rng.uniform(-1, 1, (V, 512)), rng.integers(0, 50, (V, 512)),
+              rng.integers(0, 2 ** 24, (V, 512), dtype=np.int32),
+              rng.integers(0, 50, (V, 512)))
+    args = [torch.as_tensor(depth), torch.as_tensor(rgbp), keys, torch.as_tensor(valid)]
+    args += [torch.as_tensor(p if p.dtype == np.int32 else p.astype(np.float32))
+             for p in planes]
+    return [a.to(device) for a in args] + [
+        torch.eye(4, device=device), f, f, width / 2, height / 2, width, height,
+        0.005, 0.02, 100]
+
+
+def _k2_grid(x, y, z):
+    import numpy as np
+
+    return np.stack(np.meshgrid(np.arange(*x), np.arange(*y), np.arange(*z),
+                                indexing="ij"), -1).reshape(-1, 3)
+
+
+def _k2_check(args):
+    """integrate_f32_cuda against its plain version on the valid rows:
+    both evaluate the same f32 expressions in the same order (nvcc
+    -fmad=false, device-tensor divisors in the plain version), so every
+    output is the same bits.  Returns the kernel's outputs on the valid
+    rows, on the CPU."""
+    ok = tint.integrate_blocks(*args)
+    op = tint.integrate_blocks_plain(*args)
+    torch.cuda.synchronize()
+    sel = args[3]
+    outs = [[x[sel].cpu() for x in o] for o in (ok, op)]
+    for xk, xp in zip(*outs):
+        assert torch.equal(xk.view(torch.int32), xp.view(torch.int32))
+    return outs[0]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,height", [(1296, 968), (1920, 1080)])
 def test_integrate_f32_cuda_matches_plain(cuda_device, width, height):
@@ -151,42 +203,189 @@ def test_integrate_f32_cuda_matches_plain(cuda_device, width, height):
     that take the f32 route (the JAX package's K2a and K2b): a grid of
     blocks across the frustum of an identity camera, a noisy depth plane
     behind it, random old planes and 10% of the rows invalid.  On valid
-    rows both evaluate the same f32 expressions (nvcc -fmad=false,
-    device-tensor divisors in the plain version): weights equal, sdf and
-    colour within 1e-6."""
-    import numpy as np
-
-    from gps_slam_torch.tsdf import hash as thash
-
-    rng = np.random.default_rng(7)
-    f = float(width)
-    depth = rng.normal(1.1, 0.01, (height, width)).astype(np.float32)
-    depth[rng.random((height, width)) < 0.05] = 0.0
-    rgbp = rng.integers(0, 2 ** 24, (height, width), dtype=np.int32)
-    b = np.stack(np.meshgrid(np.arange(-13, 13), np.arange(-10, 10), np.arange(26, 30),
-                             indexing="ij"), -1).reshape(-1, 3)
-    V = b.shape[0]
-    keys = thash.pack(*(torch.as_tensor(b[:, k]) for k in range(3)))
-    valid = rng.random(V) > 0.1
-    planes = (rng.uniform(-1, 1, (V, 512)), rng.integers(0, 50, (V, 512)),
-              rng.integers(0, 2 ** 24, (V, 512), dtype=np.int32),
-              rng.integers(0, 50, (V, 512)))
-    args = [torch.as_tensor(depth), torch.as_tensor(rgbp), keys, torch.as_tensor(valid)]
-    args += [torch.as_tensor(p if p.dtype == np.int32 else p.astype(np.float32))
-             for p in planes]
-    args = [a.to(cuda_device) for a in args] + [
-        torch.eye(4, device=cuda_device), f, f, width / 2, height / 2, width, height,
-        0.005, 0.02, 100]
-    ok = tint.integrate_blocks(*args)
-    op = tint.integrate_blocks_plain(*args)
-    torch.cuda.synchronize()
+    rows both evaluate the same f32 expressions (`_k2_check`): the same
+    bits, weights and colour weights updated on a real share of voxels."""
+    args = _k2_args(cuda_device, width, height,
+                    _k2_grid((-13, 13), (-10, 10), (26, 30)))
+    fk, wk, ck, wck = _k2_check(args)
     sel = args[3]
-    (fk, wk, ck, wck), (fp, wp, cp, wcp) = ([x[sel].cpu() for x in o] for o in (ok, op))
-    assert torch.equal(wk, wp) and torch.equal(wck, wcp)
     assert (wk != args[5][sel].cpu()).float().mean() > 0.1
     assert (wck != args[7][sel].cpu()).float().mean() > 0.01
-    torch.testing.assert_close(fk, fp, rtol=0, atol=1e-6)
-    torch.testing.assert_close(ck, cp, rtol=0, atol=1e-6)
+
+
+def _k2_raw(args, sentinel):
+    """integrate_f32_cuda's C entry launched on output planes filled with
+    `sentinel` (the wrapper allocates them with torch.empty): shows which
+    rows the kernel writes."""
+    from gps_slam_torch import kernels
+
+    depth, rgbp, keys, valid, f, w, c, wc, w2c, fx, fy, cx, cy, W, H, vs, mu, mw = args
+    k = kernels.INTEGRATE_F32
+    V = keys.shape[0]
+    outs = [torch.full_like(f, sentinel) for _ in range(3)]
+    col = torch.full((V, 512, 3), sentinel, device=f.device)
+    pose = kernels.pose_rows(w2c)
+    err = k.fn(depth.data_ptr(), rgbp.data_ptr(), keys.data_ptr(), valid.data_ptr(),
+               f.data_ptr(), w.data_ptr(), c.data_ptr(), wc.data_ptr(),
+               outs[0].data_ptr(), outs[1].data_ptr(), col.data_ptr(),
+               outs[2].data_ptr(), pose.data_ptr(), V, W, H, float(fx), float(fy),
+               float(cx), float(cy), float(vs), float(mu), int(mw),
+               kernels.stream_ptr())
+    kernels.check(k, err)
+    torch.cuda.synchronize()
+    return outs[0], outs[1], col, outs[2]
+
+
+@pytest.mark.cuda
+def test_integrate_f32_cuda_invalid_and_single_rows(cuda_device):
+    """K2 on its smallest inputs at 1920x1080: with every row invalid the
+    kernel writes nothing (output planes filled with a sentinel come back
+    untouched); with one valid row among invalid ones it writes that row
+    alone, the plain version's bits; a single row (V = 1) likewise."""
+    grid = _k2_grid((-2, 2), (-2, 2), (26, 28))
+    args = _k2_args(cuda_device, 1920, 1080, grid, valid_frac=0.0)
+    assert not args[3].any()
+    for out in _k2_raw(args, -7.0):
+        assert (out == -7.0).all()
+    args[3][5] = True
+    raw = _k2_raw(args, -7.0)
+    _k2_check(args)
+    ref = tint.integrate_blocks_plain(*args)
+    for out, r in zip(raw, ref):
+        assert (out[~args[3]] == -7.0).all()
+        assert torch.equal(out[5].view(torch.int32), r[5].view(torch.int32))
+    one = _k2_args(cuda_device, 1920, 1080, grid[5:6], valid_frac=1.0)
+    assert one[3].all() and one[2].shape == (1,)
+    fk, wk, _, _ = _k2_check(one)
+    assert (wk != one[5].cpu()).any()
+
+
+@pytest.mark.cuda
+def test_integrate_f32_cuda_taps_past_the_edge(cuda_device):
+    """K2 at 1920x1080 on blocks around the frame's bottom-right corner:
+    1080 rows fill 33.75 tiles of 32 px, so the windows of the last tile
+    row reach past the image, where a tap reads 0 (the TPU's zero-padded
+    tiles); voxels there project past the edge and others integrate.  The
+    plain version's bits on every valid row."""
+    W, H = 1920, 1080
+    grid = _k2_grid((9, 15), (4, 10), (26, 30))
+    args = _k2_args(cuda_device, W, H, grid)
+    # each block's first corner in pixels (identity camera, fx = fy = W)
+    lo = grid * 0.04
+    u = W * lo[:, 0] / lo[:, 2] + W / 2
+    v = W * lo[:, 1] / lo[:, 2] + H / 2
+    assert (u > W - 1).any() and (v > H - 1).any() and (v < H - 2).any()
+    fk, wk, _, _ = _k2_check(args)
+    assert (wk != args[5][args[3]].cpu()).float().mean() > 0.01
+
+
+@pytest.mark.cuda
+def test_integrate_f32_cuda_weights_at_max_w(cuda_device):
+    """K2 with the old depth and colour weights of every other row at
+    max_w and of the rest at max_w - 1: updated weights clamp at max_w and
+    every valid row is the plain version's bits."""
+    args = _k2_args(cuda_device, 1920, 1080, _k2_grid((-13, 13), (-10, 10), (26, 30)))
+    V = args[2].shape[0]
+    mw = args[-1]
+    heavy = torch.where(torch.arange(V, device=cuda_device) % 2 == 0, mw, mw - 1)
+    args[5] = heavy[:, None].expand(V, 512).to(torch.float32).contiguous()
+    args[7] = args[5].clone()
+    fk, wk, _, wck = _k2_check(args)
+    assert wk.max() == mw and wck.max() == mw
+    lifted = (args[5][args[3]].cpu() == mw - 1) & (wk == mw)
+    assert lifted.any()
+
+
+@pytest.mark.cuda
+def test_integrate_f32_cuda_refuses_misaligned_planes(cuda_device):
+    """K2 reads its old planes as 8-byte words: a plane that starts 4
+    bytes into its storage (a [1:] view) is refused before any launch, and
+    one that starts 8 bytes in (a [2:] view) gives the plain version's bits."""
+    args = _k2_args(cuda_device, 1920, 1080, _k2_grid((-2, 2), (-2, 2), (26, 28)))
+    V = args[2].shape[0]
+    for i in (4, 5, 6, 7):
+        for skip, refused in ((1, True), (2, False)):
+            moved = list(args)
+            flat = torch.zeros(V * 512 + skip, dtype=args[i].dtype, device=cuda_device)
+            moved[i] = flat[skip:].view(V, 512)
+            moved[i].copy_(args[i])
+            assert moved[i].is_contiguous() and moved[i].data_ptr() % 16 == 4 * skip
+            if refused:
+                with pytest.raises(ValueError, match="8-byte"):
+                    tint.integrate_blocks(*moved)
+            else:
+                _k2_check(moved)
+
+
+@pytest.mark.cuda
+def test_narrow_frames_cuda_match_cpu(cuda_device):
+    """Frames below 64 px run on the card: 6 synthetic frames at 48x40
+    fused on the card and on the CPU take the torch branch of narrow
+    frames on both (no integrate kernel launches) and give the same block
+    keys and, by key, equal weights, sdf within 1 quantum and colour
+    within 1; a raycast of one view (K3 on partial 16 px tiles) gives
+    equal hit masks and depths within a voxel; and K4 on a 48x40 frame's
+    tiles (the last tile row half outside the frame) matches its plain
+    version (rtol 1e-5 / atol 1e-5)."""
+    from gps_slam_torch import kernels
+
+    W, H = 48, 40
+    cams = synthetic.make_cameras(n_frames=6, width=W, height=H)
+    p = tvol.TsdfParams(voxel_size=0.02, mu=0.08, hash_size=1 << 16,
+                        block_capacity=1 << 13, visible_capacity=1 << 12)
+    vols, depth = {}, {}
+    kernels.build_all()
+    for dev in (cuda_device, torch.device("cpu")):
+        vol = tvol.create(p, dev)
+        kernels.reset_counts()
+        for c in cams:
+            tint.fuse_frame(vol, torch.as_tensor(c.depth[..., 0], device=dev),
+                            torch.as_tensor(c.image, device=dev),
+                            torch.as_tensor(c.c2w, device=dev), c.K)
+        assert kernels.counts()["integrate_cuda"] == 0
+        assert kernels.counts()["integrate_f32_cuda"] == 0
+        m = trc.raycast(vol, cams[3].c2w, cams[3].K, W, H, 24, 4, 8, 2)
+        if dev.type == "cuda":
+            assert kernels.counts()["raycast_cuda"] == 1
+        depth[dev.type] = m["depth_map"][..., 0].cpu()
+        n = vol.n_blocks
+        order = torch.argsort(vol.block_coords[:n].cpu())
+        vols[dev.type] = tuple(x[:n].cpu()[order] for x in
+                               (vol.block_coords, vol.state, vol.color))
+    (kc, sc, cc), (kp, sp, cp) = vols["cuda"], vols["cpu"]
+    assert torch.equal(kc, kp)
+    assert torch.equal(sc >> 16, sp >> 16)
+    assert ((sc >> 16) & 0xFF).gt(0).float().mean() > 0.3
+    sdf = lambda w: ((w & 0xFFFF) ^ 0x8000) - 0x8000  # noqa: E731
+    assert (sdf(sc) - sdf(sp)).abs().max() <= 1
+    for sh in (0, 8, 16):
+        assert (((cc >> sh) & 0xFF) - ((cp >> sh) & 0xFF)).abs().max() <= 1
+    dc, dp = depth["cuda"], depth["cpu"]
+    assert torch.equal(dc > 0, dp > 0) and (dc > 0).float().mean() > 0.2
+    both = dc > 0
+    assert ((dc - dp).abs()[both] < p.voxel_size).all()
+
+    g = torch.Generator().manual_seed(9)
+    n, L = 60, 64
+    tw, th = -(-W // 16), -(-H // 16)
+    m2d = torch.rand((n, 2), generator=g) * torch.tensor([W, H])
+    conics = torch.rand((n, 3), generator=g) * torch.tensor([0.3, 0.02, 0.3]) \
+        + torch.tensor([0.02, -0.01, 0.02])
+    bins = trz.bin_gaussians_active(m2d, torch.full((n,), 12, dtype=torch.int32), 16,
+                                    tw, th, n, 9, L, 64)
+    packed = trz._pack_attrs(m2d, conics, torch.rand((n, 4), generator=g),
+                             torch.rand(n, generator=g) + 0.5, torch.rand(n, generator=g))
+    px, py = trz._tile_pixels(bins.tiles, tw, 16)
+    assert (py > H).any()
+    ref = torch.rand(px.shape, generator=g) + 0.8
+    a = [x.to(cuda_device).contiguous() for x in (packed, bins.gids, px, py, ref)]
+    kernels.reset_counts()
+    ok = trz.splat_fwd(*a, 0.1, 4)
+    op = trz.splat_fwd_plain(*a, 0.1, 4)
+    torch.cuda.synchronize()
+    assert kernels.counts()["splat_fwd_cuda"] == 1
+    assert ok[:, 4].max() > 0.5
+    torch.testing.assert_close(ok, op, rtol=1e-5, atol=1e-5)
 
 
 def _march_args(vol, cam, lb, s_refine, k_blocks, need_color, device):
