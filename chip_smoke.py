@@ -28,16 +28,33 @@ Phases (any failure exits non-zero before the final line):
      port's budget raised), whose eval PSNR must lie within
      ROUTE_PSNR_GAP_DB of the f32 route's: a gap to the 1200x680 PSNR is
      then the frame size's, not the route's;
-  6. kernels: each kernel against its plain PyTorch version on the inputs
-     of its last call on its path (K2 once per route, K3 on the main path
-     and on the 1920x1080 path), with CUDA-event timings, the least time
-     the card could take for the same work and the kernel's design;
-  7. reference: fusion at 128x96 on the card against the plain CPU path,
+  6. tracked path: tracked `train` mode (PIPE.TSDF.use_gt_pose false,
+     make_tracker's ICP, policy ignore) at 1200x680 for 30 frames of an
+     inward-looking orbit (look="in", arc 0.05: ~0.6 degrees a frame),
+     frame 0 seeded with its gt pose, 2 windows x 20 Adam steps: K1 and
+     the tracking-prepare K3 (need_color False, k_blocks 1) once per
+     frame; ATE below 3 voxels, the last pose within 2 cm and 2 degrees,
+     GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
+  7. kernels: each kernel against its plain PyTorch version on the inputs
+     of its last call on its path (K2 once per route, K3 on the main path,
+     on the 1920x1080 path and on the tracked path's last tracking-prepare
+     call), with CUDA-event timings, the least time the card could take
+     for the same work and the kernel's design;
+  8. mesh: the main path's volume meshed on the host by the native mesher
+     (native/mesher.cpp, built with g++ into build/, with OpenMP where the
+     compiler has it) and by the numpy
+     route: equal triangle counts, sorted triangles within 1e-5 m, sorted
+     colours within 2e-2;
+  9. reference: fusion at 128x96 on the card against the plain CPU path,
      on K1's route and on the f32 route (budget 0), and at 48x40 (the
      torch branch of frames below 64 px, on both devices): the same block
      set and, by key, every state word's weights equal, sdf within 1
      quantum and colour within 1; on K1's route and at 48x40 also a
-     raycast (equal hit masks, depths within a voxel).
+     raycast (equal hit masks, depths within a voxel); then the tracked
+     loop at 128x96 (8 frames, look="in") on the card and the CPU in
+     lockstep (the card fuses at the CPU's poses): equal quality labels,
+     each frame's estimates within 1 voxel and 0.1 degree, all but one
+     within 1 mm.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -66,6 +83,22 @@ PSNR_FLOOR_DB = 15.0
 # rounding (0..255 against 0..1 units) and the mip (bf16 matmul against an
 # f32 mean): far below what moves an eval render by half a dB
 ROUTE_PSNR_GAP_DB = 0.5
+# the tracked path: bench.py's configuration with use_gt_pose false on an
+# inward-looking orbit (every view holds the box corners, the floor and the
+# far wall: fully constrained point-to-plane ICP), ~0.6 degrees a frame
+TRACKED_ARC = 0.05
+# views across the room see more blocks than bench.py's outward orbit, for
+# which its visible cap of 8192 was sized; the tracked path alone raises it
+TRACKED_VISIBLE_CAP = 2 ** 16
+# the JAX package's own tracking gates (tests/test_tracking.py), in voxels
+# of 5 mm: ATE below 3 voxels, the last pose within 4 voxels (2 cm) and
+# 2 degrees, GOOD on >= 70% of the tracked frames
+ATE_MAX_VOXELS = 3.0
+LAST_MAX_M = 0.02
+LAST_MAX_DEG = 2.0
+GOOD_MIN_SHARE = 0.7
+# the tests/test_native.py comparison of two meshes of one volume
+MESH_TRI_ATOL, MESH_COL_ATOL = 1e-5, 2e-2
 
 
 def log(*a):
@@ -223,25 +256,38 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
     return float(hist[:n_cams].mean()), float(hist[(k - 1) * n_cams:k * n_cams].mean())
 
 
-def run_path(args, cams, iters: int, tag: str, fusion) -> dict:
-    """Drive the gt-pose train loop with `iters` Adam steps per window over
-    `cams`, then the eval render, with every kernel count set to 0 just
-    before and read just after; check the output and return the numbers
-    of the `[tag]` line.  `fusion` is the integrate kernel of the frame
-    size's route: it must launch once per frame, the other one never."""
+def run_path(args, cams, iters: int, tag: str, fusion, tracked=None):
+    """Drive the train loop with `iters` Adam steps per window over `cams`,
+    then the eval render, with every kernel count set to 0 just before and
+    read just after; check the output and return the numbers of the
+    `[tag]` line and the engine.  `fusion` is the integrate kernel of the
+    frame size's route: it must launch once per frame, the other one
+    never.  Poses are the gt ones, or with `tracked` (the Recorder of the
+    kernel wrappers' calls) the ICP tracker's (frame 0 seeded with its gt
+    pose), timed apart from fusion."""
     from gps_slam_torch import kernels
     from gps_slam_torch.config import Config
     from gps_slam_torch.eval import metrics as M
     from gps_slam_torch.gs import model as gmodel
     from gps_slam_torch.gs.model import GaussianModel
     from gps_slam_torch.slam.pipeline import SLAMPipeline
+    from gps_slam_torch.slam.tracker import make_tracker
     from gps_slam_torch.tsdf.engine import TsdfEngine
 
     N, W, H = len(cams), cams[0].width, cams[0].height
-    cfg = Config.from_dict(bench_config(N, W, H, cams[0], iters))
+    d = bench_config(N, W, H, cams[0], iters)
+    if tracked is not None:
+        d["PIPE"]["TSDF"]["use_gt_pose"] = False
+        d["TPU"]["visible_block_capacity"] = TRACKED_VISIBLE_CAP
+    cfg = Config.from_dict(d)
     engine = TsdfEngine(cfg, W, H, cams[0].K, device="cuda")
-    engine.set_gt_poses([c.c2w for c in cams])
-    engine.turn_off_tracking()
+    track = None
+    if tracked is not None:
+        engine.set_gt_poses([cams[0].c2w])
+        track = TrackedStats(engine, make_tracker(cfg, W, H), tracked)
+    else:
+        engine.set_gt_poses([c.c2w for c in cams])
+        engine.turn_off_tracking()
     model = GaussianModel(cfg, W, H, device="cuda")
     model._rng.manual_seed(args.seed)
     pipe = SLAMPipeline(cfg, engine, cfg.workspace_dir, is_train=False)
@@ -311,8 +357,15 @@ def run_path(args, cams, iters: int, tag: str, fusion) -> dict:
         "n_blocks": engine.vol.n_blocks, "gaussians": model.num_gaussians,
         "psnr_mean": float(np.mean(psnrs)), "psnr_min": float(np.min(psnrs)),
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "peak_visible": dict(engine.peak_visible),
+        "visible_capacity": cfg.tpu.visible_block_capacity,
+        "block_capacity": cfg.tpu.block_capacity,
         "launches": launches,
     }
+    if track is not None:
+        out.update(track.summary(cams))
+        out["fusion_ms_per_frame"] = (pipe.t_fusion - track.track_ms
+                                      - track.prepare_ms) / N
     if args.profile and iters > 0:
         # share of the train + eval wall time during which the card ran
         # device work (an upper bound where device events overlap)
@@ -343,15 +396,105 @@ def run_path(args, cams, iters: int, tag: str, fusion) -> dict:
         raise RuntimeError(f"{tag}: eval PSNR {out['psnr_mean']} below floor {PSNR_FLOOR_DB}")
     if model.num_gaussians <= 0:
         raise RuntimeError(f"{tag}: no Gaussians were spawned")
-    return out
+    for k, cap in (("fusion", cfg.tpu.visible_block_capacity),
+                   ("raycast", cfg.tpu.visible_block_capacity)):
+        if track is not None and out["peak_visible"][k] > cap:
+            raise RuntimeError(f"{tag}: {out['peak_visible'][k]} visible blocks "
+                               f"({k}) above the cap {cap}")
+    if engine.vol.n_blocks >= cfg.tpu.block_capacity:
+        raise RuntimeError(f"{tag}: the block pool is full ({engine.vol.n_blocks})")
+    if track is not None:
+        track.check(tag, out)
+    return out, engine
 
 
-def synthetic_cams(n: int, width: int, height: int):
+class TrackedStats:
+    """Wraps the tracker and the engine's single-view raycast (in this path
+    only the tracking-prepare raycast) to time them apart from fusion and
+    to count the prepare raycast's K3 launches; keeps the arguments of the
+    last prepare `march` call as `rec.last["tracking prepare"]`."""
+
+    def __init__(self, engine, tracker, rec):
+        from gps_slam_torch import kernels
+
+        self.track_ms = self.prepare_ms = 0.0
+        self.prepare_k3 = 0
+        self.quality, self.iters = [], []
+        track, run_raycast = tracker.track, engine.run_raycast
+
+        def timed_track(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            pose, q = track(*a, **kw)
+            torch.cuda.synchronize()
+            self.track_ms += (time.monotonic() - t) * 1e3
+            self.quality.append(q)
+            self.iters.append(list(tracker.last_iters))
+            return pose, q
+
+        def timed_prepare(*a, **kw):
+            torch.cuda.synchronize()
+            t, n0 = time.monotonic(), kernels.RAYCAST.launches
+            maps = run_raycast(*a, **kw)
+            torch.cuda.synchronize()
+            self.prepare_ms += (time.monotonic() - t) * 1e3
+            self.prepare_k3 += kernels.RAYCAST.launches - n0
+            rec.last["tracking prepare"] = rec.last["march"]
+            return maps
+
+        tracker.track = timed_track
+        engine.attach_tracker(tracker)
+        engine.run_raycast = timed_prepare
+        self.engine = engine
+
+    def summary(self, cams) -> dict:
+        from gps_slam_torch.eval import metrics as M
+        from gps_slam_torch.slam.tracker import TrackerQuality
+
+        est, gt = self.engine.cam_poses, [c.c2w for c in cams]
+        R = est[-1][:3, :3].T @ gt[-1][:3, :3]
+        n = len(self.quality)
+        return {
+            "tracked_frames": n,
+            "tracking_ms_per_frame": self.track_ms / max(n, 1),
+            "tracking_prepare_raycast_ms_total": self.prepare_ms,
+            "tracking_prepare_k3_launches": self.prepare_k3,
+            "gn_iters_mean_per_level": [float(v) for v in np.mean(self.iters, 0)],
+            "quality": {name: sum(q == v for q in self.quality) for name, v in (
+                ("GOOD", TrackerQuality.GOOD), ("POOR", TrackerQuality.POOR),
+                ("FAILED", TrackerQuality.FAILED))},
+            "ate_cm": M.ate_rmse_cm(est, gt),
+            "last_translation_err_cm": float(np.linalg.norm(est[-1][:3, 3] - gt[-1][:3, 3]) * 100),
+            "last_rotation_err_deg": float(np.degrees(np.arccos(np.clip(
+                (np.trace(R) - 1) / 2, -1, 1)))),
+        }
+
+    def check(self, tag: str, out: dict) -> None:
+        vox_cm = self.engine.params.voxel_size * 100
+        n = out["frames"]
+        if out["tracking_prepare_k3_launches"] != n:
+            raise RuntimeError(f"{tag}: {out['tracking_prepare_k3_launches']} tracking-"
+                               f"prepare K3 launches for {n} frames")
+        if not out["ate_cm"] < ATE_MAX_VOXELS * vox_cm:
+            raise RuntimeError(f"{tag}: ATE {out['ate_cm']} cm above {ATE_MAX_VOXELS} voxels")
+        if not (out["last_translation_err_cm"] < LAST_MAX_M * 100
+                and out["last_rotation_err_deg"] < LAST_MAX_DEG):
+            raise RuntimeError(f"{tag}: last pose off by {out['last_translation_err_cm']} cm, "
+                               f"{out['last_rotation_err_deg']} deg")
+        if not out["quality"]["GOOD"] >= GOOD_MIN_SHARE * out["tracked_frames"]:
+            raise RuntimeError(f"{tag}: GOOD on {out['quality']} of "
+                               f"{out['tracked_frames']} tracked frames")
+
+
+def synthetic_cams(n: int, width: int, height: int, look: str = "out",
+                   arc: float = 0.75):
     from gps_slam_torch.data import synthetic
 
     t0 = time.monotonic()
-    cams = synthetic.make_cameras(n_frames=n, width=width, height=height, arc=0.75)
-    log(f"[data] {n} synthetic frames {width}x{height} in {time.monotonic() - t0:.1f} s")
+    cams = synthetic.make_cameras(n_frames=n, width=width, height=height, look=look,
+                                  arc=arc)
+    log(f"[data] {n} synthetic frames {width}x{height} (look {look}) in "
+        f"{time.monotonic() - t0:.1f} s")
     return cams
 
 
@@ -362,15 +505,15 @@ def main_path(args) -> dict:
     from gps_slam_torch import kernels
 
     cams = synthetic_cams(N_FRAMES, 1200, 680)
-    fwd = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
-    out = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
+    fwd, _ = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
+    out, engine = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
     if out["adam_steps"] != ADAM_STEPS * out["windows"]:
         raise RuntimeError(f"main path ran {out['adam_steps']} Adam steps")
     if not out["psnr_mean"] >= fwd["psnr_mean"]:
         raise RuntimeError(f"trained eval PSNR {out['psnr_mean']} below the "
                            f"forward-only {fwd['psnr_mean']}")
     out["forward_only_psnr_mean"] = fwd["psnr_mean"]
-    return out
+    return out, engine
 
 
 def large_frame_paths(args, rec) -> tuple[list, tuple]:
@@ -394,7 +537,7 @@ def large_frame_paths(args, rec) -> tuple[list, tuple]:
         if tint.integrate_route(w, h) != route:
             raise RuntimeError(f"{w}x{h} takes route {tint.integrate_route(w, h)}")
         cams = synthetic_cams(n, w, h)
-        r = run_path(args, cams, iters, tag, kernels.INTEGRATE_F32)
+        r, _ = run_path(args, cams, iters, tag, kernels.INTEGRATE_F32)
         if r["adam_steps"] != iters * r["windows"]:
             raise RuntimeError(f"{tag} ran {r['adam_steps']} Adam steps")
         out.append((tpu, body, rec.last["integrate_blocks"][0],
@@ -406,8 +549,8 @@ def large_frame_paths(args, rec) -> tuple[list, tuple]:
     try:
         if tint.integrate_route(w, h) != "packed":
             raise RuntimeError("the raised budget did not select K1's route")
-        k1 = run_path(args, cams, ADAM_STEPS, "large-frame path, K1 route",
-                      kernels.INTEGRATE)
+        k1, _ = run_path(args, cams, ADAM_STEPS, "large-frame path, K1 route",
+                         kernels.INTEGRATE)
     finally:
         tint._RESIDENT_BYTES = saved
     gap = r["psnr_mean"] - k1["psnr_mean"]
@@ -460,10 +603,10 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
             "sdf_err": f_err, "color_err": c_err, "bitwise_equal": bitwise_equal}
 
 
-def k3_row(tag: str | None, call: tuple, launches: int) -> dict:
+def k3_row(tag: str | None, call: tuple, launches: int, extra: dict | None = None) -> dict:
     """K3 (`raycast_cuda`) against `march_plain` on the arguments of one
     `march` call (`call`: args, kwargs); `tag` names the path when it is
-    not the main path."""
+    not the main path; `extra` is added to the row."""
     from gps_slam_torch import kernels
     from gps_slam_torch.tsdf import raycast_tiles as trc
 
@@ -514,7 +657,7 @@ def k3_row(tag: str | None, call: tuple, launches: int) -> dict:
                        "s_coarse": s_c, "s_refine": s_r, "need_color": bool(need_color)},
             "tolerance": "hit masks equal; t*, confidence, colour within "
                          "1e-4 wherever both hit",
-            "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item()}
+            "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item(), **(extra or {})}
 
 
 def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
@@ -522,7 +665,8 @@ def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
     of their last main-path call (`last`, with the main path's
     `launches`), K2 on each route's last call (`k2`: (tag, replaces,
     arguments, launches) per route), K3 on the last call of the main path
-    and of the 1920x1080 path (`k3`: (tag, call, launches) per path)."""
+    of the 1920x1080 path and of the tracked path's tracking-prepare
+    raycasts (`k3`: `k3_row`'s arguments per path)."""
     from gps_slam_torch import kernels
     from gps_slam_torch.gs import rasterize as trz
     from gps_slam_torch.tsdf import integrate as tint
@@ -785,6 +929,127 @@ def reference_phase() -> dict:
     return res
 
 
+def tracked_path(args, rec) -> tuple[dict, tuple]:
+    """The tracked path at 1200x680 (phase 6).  Returns its line's numbers
+    and `k3_row`'s arguments for its last tracking-prepare call (launches:
+    the prepare raycasts'; `launches_path`: every K3 launch of the path)."""
+    from gps_slam_torch import kernels
+
+    cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
+    out, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
+                      tracked=rec)
+    if out["adam_steps"] != ADAM_STEPS * out["windows"]:
+        raise RuntimeError(f"tracked path ran {out['adam_steps']} Adam steps")
+    call = rec.last["tracking prepare"]
+    need_color = call[0][10] if len(call[0]) > 10 else call[1].get("need_color", True)
+    if need_color or call[0][9] != 1:
+        raise RuntimeError("the tracking-prepare raycast did not run with need_color "
+                           "False and k_blocks 1")
+    return out, ("tracking prepare, 1200x680", call, out["tracking_prepare_k3_launches"],
+                 {"launches_path": out["launches"][kernels.RAYCAST.name]})
+
+
+def mesh_phase(engine) -> dict:
+    """The TSDF mesh of a path's volume (phase 8), by the native mesher and
+    by the numpy route, each timed from the device volume (its host copy
+    included)."""
+    from gps_slam_torch.tsdf import meshing, native
+
+    t0 = time.monotonic()
+    native.load()
+    build_s = time.monotonic() - t0
+    times, meshes = {}, {}
+    for route, use_native in (("native", True), ("numpy", False)):
+        t0 = time.monotonic()
+        meshes[route] = meshing.extract_mesh(engine.vol, use_native=use_native)
+        times[route] = (time.monotonic() - t0) * 1e3
+    (vn, cn), (vp, cp) = meshes["native"], meshes["numpy"]
+    lib = native.loaded_path()
+    res = {"route": "native", "library": lib.name,
+           "openmp": lib == native.lib_path(native.VARIANTS[0]), "build_s": build_s,
+           "n_blocks": engine.vol.n_blocks, "triangles_native": vn.shape[0] // 3,
+           "triangles_numpy": vp.shape[0] // 3, "native_ms": times["native"],
+           "numpy_ms": times["numpy"],
+           "tolerance": f"equal triangle counts; sorted triangles within {MESH_TRI_ATOL} m, "
+                        f"sorted colours within {MESH_COL_ATOL}"}
+    same = vn.shape == vp.shape and vn.shape[0] > 0
+    if same:
+        res["max_triangle_diff"] = float(np.abs(np.sort(vn.reshape(-1, 9), 0)
+                                                - np.sort(vp.reshape(-1, 9), 0)).max())
+        res["max_color_diff"] = float(np.abs(np.sort(cn.reshape(-1, 9), 0)
+                                             - np.sort(cp.reshape(-1, 9), 0)).max())
+    log("[mesh] " + json.dumps(res))
+    if not (same and res["max_triangle_diff"] <= MESH_TRI_ATOL
+            and res["max_color_diff"] <= MESH_COL_ATOL):
+        raise RuntimeError("the native and numpy meshes of the volume disagree")
+    return res
+
+
+def reference_tracked() -> dict:
+    """The tracked loop at 128x96 (8 frames, look="in", ~1.6 cm a frame,
+    2 cm voxels) on the card and on the CPU, in lockstep: the card engine
+    fuses at the CPU engine's poses, so both track every frame against maps
+    of the same history; each frame's two estimates are compared.  ICP
+    answers the card's raycast differences (hit masks equal, depths within
+    1e-4 of the plain march) within a millimetre except on a frame where a
+    Levenberg-Marquardt accept/reject flips: equal quality labels, every
+    frame within 1 voxel and 0.1 degree, all but one within 1 mm."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.slam.tracker import ICPTracker
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    W, H, N = 128, 96, 8
+    cams = synthetic.make_cameras(n_frames=N, width=W, height=H, look="in", arc=0.0125)
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": N - 1, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    d = synthetic.default_config_dict("build/smoke_ws", node)
+    d["PIPE"]["TSDF"]["use_gt_pose"] = False
+    cfg = Config.from_dict(d)
+    cpu = TsdfEngine(cfg, W, H, c0.K, device="cpu")
+    card = TsdfEngine(cfg, W, H, c0.K, device="cuda")
+    for e in (cpu, card):
+        e.set_gt_poses([c0.c2w])
+    cpu.attach_tracker(ICPTracker(cfg, W, H))
+    tracker, own = ICPTracker(cfg, W, H), []
+
+    class Lockstep:
+        needs_color = False
+
+        def track(self, last_pose, depth, maps, K, rgb=None):
+            own.append(tracker.track(last_pose, depth, maps, K))
+            return cpu.cam_poses[len(own)], own[-1][1]
+
+    card.attach_tracker(Lockstep())
+    q_cpu = []
+    for c in cams:
+        cpu.process_frame(c.image, c.depth)
+        q_cpu.append(cpu._tracking_quality)
+        card.process_frame(c.image, c.depth)
+    d_mm, d_deg = [], []
+    for k, (pose, _) in enumerate(own, 1):
+        ref = cpu.cam_poses[k]
+        d_mm.append(float(np.linalg.norm(pose[:3, 3] - ref[:3, 3]) * 1e3))
+        R = pose[:3, :3].T @ ref[:3, :3]
+        d_deg.append(float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))))
+    vox_mm = cfg.pipe.tsdf.voxel_size * 1e3
+    res = {"width": W, "height": H, "frames": N, "max_pose_diff_mm": max(d_mm),
+           "max_pose_diff_deg": max(d_deg), "pose_diff_mm": d_mm,
+           "frames_over_1mm": sum(v > 1.0 for v in d_mm),
+           "labels_equal": [q for _, q in own] == q_cpu[1:], "labels_cpu": q_cpu[1:],
+           "tolerance": f"labels equal; every frame within {vox_mm} mm (1 voxel) and "
+                        "0.1 deg, all but one within 1 mm"}
+    log("[reference tracked] " + json.dumps(res))
+    if not (res["labels_equal"] and res["max_pose_diff_mm"] < vox_mm
+            and res["max_pose_diff_deg"] < 0.1 and res["frames_over_1mm"] <= 1):
+        raise RuntimeError("the card's tracked loop disagrees with the CPU's")
+    return res
+
+
 def profiled(fn):
     """Run fn under torch.profiler; print device time by kernel and return
     (fn's result, the summed time of the device's own kernel, copy and set
@@ -835,12 +1100,17 @@ def main() -> int:
     log(smi.stdout.strip())
 
     rec = Recorder()
-    mp = main_path(args)
+    mp, main_engine = main_path(args)
     main_last = dict(rec.last)
+    mesh_phase(main_engine)
+    del main_engine
     k2, k3_large = large_frame_paths(args, rec)
-    k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large]
+    _, k3_tracked = tracked_path(args, rec)
+    k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
+          k3_tracked]
     rows = kernel_phase(main_last, mp["launches"], k2, k3)
     reference_phase()
+    reference_tracked()
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in rows]}))

@@ -1,7 +1,9 @@
-"""Image metrics of the eval render — the port's own copy of the PSNR/SSIM
-part of gps_slam_tpu/eval/metrics.py (SSIM = 11x11 Gaussian window, same
-constants as the reference's utils/image_utils + fused SSIM).  Trajectory,
-geometry and LPIPS metrics are not ported yet.
+"""Eval metrics — the port's own copy of gps_slam_tpu/eval/metrics.py
+without LPIPS: PSNR/SSIM of the eval render (SSIM = 11x11 Gaussian
+window, same constants as the reference's utils/image_utils + fused SSIM),
+the trajectory error of tracked runs (Horn alignment, ATE) and the
+geometry metrics of an exported mesh (surface sampling, accuracy,
+completion, F1).
 """
 
 from __future__ import annotations
@@ -44,3 +46,73 @@ def ssim(a: np.ndarray, b: np.ndarray, c1=0.01 ** 2, c2=0.03 ** 2) -> float:
         (mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2)
     )
     return float(m.mean())
+
+
+# ------------------------------------------------------------ trajectory
+
+def horn_align(model: np.ndarray, data: np.ndarray):
+    """Closed-form similarity-free rigid alignment (ate_general.py:29-53).
+    model/data: [3, N].  Returns (rot, trans, per-pose translation error)."""
+    mc = model - model.mean(1, keepdims=True)
+    dc = data - data.mean(1, keepdims=True)
+    W = mc @ dc.T
+    U, _, Vh = np.linalg.svd(W.T)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vh) < 0:
+        S[2, 2] = -1
+    rot = U @ S @ Vh
+    trans = data.mean(1, keepdims=True) - rot @ model.mean(1, keepdims=True)
+    aligned = rot @ model + trans
+    err = np.sqrt(((aligned - data) ** 2).sum(0))
+    return rot, trans, err
+
+
+def ate_rmse_cm(est_poses: list[np.ndarray], gt_poses: list[np.ndarray]) -> float:
+    """Mean translation error after alignment, in cm (the reference labels
+    this 'ATE RMSE', ate_general.py:60-64 — we keep its exact definition)."""
+    est = np.stack([p[:3, 3] for p in est_poses]).T
+    gt = np.stack([p[:3, 3] for p in gt_poses]).T
+    _, _, err = horn_align(gt, est)
+    return float(err.mean() * 100.0)
+
+
+# -------------------------------------------------------------- geometry
+
+def sample_mesh_surface(vertices: np.ndarray, faces: np.ndarray, n: int,
+                        rng=None) -> np.ndarray:
+    """Uniform area-weighted surface sampling (trimesh.sample equivalent)."""
+    rng = rng or np.random.default_rng(0)
+    v0, v1, v2 = (vertices[faces[:, k]] for k in range(3))
+    areas = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=1)
+    total = areas.sum()
+    if total <= 0:
+        return vertices[rng.integers(0, len(vertices), n)]
+    probs = areas / total
+    tri = rng.choice(len(faces), size=n, p=probs)
+    r1 = np.sqrt(rng.uniform(size=(n, 1)))
+    r2 = rng.uniform(size=(n, 1))
+    return (1 - r1) * v0[tri] + r1 * (1 - r2) * v1[tri] + r1 * r2 * v2[tri]
+
+
+def geometry_metrics(rec_points: np.ndarray, gt_points: np.ndarray,
+                     dist_thres=(0.03,)) -> dict:
+    """accuracy/completion (cm) + ratio/F1 at thresholds
+    (geo_general.py:20-91)."""
+    from scipy.spatial import cKDTree
+
+    rec_tree = cKDTree(rec_points)
+    gt_tree = cKDTree(gt_points)
+    d_rec_to_gt, _ = gt_tree.query(rec_points)   # accuracy direction
+    d_gt_to_rec, _ = rec_tree.query(gt_points)   # completion direction
+    results = {
+        "accuracy": float(d_rec_to_gt.mean() * 100.0),
+        "completion": float(d_gt_to_rec.mean() * 100.0),
+    }
+    for t in dist_thres:
+        P = float((d_rec_to_gt < t).mean() * 100.0)
+        R = float((d_gt_to_rec < t).mean() * 100.0)
+        F1 = 2 * P * R / max(P + R, 1e-9)
+        results[f"accuracy ratio (< {t})"] = P
+        results[f"completion ratio (< {t})"] = R
+        results[f"F1 (< {t})"] = F1
+    return results

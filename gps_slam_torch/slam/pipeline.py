@@ -22,6 +22,7 @@ import torch
 from ..config import Config
 from ..gs import losses, model as gmodel, params as pmod
 from ..gs.model import GaussianModel
+from ..tsdf import raycast_tiles
 from ..tsdf.engine import TsdfEngine
 from ..utils import io as uio, vis
 from ..utils.camera import Camera
@@ -267,7 +268,7 @@ class SLAMPipeline:
         else:
             maps = self.engine.run_raycast_batch(
                 np.stack([self._recorded_pose(c) for c in self.opt_cam_list]))
-            rows = [{k: v[i] for k, v in maps.items() if k != "n_tile_overflow"}
+            rows = [{k: v[i] for k, v in maps.items() if k not in raycast_tiles.COUNTS}
                     for i in range(len(self.opt_cam_list))]
         self.localframe_raycast_window = rows[:n_local]
         self.opt_raycast_list = rows
@@ -490,6 +491,10 @@ class SLAMPipeline:
                               os.path.join(self.model_path, "cameras.json"))
         uio.save_cfg_args(os.path.join(self.model_path, "cfg_args"),
                           self.cfg.model.sh_degree)
+
+    def save_mesh(self) -> None:
+        self.engine.save_mesh(os.path.join(self.workspace_dir,
+                                           self.pipe.tsdf.saved_mesh))
 
     def save_engine(self) -> None:
         self.engine.save_scene(os.path.join(self.workspace_dir,

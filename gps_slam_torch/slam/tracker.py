@@ -1,0 +1,538 @@
+"""Camera trackers — the port of gps_slam_tpu/slam/tracker.py.
+
+Point-to-plane ICP against the previous frame's raycast maps over a
+coarse-to-fine depth pyramid (`levels=rrbb`: the two coarsest levels solve
+rotation only), Gauss-Newton with Levenberg-Marquardt accept/reject,
+Tukey-weighted residuals, bilinear association into the reference maps;
+a photometric tracker (`ColorTracker`), and the file, force-fail and
+composite trackers of the reference's tracker factory.
+
+Each level's loop runs on the tensors' device.  The JAX package runs it as
+one `lax.while_loop` whose exit test (`it < n_iters and step > 1e-10`)
+stays on the device; here the host reads `step` back once per iteration
+(4 bytes, the only synchronising call of an iteration) to take the same
+exit after the same iteration.  The 6x6 solve is `torch.linalg.solve_ex`,
+which neither raises nor synchronises: a singular system gives the same
+zero step as the non-finite solution that the JAX package zeroes.
+
+The sums over pixels (the 6x6 system, the gradient, the robust error) are
+accumulated in f64 and rounded to f32: the LM accept/reject compares
+errors that differ in their last bits, so f32 sums taken in another order
+(another device, another thread count) can flip it and send the
+trajectory elsewhere; f64 sums of the f32 terms round to the same f32
+value in any order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..utils.se3 import _sobel, se3_exp
+
+# per-level Gauss-Newton budgets: numiterC (coarsest) to numiterF (finest),
+# interpolated as the reference's SetupLevels does
+NUMITER_C, NUMITER_F = 20, 50
+
+
+def level_iters(numiter_c: int = NUMITER_C, numiter_f: int = NUMITER_F,
+                n_levels: int = 4) -> tuple:
+    """Coarsest = numiterC, finest = numiterF.  Returns finest-first."""
+    step = (numiter_c - numiter_f) / max(n_levels - 1, 1)
+    return tuple(
+        int(round(numiter_c - step * (n_levels - 1 - lvl)))
+        for lvl in range(n_levels)
+    )
+
+
+LEVEL_ITERS = level_iters()               # (50, 40, 30, 20) finest-first
+SPACE_THRESH = (0.015, 0.03, 0.06, 0.1)   # hard outlier distance per level
+TUKEY_C = (0.02, 0.03, 0.05, 0.08)        # robust scale per level (m)
+# 'rrbb' finest-first: levels 0, 1 solve the full twist, 2, 3 rotation only
+ROTATION_ONLY_FROM_LEVEL = 2
+CONVERGED_STEP = 1e-5
+# the loop continues while the squared step exceeds this f32 value (the
+# JAX loop compares in f32)
+_STEP_EXIT = float(np.float32(CONVERGED_STEP ** 2))
+
+
+def _scalar(v, device) -> torch.Tensor:
+    """A 0-d f32 tensor made on `device` by a fill: no host-to-device copy,
+    and a division by it stays a true division on the card (a host float
+    divisor becomes a multiply by its reciprocal there)."""
+    return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
+def _subsample_depth(depth: torch.Tensor) -> torch.Tensor:
+    """Stride-2 subsample keeping holes: the mean of each 2x2 block's
+    valid pixels."""
+    H, W = depth.shape
+    H2, W2 = H // 2, W // 2
+    d = depth[: H2 * 2, : W2 * 2].reshape(H2, 2, W2, 2)
+    valid = d > 0
+    s = torch.where(valid, d, 0.0).sum(dim=(1, 3))
+    c = valid.sum(dim=(1, 3))
+    return torch.where(c > 0, s / torch.clamp(c, min=1), 0.0)
+
+
+def _bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Bilinear sample of [H, W, C] at float (u, v) pixel coords.
+    Returns ([N, C], weight_sum [N]); corners whose value is all zero
+    (no vertex / no normal) are left out of the weights."""
+    H, W = img.shape[:2]
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    fu = (u - u0)[:, None]
+    fv = (v - v0)[:, None]
+    u0 = torch.clamp(u0.to(torch.int64), 0, W - 1)
+    v0 = torch.clamp(v0.to(torch.int64), 0, H - 1)
+    u1 = torch.clamp(u0 + 1, max=W - 1)
+    v1 = torch.clamp(v0 + 1, max=H - 1)
+    acc = torch.zeros((u.shape[0], img.shape[2]), dtype=img.dtype, device=img.device)
+    wacc = torch.zeros((u.shape[0], 1), dtype=img.dtype, device=img.device)
+    for (uu, vv, ww) in (
+        (u0, v0, (1 - fu) * (1 - fv)),
+        (u1, v0, fu * (1 - fv)),
+        (u0, v1, (1 - fu) * fv),
+        (u1, v1, fu * fv),
+    ):
+        c = img[vv, uu]                       # [N, C]
+        ok = (c.abs().sum(-1, keepdim=True) > 1e-6).to(img.dtype)
+        acc = acc + c * ww * ok
+        wacc = wacc + ww * ok
+    return acc / torch.clamp(wacc, min=1e-6), wacc[:, 0]
+
+
+def _rotation_mask(device) -> torch.Tensor:
+    """[1, 6] of (0, 0, 0, 1, 1, 1): keeps the rotation columns of J."""
+    m = torch.zeros((1, 6), dtype=torch.float32, device=device)
+    m[:, 3:] = 1.0
+    return m
+
+
+def _lm_step(T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, first: bool,
+             eye6, diag_floor: float):
+    """The Levenberg-Marquardt accept/reject of one iteration: a step that
+    raised the error is rolled back and re-solved from the accepted system
+    with 10x damping; an improving step is kept and damping relaxes.
+    Returns (T_new, T_ref, H_ref, g_ref, err_ref, lam_new, step)."""
+    better = err <= err_acc
+    if first:
+        better = torch.ones_like(better)
+    T_ref = torch.where(better, T, T_acc)
+    H_ref = torch.where(better, Hm, H_acc)
+    g_ref = torch.where(better, g, g_acc)
+    err_ref = torch.where(better, err, err_acc)
+    lam_new = torch.clamp(torch.where(better, lam * 0.1, lam * 10.0), 1e-6, 1e5)
+    # lambda-scaled diagonal + an absolute floor scaled to the mean
+    # diagonal (views of parallel walls make H rank deficient)
+    mean_diag = torch.trace(H_ref) / 6.0 + diag_floor
+    damp = lam_new * torch.diag(torch.diagonal(H_ref)) + 1e-2 * mean_diag * eye6
+    delta, info = torch.linalg.solve_ex(H_ref + damp, -g_ref)
+    ok_solve = torch.isfinite(delta).all() & torch.isfinite(err_ref) & (info == 0)
+    delta = torch.where(ok_solve, delta, 0.0)
+    T_new = se3_exp(delta) @ T_ref
+    return T_new, T_ref, H_ref, g_ref, err_ref, lam_new, (delta * delta).sum()
+
+
+def _track_level(
+    T0: torch.Tensor,          # [4,4] current c2w estimate
+    depth: torch.Tensor,       # [h, w] this level's depth
+    ref_vertex: torch.Tensor,  # [H, W, 3] world vertices from the previous raycast
+    ref_normal: torch.Tensor,  # [H, W, 3] world normals
+    cam: torch.Tensor,         # [8]: fx, fy, cx, cy (level), fx0, fy0, cx0, cy0 (full)
+    n_iters: int,
+    rotation_only: bool,
+    ref_pose_inv: torch.Tensor,  # [4,4] w2c of the raycast camera
+    space_thresh: torch.Tensor,  # 0-d
+    tukey_c: torch.Tensor,       # 0-d
+):
+    """Gauss-Newton iterations at one pyramid level.  Returns (T,
+    inlier_frac, mean_residual, n_iters_run): T is the last accepted
+    estimate (the trailing trial step is never evaluated), the inlier share
+    and residual those of the last iteration, all on the device."""
+    dev = depth.device
+    h, w = depth.shape
+    Hf, Wf = ref_vertex.shape[:2]
+    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
+    fx0, fy0, cx0, cy0 = cam[4], cam[5], cam[6], cam[7]
+
+    i = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    j = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    x = ((i - cx) / fx).expand(h, w)
+    y = ((j - cy) / fy).expand(h, w)
+    pts_cam = (torch.stack([x, y, torch.ones_like(x)], -1)
+               * depth[..., None]).reshape(-1, 3)
+    has_depth = depth.reshape(-1) > 0
+    n_pix = _scalar(h * w, dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    rot_mask = _rotation_mask(dev) if rotation_only else None
+
+    T, T_acc = T0, T0
+    H_acc, g_acc = eye6, torch.zeros(6, dtype=torch.float32, device=dev)
+    err_acc = _scalar(float("inf"), dev)
+    lam = _scalar(1e-3, dev)
+    inlier = mean_r = _scalar(0.0, dev)
+    it, step = 0, 1.0
+    while it < n_iters and step > _STEP_EXIT:
+        # current points -> world; project into the raycast camera
+        p_w = pts_cam @ T[:3, :3].T + T[:3, 3]
+        p_ref = p_w @ ref_pose_inv[:3, :3].T + ref_pose_inv[:3, 3]
+        z = p_ref[:, 2]
+        zs = torch.clamp(z, min=1e-6)
+        u = fx0 * p_ref[:, 0] / zs + cx0
+        v = fy0 * p_ref[:, 1] / zs + cy0
+        in_img = (z > 0) & (u >= 0) & (u <= Wf - 1) & (v >= 0) & (v <= Hf - 1)
+        us = torch.clamp(u, 0.0, Wf - 1.0)
+        vs = torch.clamp(v, 0.0, Hf - 1.0)
+        vt, wv = _bilinear(ref_vertex, us, vs)
+        nt, wn = _bilinear(ref_normal, us, vs)
+        nlen = torch.sqrt((nt * nt).sum(-1, keepdim=True))
+        nt = nt / torch.clamp(nlen, min=1e-6)
+        has_ref = (wv > 0.5) & (wn > 0.5) & (nlen[:, 0] > 0.3)
+        diff = p_w - vt
+        dist2 = (diff * diff).sum(-1)
+        r = (nt * diff).sum(-1)
+        ok = has_depth & in_img & has_ref & (dist2 < space_thresh * space_thresh)
+        # Tukey biweight on the point-to-plane residual
+        t_ = torch.clamp(r / tukey_c, -1.0, 1.0)
+        tw = (1.0 - t_ * t_) ** 2
+        wgt = ok.to(torch.float32) * tw
+        # d r / d xi = [n ; p_w x n] for a left-multiplied twist on T
+        Jt = torch.cat([nt, torch.linalg.cross(p_w, nt, dim=-1)], dim=-1)
+        if rotation_only:
+            Jt = Jt * rot_mask
+        Jw = (Jt * wgt[:, None]).double()
+        Hm = (Jw.T @ Jt.double()).float()
+        g = (Jw * r.double()[:, None]).sum(0).float()
+        n_ok = ok.to(torch.float32).sum()
+        mean_r = ((r.abs() * wgt).double().sum()
+                  / torch.clamp(wgt.double().sum(), min=1.0)).float()
+        inlier = n_ok / n_pix
+        err = torch.where(n_ok > 50, mean_r, float("inf"))
+        T, T_acc, H_acc, g_acc, err_acc, lam, step_t = _lm_step(
+            T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, it == 0, eye6, 1e-6)
+        it += 1
+        step = float(step_t)  # the one read-back of the iteration
+    return T_acc, inlier, mean_r, it
+
+
+class TrackerQuality:
+    GOOD, POOR, FAILED = 2, 1, 0
+
+
+# thresholds of the ICP quality policy (ICPTracker.track)
+FAIL_MIN_INLIER = 0.08
+FAIL_MAX_RESIDUAL = 0.05
+GOOD_MIN_INLIER = 0.2
+GOOD_MAX_RESIDUAL = 0.015
+
+
+def _level_cam(K: np.ndarray, lvl: int, full: bool) -> np.ndarray:
+    """f32 intrinsics of pyramid level `lvl` (then the full-resolution
+    ones when `full`), computed as the JAX package computes them."""
+    fx0, fy0, cx0, cy0 = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    s = 2 ** lvl
+    vals = [fx0 / s, fy0 / s, (cx0 + 0.5) / s - 0.5, (cy0 + 0.5) / s - 0.5]
+    if full:
+        vals += [fx0, fy0, cx0, cy0]
+    return np.asarray(vals, np.float32)
+
+
+def track_pyramid(T0: torch.Tensor, depth: torch.Tensor, ref_vertex, ref_normal,
+                  K: np.ndarray, ref_pose_inv: torch.Tensor, level_iters: tuple,
+                  space_thresh: tuple = SPACE_THRESH, tukey_c: tuple = TUKEY_C,
+                  n_levels: int = 4):
+    """The rrbb ICP pyramid, coarsest level first.  Returns (T, inlier,
+    mean_r) of the finest level on the device, and the iterations run per
+    level (finest-first)."""
+    dev = depth.device
+    pyramid = [depth]
+    for _ in range(n_levels - 1):
+        pyramid.append(_subsample_depth(pyramid[-1]))
+    T = T0
+    inl = mr = None
+    iters = [0] * n_levels
+    for lvl in range(n_levels - 1, -1, -1):
+        cam = torch.as_tensor(_level_cam(K, lvl, True), device=dev)
+        li = min(lvl, len(level_iters) - 1)
+        T, inl, mr, iters[lvl] = _track_level(
+            T, pyramid[lvl], ref_vertex, ref_normal, cam, level_iters[li],
+            lvl >= ROTATION_ONLY_FROM_LEVEL, ref_pose_inv,
+            _scalar(space_thresh[li], dev), _scalar(tukey_c[li], dev))
+    return T, inl, mr, iters
+
+
+def _tracker_node(cfg: Config) -> dict:
+    return (cfg.raw.get("PIPE", {}).get("TSDF", {}) or {}).get("tracker", {}) or {}
+
+
+# --------------------------------------------------------------- color
+
+def _track_level_color(M0, pts_w, col_known, pts_valid, rgb, gx, gy,
+                       n_iters: int, rotation_only: bool, cam: torch.Tensor):
+    """One pyramid level of photometric Levenberg-Marquardt: minimises
+    |bilinear(rgb, proj(M p_w)) - col_known|^2 over a left-multiplied twist
+    on the w2c matrix M.  Returns (M, inlier, residual, n_iters_run)."""
+    dev = rgb.device
+    h, w = rgb.shape[:2]
+    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
+    n_pts = _scalar(pts_w.shape[0], dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    rot_mask = _rotation_mask(dev) if rotation_only else None
+
+    M, M_acc = M0, M0
+    H_acc, g_acc = eye6, torch.zeros(6, dtype=torch.float32, device=dev)
+    err_acc = _scalar(float("inf"), dev)
+    lam = _scalar(1e-3, dev)
+    inl = mr = _scalar(0.0, dev)
+    it, step = 0, 1.0
+    while it < n_iters and step > _STEP_EXIT:
+        p_c = pts_w @ M[:3, :3].T + M[:3, 3]
+        z = torch.clamp(p_c[:, 2], min=1e-6)
+        u = fx * p_c[:, 0] / z + cx
+        v = fy * p_c[:, 1] / z + cy
+        in_img = (p_c[:, 2] > 0) & (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1)
+        us = torch.clamp(u, 0.0, w - 1.0)
+        vs = torch.clamp(v, 0.0, h - 1.0)
+        c_obs, wz = _bilinear(rgb, us, vs)
+        gx_o, _ = _bilinear(gx, us, vs)
+        gy_o, _ = _bilinear(gy, us, vs)
+        r = c_obs - col_known                       # [N,3]
+        ok = (pts_valid & in_img & (wz > 0.5)).to(torch.float32)
+
+        inv_z = 1.0 / z
+        zero = torch.zeros_like(z)
+        # projection jacobians d(u,v)/d p_c
+        du_dp = torch.stack([fx * inv_z, zero, -fx * p_c[:, 0] * inv_z * inv_z], -1)
+        dv_dp = torch.stack([zero, fy * inv_z, -fy * p_c[:, 1] * inv_z * inv_z], -1)
+        # left twist on M: dp_c/dv = I, dp_c/dw = w x p_c
+        J_u = torch.cat([du_dp, torch.linalg.cross(p_c, du_dp, dim=-1)], -1)
+        J_v = torch.cat([dv_dp, torch.linalg.cross(p_c, dv_dp, dim=-1)], -1)
+        if rotation_only:
+            J_u = J_u * rot_mask
+            J_v = J_v * rot_mask
+        J = gx_o[..., None] * J_u[:, None, :] + gy_o[..., None] * J_v[:, None, :]
+        Jm = (J * ok[:, None, None]).double()
+        Hm = torch.einsum("nci,ncj->ij", Jm, J.double()).float()
+        g = torch.einsum("nci,nc->i", Jm, r.double()).float()
+        n_ok = ok.sum()
+        err = torch.where(
+            n_ok > 50,
+            (((r * r).sum(-1) * ok).double().sum() / torch.clamp(n_ok, min=1.0)).float(),
+            float("inf"))
+        inl = n_ok / n_pts
+        mr = torch.sqrt(torch.clamp(err, min=0.0))
+        # the colour tracker damps its new system (Hm), not the accepted one
+        better = err <= err_acc
+        if it == 0:
+            better = torch.ones_like(better)
+        M_ref = torch.where(better, M, M_acc)
+        err_ref = torch.where(better, err, err_acc)
+        lam = torch.clamp(torch.where(better, lam * 0.1, lam * 10.0), 1e-6, 1e5)
+        mean_diag = torch.trace(Hm) / 6.0 + 1e-9
+        damp = lam * torch.diag(torch.diagonal(Hm)) + 1e-2 * mean_diag * eye6
+        delta, info = torch.linalg.solve_ex(Hm + damp, -g)
+        ok_solve = torch.isfinite(delta).all() & torch.isfinite(err_ref) & (info == 0)
+        delta = torch.where(ok_solve, delta, 0.0)
+        M, M_acc, err_acc = se3_exp(delta) @ M_ref, M_ref, err_ref
+        it += 1
+        step = float((delta * delta).sum())  # the one read-back of the iteration
+    return M_acc, inl, mr, it
+
+
+def _downsample_rgb(img: torch.Tensor) -> torch.Tensor:
+    H, W, C = img.shape
+    return img[: H // 2 * 2, : W // 2 * 2].reshape(
+        H // 2, 2, W // 2, 2, C).mean(dim=(1, 3))
+
+
+class ColorTracker:
+    """Photometric pose tracker against the model's raycast colours: the
+    previous raycast's world points and rendered colours are projected
+    into the new rgb frame and the photometric error is minimised by LM
+    over SE(3), rotation-only at the two coarsest pyramid levels."""
+
+    needs_color = True   # the tracking-prepare raycast must carry rgb
+
+    def __init__(self, cfg: Config, width: int, height: int,
+                 n_levels: int = 4, stride: int = 4):
+        self.cfg = cfg
+        self.width, self.height = width, height
+        self.n_levels = n_levels
+        self.stride = stride
+        tnode = _tracker_node(cfg)
+        self.level_iters = level_iters(
+            int(tnode.get("numiterC", NUMITER_C)),
+            int(tnode.get("numiterF", NUMITER_F)), n_levels)
+        self.min_inlier = float(tnode.get("color_min_inlier", 0.15))
+        self.max_residual = float(tnode.get("color_max_residual", 0.10))
+        self.last_iters: list[int] = []
+
+    def track(self, last_pose: np.ndarray, depth, raycast_maps: dict | None,
+              K: np.ndarray, rgb=None):
+        if raycast_maps is None or rgb is None:
+            return last_pose, TrackerQuality.POOR
+        s = self.stride
+        vtx = raycast_maps["vertex_map"][::s, ::s].reshape(-1, 3)
+        dev = vtx.device
+        col = raycast_maps["color_map"][::s, ::s].reshape(-1, 3)
+        valid = vtx.abs().sum(-1) > 0
+        img0 = torch.as_tensor(rgb, dtype=torch.float32, device=dev).reshape(
+            self.height, self.width, 3)
+        levels = [img0]
+        for _ in range(self.n_levels - 1):
+            levels.append(_downsample_rgb(levels[-1]))
+        M = torch.as_tensor(np.linalg.inv(last_pose), device=dev)
+        inl = mr = None
+        self.last_iters = [0] * self.n_levels
+        for lvl in range(self.n_levels - 1, -1, -1):
+            cam = torch.as_tensor(_level_cam(K, lvl, False), device=dev)
+            gx, gy = _sobel(levels[lvl])
+            li = min(lvl, len(self.level_iters) - 1)
+            M, inl, mr, self.last_iters[lvl] = _track_level_color(
+                M, vtx, col, valid, levels[lvl], gx, gy,
+                self.level_iters[li], lvl >= ROTATION_ONLY_FROM_LEVEL, cam)
+        # one fetch after the level chain; the 4x4 inverse on the host
+        M_h = M.cpu().numpy()
+        inlier, mean_r = float(inl), float(mr)
+        self.last_inlier, self.last_residual = inlier, mean_r
+        try:
+            T = np.linalg.inv(M_h)
+        except np.linalg.LinAlgError:
+            return last_pose, TrackerQuality.FAILED
+        if not np.all(np.isfinite(T)):
+            return last_pose, TrackerQuality.FAILED
+        if inlier < self.min_inlier or mean_r > self.max_residual:
+            return last_pose, TrackerQuality.FAILED
+        quality = (TrackerQuality.GOOD
+                   if (inlier > 0.3 and mean_r < 0.06)
+                   else TrackerQuality.POOR)
+        return T, quality
+
+
+class CompositeTracker:
+    """Run trackers in sequence, each refining the previous estimate; the
+    reported quality is the last tracker's."""
+
+    def __init__(self, trackers: list):
+        self.trackers = list(trackers)
+
+    @property
+    def needs_color(self) -> bool:
+        return any(getattr(t, "needs_color", False) for t in self.trackers)
+
+    def track(self, last_pose, depth, raycast_maps, K, rgb=None):
+        pose, quality = last_pose, TrackerQuality.POOR
+        for t in self.trackers:
+            pose, quality = t.track(pose, depth, raycast_maps, K, rgb=rgb)
+        return pose, quality
+
+
+class FileBasedTracker:
+    """Poses from per-frame files: `pose_mask % frame` holds the
+    column-major 4x4 inverse pose (w2c); a missing or unreadable file is a
+    tracking failure and the counter still advances."""
+
+    def __init__(self, pose_mask: str, initial_frame: int = 0):
+        self.pose_mask = pose_mask
+        self.frame = initial_frame
+
+    def track(self, last_pose, depth, raycast_maps, K, rgb=None):
+        path = self.pose_mask % self.frame
+        self.frame += 1
+        try:
+            vals = np.loadtxt(path, dtype=np.float32)
+        except (OSError, ValueError):
+            return last_pose, TrackerQuality.FAILED
+        if vals.size != 16:
+            return last_pose, TrackerQuality.FAILED
+        inv_pose = vals.reshape(4, 4, order="F")  # column-major stream
+        try:
+            return (np.linalg.inv(inv_pose).astype(np.float32),
+                    TrackerQuality.GOOD)
+        except np.linalg.LinAlgError:
+            return last_pose, TrackerQuality.FAILED
+
+
+class ForceFailTracker:
+    """Always fails: exercises the failure policies end to end."""
+
+    def track(self, last_pose, depth, raycast_maps, K, rgb=None):
+        return last_pose, TrackerQuality.FAILED
+
+
+def make_tracker(cfg: Config, width: int, height: int):
+    """Tracker factory over the optional PIPE.TSDF.tracker.type key: icp
+    (default), rgb/color, composite (colour refine then icp), file
+    (pose_mask), force_fail."""
+    tnode = _tracker_node(cfg)
+    ttype = str(tnode.get("type", "icp")).lower()
+    if ttype in ("icp", "extended"):
+        return ICPTracker(cfg, width, height)
+    if ttype in ("rgb", "color"):
+        return ColorTracker(cfg, width, height)
+    if ttype == "composite":
+        return CompositeTracker(
+            [ColorTracker(cfg, width, height),
+             ICPTracker(cfg, width, height)])
+    if ttype == "file":
+        return FileBasedTracker(str(tnode.get("pose_mask", "pose%06d.txt")),
+                                int(tnode.get("initial_frame", 0)))
+    if ttype == "force_fail":
+        return ForceFailTracker()
+    raise ValueError(f"unknown tracker type: {ttype}")
+
+
+class ICPTracker:
+    """Depth-only rrbb ICP against the previous tracking-prepare raycast."""
+
+    needs_color = False  # vertex and normal maps suffice
+
+    def __init__(self, cfg: Config, width: int, height: int, n_levels: int = 4):
+        self.cfg = cfg
+        self.width, self.height = width, height
+        self.n_levels = n_levels
+        tnode = _tracker_node(cfg)
+        self.level_iters = level_iters(
+            int(tnode.get("numiterC", NUMITER_C)),
+            int(tnode.get("numiterF", NUMITER_F)),
+            n_levels,
+        )
+        self.space_thresh = tuple(tnode.get("space_thresh", SPACE_THRESH))
+        self.tukey_c = tuple(tnode.get("tukey_c", TUKEY_C))
+        self.last_iters: list[int] = []
+
+    def track(self, last_pose: np.ndarray, depth, raycast_maps: dict | None,
+              K: np.ndarray, rgb=None):
+        """Track the new depth frame against the previous raycast.  Returns
+        (c2w pose [4,4] numpy, quality); `rgb` is ignored.  The iterations
+        run per level (finest first) are kept in `last_iters`."""
+        if raycast_maps is None:
+            return last_pose, TrackerQuality.POOR
+        ref_v = raycast_maps["vertex_map"]
+        dev = ref_v.device
+        d0 = torch.as_tensor(depth, dtype=torch.float32, device=dev).reshape(
+            self.height, self.width)
+        # the raycast camera's w2c inverted on the host in f32, as the JAX
+        # package does, so both start from the same bits
+        ref_pose_inv = torch.as_tensor(np.linalg.inv(last_pose), device=dev)
+        T0 = torch.as_tensor(np.asarray(last_pose), device=dev)
+        T, inl, mr, self.last_iters = track_pyramid(
+            T0, d0, ref_v, raycast_maps["normal_map"], K, ref_pose_inv,
+            self.level_iters, self.space_thresh, self.tukey_c, self.n_levels)
+        # one fetch of (pose, inlier, residual) after the level chain
+        vals = torch.cat([T.reshape(-1), inl.reshape(1), mr.reshape(1)]).cpu().numpy()
+        T = vals[:16].reshape(4, 4)
+        inlier, mean_r = float(vals[16]), float(vals[17])
+        self.last_inlier, self.last_residual = inlier, mean_r
+        # quality policy in place of the reference's SVM gate
+        if not np.all(np.isfinite(T)):
+            return last_pose, TrackerQuality.FAILED
+        if inlier < FAIL_MIN_INLIER or mean_r > FAIL_MAX_RESIDUAL:
+            return last_pose, TrackerQuality.FAILED
+        quality = (TrackerQuality.GOOD
+                   if (inlier > GOOD_MIN_INLIER and mean_r < GOOD_MAX_RESIDUAL)
+                   else TrackerQuality.POOR)
+        return T, quality

@@ -1,9 +1,16 @@
-"""TSDF engine facade, gt-pose path — the port of gps_slam_tpu/tsdf/engine.py.
+"""TSDF engine facade — the port of gps_slam_tpu/tsdf/engine.py (eager
+per-frame path, without spatial sharding or swapping).
 
-Per frame: take the ground-truth pose, fuse, and record the pose and
-intrinsics for later raycasts.  Counts (allocated blocks, candidates) are
-read exactly every frame; the JAX package's asynchronous count caches and
-prefix buckets exist only for its slow host link and are left out.
+Per frame: optional bilateral depth filter -> the pose (the ground truth
+in gt-pose mode; in tracked mode the attached tracker's estimate against
+the previous tracking-prepare raycast, with the behaviour-on-failure
+policy: pose revert, `stop_integration` or `relocalise`) -> fuse -> record
+the pose and intrinsics for later raycasts -> in tracked mode the next
+frame's tracking-prepare raycast.  Counts (allocated blocks, candidates)
+are read exactly every frame; the JAX package's asynchronous count caches,
+prefix buckets and one-dispatch tracked megastep exist only for its slow
+host link and are left out (the megastep's in-graph pose revert is the
+rule `ICPTracker.track` applies).
 """
 
 from __future__ import annotations
@@ -17,6 +24,18 @@ from .. import resolve_device
 from ..config import Config
 from . import integrate, raycast_tiles
 from .volume import TsdfParams, TsdfVolume, create
+
+
+class TrackingResult:
+    """behaviourOnFailure policy surface."""
+
+    GOOD = 2
+    POOR = 1
+    FAILED = 0
+
+
+def _tsdf_node(cfg: Config) -> dict:
+    return cfg.raw.get("PIPE", {}).get("TSDF", {}) or {}
 
 
 class TsdfEngine:
@@ -50,6 +69,23 @@ class TsdfEngine:
         self.cam_intrinsics: list[np.ndarray] = []
         self.current_frame = 0
         self._last_pose = np.eye(4, dtype=np.float32)
+        self.mesh_algo = str(tpu.mesh_algo)
+        self._tracker = None  # set by attach_tracker (slam.tracker)
+        self._last_raycast_for_tracking = None
+        # optional YAML keys PIPE.TSDF.behaviour_on_failure (default
+        # ignore) and PIPE.TSDF.use_bilateral_filter (default off)
+        self.failure_policy = str(_tsdf_node(cfg).get("behaviour_on_failure", "ignore"))
+        self.use_bilateral_filter = bool(_tsdf_node(cfg).get("use_bilateral_filter", False))
+        self.relocalizer = None
+        if self.failure_policy == "relocalise":
+            from ..slam.relocalizer import FernRelocalizer
+
+            self.relocalizer = FernRelocalizer()
+        self._tracking_quality = TrackingResult.GOOD
+        # largest per-frame visible set seen: fusion's candidate blocks and
+        # the raycasts' surface blocks in depth range, both before the
+        # visible_capacity cap
+        self.peak_visible = {"fusion": 0, "raycast": 0}
 
     # -- configuration -------------------------------------------------------
 
@@ -59,29 +95,68 @@ class TsdfEngine:
     def turn_off_tracking(self) -> None:
         self.tracking_active = False
 
+    def attach_tracker(self, tracker) -> None:
+        self._tracker = tracker
+        self.tracking_active = not self.use_gt_pose
+
     # -- per-frame processing -------------------------------------------------
 
     def process_frame(self, rgb, depth) -> np.ndarray:
-        """Inject the gt pose and fuse one RGB-D frame; returns the c2w
-        pose.  `rgb` [H, W, 3] / `depth` [H, W(, 1)] may be numpy arrays or
-        tensors."""
-        if self.tracking_active:
-            raise NotImplementedError("tracked mode is not ported yet")
+        """Track (or inject the gt pose) and fuse one RGB-D frame; returns
+        the c2w pose.  `rgb` [H, W, 3] / `depth` [H, W(, 1)] may be numpy
+        arrays or tensors."""
         i = self.current_frame
-        if self.gt_c2w_poses:
-            pose = self.gt_c2w_poses[min(i, len(self.gt_c2w_poses) - 1)]
-        else:
-            pose = self._last_pose
         d = torch.as_tensor(depth, dtype=torch.float32, device=self.device)
         if d.ndim == 3:
             d = d[..., 0]
+        if self.use_bilateral_filter:
+            from ..utils.se3 import bilateral_filter_depth
+
+            d = bilateral_filter_depth(d)
         c = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
-        integrate.fuse_frame(
-            self.vol, d, c, torch.as_tensor(pose, device=self.device), self.K)
+        skip_fusion = False
+        if self.tracking_active and self._tracker is not None and i > 0:
+            pose, quality = self._tracker.track(
+                self._last_pose, d, self._last_raycast_for_tracking, self.K, rgb=c)
+            self._tracking_quality = quality
+            if quality == TrackingResult.FAILED:
+                pose = self._last_pose  # pose revert
+                if self.failure_policy == "stop_integration":
+                    skip_fusion = True
+                elif self.failure_policy == "relocalise" and self.relocalizer:
+                    # fern retrieval, then re-track from the retrieved pose
+                    cand = self.relocalizer.relocalize(d)
+                    if cand is not None:
+                        reloc_maps = self.run_raycast(cand)
+                        pose, quality = self._tracker.track(
+                            cand, d, reloc_maps, self.K, rgb=c)
+                        if quality == TrackingResult.FAILED:
+                            pose = self._last_pose
+                            skip_fusion = True
+            if self.relocalizer is not None:
+                self.relocalizer.process_frame(d, pose, quality == TrackingResult.GOOD)
+        elif self.gt_c2w_poses:
+            # frames beyond the supplied gt trajectory keep the last pose
+            pose = self.gt_c2w_poses[min(i, len(self.gt_c2w_poses) - 1)]
+        else:
+            pose = self._last_pose
+
+        if not skip_fusion:
+            integrate.fuse_frame(
+                self.vol, d, c, torch.as_tensor(pose, device=self.device), self.K)
+            self.peak_visible["fusion"] = max(self.peak_visible["fusion"],
+                                              self.vol.n_visible)
         self._last_pose = np.asarray(pose, dtype=np.float32)
         self.cam_poses.append(self._last_pose.copy())
         self.cam_intrinsics.append(self.K.copy())
         self.current_frame += 1
+
+        if self.tracking_active and self._tracker is not None:
+            # the next frame's tracking-prepare raycast: one candidate block
+            # per pixel, normals on, colour only for a tracker that reads it
+            need_rgb = bool(getattr(self._tracker, "needs_color", False))
+            self._last_raycast_for_tracking = self.run_raycast(
+                self._last_pose, quality=False, need_color=need_rgb)
         return self._last_pose
 
     # -- raycast service -------------------------------------------------------
@@ -92,23 +167,29 @@ class TsdfEngine:
         """Raycast from an arbitrary pose; `quality` refines k_blocks=2
         candidates per pixel, otherwise 1 (window raycasts)."""
         p = self.params
-        return raycast_tiles.raycast(
+        maps = raycast_tiles.raycast(
             self.vol, np.asarray(c2w, np.float32),
             self.K if K is None else np.asarray(K, np.float32),
             width or self.width, height or self.height, p.raycast_lb,
             p.raycast_samples, max(p.raycast_bisect, 3), 2 if quality else 1,
             need_color=need_color)
+        self.peak_visible["raycast"] = max(self.peak_visible["raycast"],
+                                           maps["n_visible"])
+        return maps
 
     def run_raycast_batch(self, c2ws, K=None, quality: bool = False,
                           need_normals: bool = False) -> dict:
         """Raycast M poses; stacked [M, ...] map dict."""
         p = self.params
-        return raycast_tiles.raycast_batch(
+        maps = raycast_tiles.raycast_batch(
             self.vol, np.asarray(c2ws, np.float32),
             self.K if K is None else np.asarray(K, np.float32),
             self.width, self.height, p.raycast_lb, p.raycast_samples,
             max(p.raycast_bisect, 3), 2 if quality else 1,
             need_normals=need_normals)
+        self.peak_visible["raycast"] = max(self.peak_visible["raycast"],
+                                           maps["n_visible"])
+        return maps
 
     # -- persistence -----------------------------------------------------------
 
@@ -150,3 +231,11 @@ class TsdfEngine:
         self.cam_intrinsics = [k.astype(np.float32) for k in z["cam_intrinsics"]]
         self.current_frame = len(self.cam_poses)
 
+    def save_mesh(self, path: str) -> None:
+        """Iso-surface -> coloured triangle-soup PLY (TPU.mesh_algo: "mt"
+        or "mc"), meshed on the host by the native mesher."""
+        from ..utils import io as uio
+        from .meshing import extract_mesh
+
+        verts, cols = extract_mesh(self.vol, algo=self.mesh_algo)
+        uio.save_mesh_ply(path, verts, cols)

@@ -489,6 +489,7 @@ def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
     # the valid candidates are a prefix (dedup parks EMPTY keys last); the
     # integration set is that prefix, capped at the visible capacity
     n_cand = int((cand != vhash.EMPTY).sum())
+    vol.n_visible = n_cand
     V = min(p.visible_capacity, p.alloc_candidate_cap, n_cand)
     keys = cand[:V].contiguous()
     ptrs = cand_ptrs[:V].contiguous()

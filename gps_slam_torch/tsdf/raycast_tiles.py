@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from ..utils.se3 import compute_normal_map, pose_inv
+from ..utils.se3 import pose_inv, sobel_normals
 from . import hash as vhash
 from .volume import BLOCK, TsdfVolume
 
@@ -31,12 +31,15 @@ TILE = 16
 P = TILE * TILE
 NEAR = 0.9
 N_OUT = 6   # march output channels: t*, confidence, r, g, b, found
+COUNTS = ("n_tile_overflow", "n_visible")  # the map dict's host ints
 
 
 def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
                vis_cap: int, lb: int, span_cap: int):
     """Per-tile candidate block lists.  Returns (gids int32 [T, LB] with
-    -1 for empty slots, n_overflow)."""
+    -1 for empty slots, n_overflow, n_visible): the surface blocks in
+    depth range number n_visible, of which the first vis_cap in pool order
+    are binned."""
     p = vol.params
     dev = vol.device
     tw = -(-width // TILE)
@@ -57,7 +60,7 @@ def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
     V = vis_idx.shape[0]
     gids = torch.full((T, lb), -1, dtype=torch.int32, device=dev)
     if V == 0:
-        return gids, 0
+        return gids, 0, 0
 
     offs = torch.tensor([[ox, oy, oz] for ox in (0, 1) for oy in (0, 1)
                          for oz in (0, 1)], dtype=torch.float32, device=dev) * ext
@@ -107,8 +110,10 @@ def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
     idx = (start[:, None] + l[None]).clamp(max=gids_s.shape[0] - 1)
     gids = torch.where(l[None] < counts[:, None], gids_s[idx],
                        -1).to(torch.int32)
-    n_overflow = int(torch.clamp(counts - lb, min=0).sum() + span_overflow.sum())
-    return gids.contiguous(), n_overflow
+    n_overflow, n_visible = torch.stack([
+        torch.clamp(counts - lb, min=0).sum() + span_overflow.sum(),
+        surf.sum()]).tolist()
+    return gids.contiguous(), n_overflow, n_visible
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +403,7 @@ def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
     tw = -(-width // TILE)
     th = -(-height // TILE)
     T = tw * th
-    gids, n_overflow = _tile_bins(vol, w2c, fx, fy, cx, cy, width, height,
+    gids, n_overflow, n_visible = _tile_bins(vol, w2c, fx, fy, cx, cy, width, height,
                                   p.visible_capacity, lb, span_cap=6)
     cam = {"fx": fx, "fy": fy, "cx": cx, "cy": cy, "R": c2w[:3, :3],
            "t": c2w[:3, 3], "inv_vox": 1.0 / p.voxel_size,
@@ -415,7 +420,13 @@ def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
     color_img = _unpack_img(out[:, 2:5].transpose(1, 2), th, tw, height, width)
     conf_img = _unpack_img(conf * found, th, tw, height, width)
     if need_normals:
-        normal_img = compute_normal_map(vertex_img.contiguous())
+        # Sobel normals of the world vertex map, kept where the 3x3
+        # neighbourhood is all hits.  The JAX package also zeroes every
+        # normal whose world-space z <= 0 (compute_normal_map's camera-depth
+        # test applied to world vertices), which drops a whole wall lying in
+        # the plane z = 0; the port keeps those normals (see ROADMAP.md,
+        # faults of the reference).
+        normal_img = sobel_normals(vertex_img.contiguous())
         hit = (depth_img > 0).to(torch.float32)
         # 3x3 min-pool of the hit mask ('SAME', pad value 1)
         nb = -F.max_pool2d(-F.pad(hit[None, None], (1, 1, 1, 1), value=1.0),
@@ -430,16 +441,19 @@ def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
         "depth_map": depth_img[..., None].contiguous(),
         "normal_map": normal_img.contiguous(),
         "n_tile_overflow": n_overflow,
+        "n_visible": n_visible,
     }
 
 
 def raycast_batch(vol: TsdfVolume, c2ws, K, width: int, height: int,
                   lb: int = 24, s_coarse: int = 4, s_refine: int = 8,
                   k_blocks: int = 2, need_normals: bool = False) -> dict:
-    """`raycast` over M poses, stacked [M, ...] (overflow counts summed)."""
+    """`raycast` over M poses, stacked [M, ...] (overflow counts summed,
+    the largest visible count kept)."""
     outs = [raycast(vol, c2w, K, width, height, lb, s_coarse, s_refine,
                     k_blocks, need_normals=need_normals) for c2w in c2ws]
     res = {k: torch.stack([o[k] for o in outs]) for k in outs[0]
-           if k != "n_tile_overflow"}
+           if k not in COUNTS}
     res["n_tile_overflow"] = sum(o["n_tile_overflow"] for o in outs)
+    res["n_visible"] = max(o["n_visible"] for o in outs)
     return res

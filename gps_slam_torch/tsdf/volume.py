@@ -88,6 +88,7 @@ class TsdfVolume:
     n_blocks: int               # allocated prefix of the pool
     summary: torch.Tensor       # f32 [B, 128]
     last_seen: torch.Tensor     # int32 [B]
+    n_visible: int = 0          # the last fused frame's candidate blocks, before the cap
 
     @property
     def device(self) -> torch.device:

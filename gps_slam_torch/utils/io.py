@@ -263,6 +263,84 @@ def load_model_pt(path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# mesh PLY
+# ---------------------------------------------------------------------------
+
+def save_mesh_ply(path: str, vertices: np.ndarray, colors: np.ndarray | None = None,
+                  faces: np.ndarray | None = None) -> None:
+    """Write a triangle mesh. If `faces` is None, vertices are interpreted
+    as packed triangles [3*T, 3] and an implicit face list is generated
+    (matching InfiniTAM's triangle-soup PLY writer,
+    Objects/Meshing/ITMMesh.h WritePLY)."""
+    vertices = np.asarray(vertices, dtype=np.float32).reshape(-1, 3)
+    n = vertices.shape[0]
+    if faces is None:
+        faces = np.arange(n, dtype=np.int32).reshape(-1, 3)
+    has_color = colors is not None
+    if has_color:
+        colors = np.clip(np.asarray(colors).reshape(-1, 3) * 255.0, 0, 255).astype(np.uint8)
+
+    header = "ply\nformat binary_little_endian 1.0\n"
+    header += f"element vertex {n}\n"
+    header += "property float x\nproperty float y\nproperty float z\n"
+    if has_color:
+        header += "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+    header += f"element face {faces.shape[0]}\n"
+    header += "property list uchar int vertex_index\nend_header\n"
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        if has_color:
+            vtype = np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3)])
+            varr = np.empty(n, dtype=vtype)
+            varr["xyz"] = vertices
+            varr["rgb"] = colors
+            f.write(varr.tobytes())
+        else:
+            f.write(np.ascontiguousarray(vertices, dtype="<f4").tobytes())
+        ftype = np.dtype([("cnt", "u1"), ("idx", "<i4", 3)])
+        farr = np.empty(faces.shape[0], dtype=ftype)
+        farr["cnt"] = 3
+        farr["idx"] = faces
+        f.write(farr.tobytes())
+
+
+def read_mesh_ply(path: str) -> tuple[np.ndarray, np.ndarray | None, np.ndarray]:
+    """Read a binary PLY mesh -> (vertices, colors or None, faces)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.find(b"end_header\n") + len(b"end_header\n")
+    header = data[:header_end].decode("ascii", errors="replace")
+    n_vertex = n_face = 0
+    vprops: list[tuple[str, str]] = []
+    cur = None
+    for line in header.splitlines():
+        t = line.strip().split()
+        if not t:
+            continue
+        if t[0] == "element":
+            cur = t[1]
+            if cur == "vertex":
+                n_vertex = int(t[2])
+            elif cur == "face":
+                n_face = int(t[2])
+        elif t[0] == "property" and cur == "vertex" and t[1] != "list":
+            vprops.append((t[1], t[2]))
+    type_map = {"float": "f4", "float32": "f4", "double": "f8", "uchar": "u1", "uint8": "u1"}
+    vdtype = np.dtype([(name, "<" + type_map[typ]) for typ, name in vprops])
+    varr = np.frombuffer(data, dtype=vdtype, count=n_vertex, offset=header_end)
+    vertices = np.stack([varr["x"], varr["y"], varr["z"]], -1).astype(np.float32)
+    colors = None
+    if "red" in vdtype.names:
+        colors = np.stack([varr["red"], varr["green"], varr["blue"]], -1).astype(np.float32) / 255.0
+    off = header_end + vdtype.itemsize * n_vertex
+    fdtype = np.dtype([("cnt", "u1"), ("idx", "<i4", 3)])
+    farr = np.frombuffer(data, dtype=fdtype, count=n_face, offset=off)
+    return vertices, colors, farr["idx"].astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
 # cameras.json + cfg_args (SIBR / 3DGS viewer compatibility)
 # ---------------------------------------------------------------------------
 

@@ -3,14 +3,14 @@
 slam_trainer.py: `python slam_trainer_torch.py <config.yaml> [--device D]`
 with work_mode train | recon | eval.
 
-train: gt-pose SLAM (TSDF fusion + Gaussian spawn, Adam window and
-       prune), then save model / engine / poses and optionally render
-       eval images.
-recon: TSDF-only fusion (no Gaussians).
+train: online SLAM (TSDF fusion + Gaussian spawn, Adam window and
+       prune), with gt poses or, with PIPE.TSDF.use_gt_pose false, the
+       tracker of PIPE.TSDF.tracker (ICP by default); then save model /
+       mesh / engine / poses and optionally render eval images.
+recon: TSDF-only fusion (no Gaussians), then save mesh / engine / poses.
 eval:  load a saved model + TSDF engine and render evaluation images.
 
-Runs on the card unless --device cpu is given.  The TSDF mesh export is
-not ported yet.
+Runs on the card unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from gps_slam_torch.config import Config, create_workspace
 from gps_slam_torch.data.reader import DatasetReader
 from gps_slam_torch.gs.model import GaussianModel
 from gps_slam_torch.slam.pipeline import SLAMPipeline
+from gps_slam_torch.slam.tracker import make_tracker
 from gps_slam_torch.tsdf.engine import TsdfEngine
 
 
@@ -34,11 +35,12 @@ def main(config_path: str, device=None) -> None:
     if not train_cams:
         raise RuntimeError("no cameras read")
     cam0 = train_cams[0]
-    if not cfg.pipe.tsdf.use_gt_pose:
-        raise NotImplementedError("tracked mode is not ported yet")
     engine = TsdfEngine(cfg, cam0.width, cam0.height, cam0.K, device=device)
-    engine.set_gt_poses([c.c2w for c in train_cams])
-    engine.turn_off_tracking()
+    if cfg.pipe.tsdf.use_gt_pose:
+        engine.set_gt_poses([c.c2w for c in train_cams])
+        engine.turn_off_tracking()
+    else:
+        engine.attach_tracker(make_tracker(cfg, cam0.width, cam0.height))
     model = GaussianModel(cfg, cam0.width, cam0.height,
                           exposure_num=len(train_cams) if cfg.model.use_exposure else 0,
                           device=engine.device)
@@ -49,6 +51,7 @@ def main(config_path: str, device=None) -> None:
         if cfg.pipe.save_after_train:
             if cfg.work_mode == "train":
                 pipe.save(model, reader)
+            pipe.save_mesh()
             pipe.save_engine()
             reader.save_pose(ws + "/pose")
         if cfg.pipe.eval_after_train and cfg.work_mode == "train":

@@ -5,6 +5,7 @@ card.  This file imports no JAX, so it also runs on a machine without it:
 
 Without a card every test skips inside its fixture."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -391,8 +392,8 @@ def test_narrow_frames_cuda_match_cpu(cuda_device):
 def _march_args(vol, cam, lb, s_refine, k_blocks, need_color, device):
     c2w = torch.as_tensor(cam.c2w, device=device)
     tw = -(-cam.width // trc.TILE)
-    gids, _ = trc._tile_bins(vol, pose_inv(c2w), cam.fx, cam.fy, cam.cx, cam.cy,
-                             cam.width, cam.height, vol.params.visible_capacity, lb, 6)
+    gids = trc._tile_bins(vol, pose_inv(c2w), cam.fx, cam.fy, cam.cx, cam.cy,
+                          cam.width, cam.height, vol.params.visible_capacity, lb, 6)[0]
     camd = {"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy,
             "R": c2w[:3, :3], "t": c2w[:3, 3], "inv_vox": 1.0 / vol.params.voxel_size,
             "ext": vol.params.voxel_size * 8, "fmin": vol.params.frustum_min,
@@ -863,3 +864,136 @@ def test_library_name_follows_nvcc_flags(tmp_path, monkeypatch):
     assert exact.flags == kernels.EXACT
     assert exact.lib_path() != fused.lib_path()
     assert exact.lib_path() == kernels.Kernel("k", "k.cu", "k", [], "other").lib_path()
+
+
+def _tracking_engines(cuda_device, W=128, H=96):
+    """Port engines on the CPU and on the card in tracked mode (2 cm voxels,
+    ICP), the 8 frames of chip_smoke's `[reference tracked]` phase."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.slam.tracker import ICPTracker
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    cams = synthetic.make_cameras(n_frames=8, width=W, height=H, look="in", arc=0.0125)
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": 7, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    d = synthetic.default_config_dict("build/test_ws", node)
+    d["PIPE"]["TSDF"]["use_gt_pose"] = False
+    cfg = Config.from_dict(d)
+    out = []
+    for dev in ("cpu", cuda_device):
+        e = TsdfEngine(cfg, W, H, c0.K, device=dev)
+        e.set_gt_poses([c0.c2w])
+        e.attach_tracker(ICPTracker(cfg, W, H))
+        out.append(e)
+    return cams, out
+
+
+@pytest.mark.cuda
+def test_tracked_step_cuda_matches_cpu(cuda_device):
+    """One tracked step (frame 0 fused at its gt pose, its tracking-prepare
+    raycast, frame 1 tracked) on the card against the CPU: the same
+    quality, the pose within the `[reference tracked]` tolerance (1 voxel
+    and 0.1 degree)."""
+    from gps_slam_torch.utils.se3 import rot_angle_deg
+
+    cams, engines = _tracking_engines(cuda_device)
+    for e in engines:
+        for c in cams[:2]:
+            e.process_frame(c.image, c.depth)
+    cpu, card = engines
+    assert card._tracking_quality == cpu._tracking_quality
+    p, q = card.cam_poses[1], cpu.cam_poses[1]
+    assert np.linalg.norm(p[:3, 3] - q[:3, 3]) < cpu.params.voxel_size
+    assert float(rot_angle_deg(torch.as_tensor(p[:3, :3]), torch.as_tensor(q[:3, :3]))) < 0.1
+
+
+@pytest.mark.cuda
+def test_track_level_reads_back_once_per_iteration(cuda_device):
+    """A tracking level on the card under torch.cuda.set_sync_debug_mode
+    ("warn"): the only synchronising call of a Gauss-Newton iteration is
+    the planned read of its step (the loop's exit test), so the warnings
+    number the iterations run."""
+    import warnings
+
+    from gps_slam_torch.slam import tracker as ttrk
+
+    cams, (cpu, _) = _tracking_engines(cuda_device)
+    cpu.process_frame(cams[0].image, cams[0].depth)
+    maps = cpu._last_raycast_for_tracking
+    dev = cuda_device
+    ref_v, ref_n = (maps[k].to(dev) for k in ("vertex_map", "normal_map"))
+    depth = torch.as_tensor(cams[1].depth[..., 0], device=dev)
+    K = cams[0].K
+    cam = torch.as_tensor(ttrk._level_cam(K, 0, True), device=dev)
+    T0 = torch.as_tensor(cams[0].c2w, device=dev)
+    rpi = torch.as_tensor(np.linalg.inv(cams[0].c2w), device=dev)
+    st, tk = ttrk._scalar(0.015, dev), ttrk._scalar(0.02, dev)
+    ttrk._track_level(T0, depth, ref_v, ref_n, cam, 2, False, rpi, st, tk)  # warm up
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, _, _, n_iters = ttrk._track_level(T0, depth, ref_v, ref_n, cam, 50, False,
+                                                 rpi, st, tk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the one message torch gives per synchronising call (the first call
+    # of set_sync_debug_mode in a process also warns that the mode is a
+    # prototype, in other words)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert n_iters >= 2
+    assert len(syncs) == n_iters, [str(w.message) for w in syncs]
+
+
+@pytest.mark.cuda
+def test_native_mesher_on_the_card_machine(cuda_device):
+    """The mesher built by that machine's g++ meshes a volume fused on the
+    card as the numpy route does (the comparison of test_native.py)."""
+    from gps_slam_torch.tsdf import meshing, native
+
+    cams = synthetic.make_cameras(n_frames=4, width=96, height=72)
+    p = tvol.TsdfParams(voxel_size=0.02, mu=0.08, hash_size=1 << 15,
+                        block_capacity=1 << 12, visible_capacity=1 << 11)
+    vol = tvol.create(p, cuda_device)
+    for c in cams:
+        tint.fuse_frame(vol, torch.as_tensor(c.depth[..., 0], device=cuda_device),
+                        torch.as_tensor(c.image, device=cuda_device),
+                        torch.as_tensor(c.c2w, device=cuda_device), c.K)
+    native.load()
+    assert native.loaded_path().exists()
+    vn, cn = meshing.extract_mesh(vol, use_native=True)
+    vp, cp = meshing.extract_mesh(vol, use_native=False)
+    assert vn.shape == vp.shape and vn.shape[0] > 0
+    np.testing.assert_allclose(np.sort(vn.reshape(-1, 9), 0), np.sort(vp.reshape(-1, 9), 0),
+                               atol=1e-5)
+    np.testing.assert_allclose(np.sort(cn.reshape(-1, 9), 0), np.sort(cp.reshape(-1, 9), 0),
+                               atol=2e-2)
+
+
+def test_mesher_library_name_follows_source_and_flags(tmp_path, monkeypatch):
+    """The mesher's libraries (runs without a card) lie in build/ and are
+    named by the hash of native/mesher.cpp, of their g++ flags and of the
+    host's name, so an edited source or flag is rebuilt, a -march=native
+    build is never loaded on another host, and the OpenMP and serial
+    builds never share a name; the tracked native/libmesher.so is never
+    the one loaded."""
+    from gps_slam_torch.tsdf import native
+
+    libs = [native.lib_path(f) for f in native.VARIANTS]
+    assert "-fopenmp" in native.VARIANTS[0] and "-fopenmp" not in native.VARIANTS[1]
+    assert len(set(libs)) == 2
+    for lib in libs:
+        assert lib.parent == native.BUILD and lib.name.startswith("libmesher_")
+        assert lib != native.ROOT / "native" / "libmesher.so"
+    src = tmp_path / "mesher.cpp"
+    src.write_bytes(native.SOURCE.read_bytes() + b"\n")
+    monkeypatch.setattr(native, "SOURCE", src)
+    edited = native.lib_path()
+    assert edited not in libs
+    monkeypatch.setattr(native.platform, "node", lambda: "another-host")
+    assert native.lib_path() not in libs + [edited]

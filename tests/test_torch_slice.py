@@ -278,6 +278,24 @@ def test_slice_eval_psnr_close(runs):
     assert abs(pt.mean() - pj.mean()) <= 1.5, (pj.mean(), pt.mean())
 
 
+def test_slice_tsdf_meshes_match(runs):
+    """Both CLIs write the TSDF mesh (PIPE.TSDF.saved_mesh) after training.
+    The port's mesh vertices against the JAX mesh's, by geometry_metrics
+    at one voxel: F1 >= 99%."""
+    from gps_slam_torch.eval import metrics as tmetrics
+    from gps_slam_torch.utils import io as tio
+
+    verts = []
+    for name in ("jax", "torch"):
+        ws, d = runs[name][1], runs[name][2]
+        v, _, f = tio.read_mesh_ply(os.path.join(ws, d["PIPE"]["TSDF"]["saved_mesh"]))
+        assert f.shape[0] > 1000, (name, f.shape)
+        verts.append(v)
+    vox = runs["torch"][2]["PIPE"]["TSDF"]["voxel_size"]
+    m = tmetrics.geometry_metrics(verts[1], verts[0], (vox,))
+    assert m[f"F1 (< {vox})"] >= 99.0, m
+
+
 def test_port_recon_mode_fuses_the_same_scene(runs, tmp_path):
     """work_mode recon fuses the same frames without Gaussians: the same
     voxel state, block for block, as the train run, and no model."""
