@@ -35,17 +35,33 @@ Phases (any failure exits non-zero before the final line):
      the tracking-prepare K3 (need_color False, k_blocks 1) once per
      frame; ATE below 3 voxels, the last pose within 2 cm and 2 degrees,
      GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
-  7. kernels: each kernel against its plain PyTorch version on the inputs
+  7. swap path: gt-pose `train` at 1200x680 on a full outward turn (40
+     frames) with the block pool cut to 16,384 rows and host swapping on
+     (check every 2 frames, waters 0.80 / 0.50): blocks spill and reload,
+     fusion never fills the pool (no allocation dropped), K1 once per
+     frame, K3 once per raycast pose, K4/K5 and the loss and 15 dB gates
+     as on the main path; the raycast from pose 0 after the turn against
+     the same frames fused into a 2^17-block pool: depth error below
+     max(3x its, 1 cm), coverage above 0.8x (tests/test_swapping.py);
+  8. offline raw: the classic 3DGS trainer (`render_method: raw`) at
+     1200x680 on the main path's cameras, from frame 0's backprojection
+     (at most 16,384 Gaussians), 300 iterations with densify at 150 and
+     200: camera 0's PSNR rises by more than 1 dB, densify changes rows;
+  9. offline GES: `ges_train_cams` at 1200x680 for 200 iterations from
+     the main path's pool against its engine's raycasts: K4 and K5 once
+     per iteration with an active tile, the L1 of the first camera that
+     sees a Gaussian falls, the eval views' PSNR does not;
+ 10. kernels: each kernel against its plain PyTorch version on the inputs
      of its last call on its path (K2 once per route, K3 on the main path,
      on the 1920x1080 path and on the tracked path's last tracking-prepare
      call), with CUDA-event timings, the least time the card could take
      for the same work and the kernel's design;
-  8. mesh: the main path's volume meshed on the host by the native mesher
+ 11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
      route: equal triangle counts, sorted triangles within 1e-5 m, sorted
      colours within 2e-2;
-  9. reference: fusion at 128x96 on the card against the plain CPU path,
+ 12. reference: fusion at 128x96 on the card against the plain CPU path,
      on K1's route and on the f32 route (budget 0), and at 48x40 (the
      torch branch of frames below 64 px, on both devices): the same block
      set and, by key, every state word's weights equal, sdf within 1
@@ -54,7 +70,12 @@ Phases (any failure exits non-zero before the final line):
      loop at 128x96 (8 frames, look="in") on the card and the CPU in
      lockstep (the card fuses at the CPU's poses): equal quality labels,
      each frame's estimates within 1 voxel and 0.1 degree, all but one
-     within 1 mm.
+     within 1 mm; the swap fixture of tests/test_swapping.py (128x96, 24
+     frames, 1024-block pool) on both devices: equal counts, key sets and
+     store keys at every check, words within fusion's tolerance; and the
+     offline raw path at 128x96: one render and its gradients, then 20
+     iterations with densify and one injected split noise, equal alive
+     rows after each densify.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -97,6 +118,22 @@ ATE_MAX_VOXELS = 3.0
 LAST_MAX_M = 0.02
 LAST_MAX_DEG = 2.0
 GOOD_MIN_SHARE = 0.7
+# the swap path: bench.py's configuration on a full outward turn (40
+# frames, 9 degrees a frame as on the main path) with the block pool cut
+# below the turn's ~28k blocks and the waters and check interval of
+# tests/test_swapping.py; its raycast gate compares with a 2^17-block pool
+SWAP_FRAMES = 40
+SWAP_TPU = {"block_capacity": 16384, "enable_swapping": 1, "swap_check_interval": 2,
+            "swap_high_water": 0.80, "swap_low_water": 0.50}
+SWAP_BIG_POOL = 2 ** 17
+# the offline trainers: release knobs but max_iterations (10,000 in the
+# release configs) and, for raw, densify's start, interval and end scaled
+# into the cut run (the opacity reset stays at 3000: no reset here)
+OFFLINE_RAW_ITERS = 300
+OFFLINE_GES_ITERS = 200
+OFFLINE_DENSIFY = {"densify_start_iter": 100, "densify_interval": 50,
+                   "densify_end_iter": 250}
+OFFLINE_REF_ITERS = 20  # the card-against-CPU raw run at 128x96
 # the tests/test_native.py comparison of two meshes of one volume
 MESH_TRI_ATOL, MESH_COL_ATOL = 1e-5, 2e-2
 
@@ -256,15 +293,16 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
     return float(hist[:n_cams].mean()), float(hist[(k - 1) * n_cams:k * n_cams].mean())
 
 
-def run_path(args, cams, iters: int, tag: str, fusion, tracked=None):
+def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
     """Drive the train loop with `iters` Adam steps per window over `cams`,
     then the eval render, with every kernel count set to 0 just before and
     read just after; check the output and return the numbers of the
-    `[tag]` line and the engine.  `fusion` is the integrate kernel of the
-    frame size's route: it must launch once per frame, the other one
-    never.  Poses are the gt ones, or with `tracked` (the Recorder of the
-    kernel wrappers' calls) the ICP tracker's (frame 0 seeded with its gt
-    pose), timed apart from fusion."""
+    `[tag]` line, the engine and the model.  `fusion` is the integrate
+    kernel of the frame size's route: it must launch once per frame, the
+    other one never.  Poses are the gt ones, or with `tracked` (the
+    Recorder of the kernel wrappers' calls) the ICP tracker's (frame 0
+    seeded with its gt pose), timed apart from fusion.  `swap` (TPU
+    settings) turns host swapping on, instrumented by `SwapStats`."""
     from gps_slam_torch import kernels
     from gps_slam_torch.config import Config
     from gps_slam_torch.eval import metrics as M
@@ -279,15 +317,18 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None):
     if tracked is not None:
         d["PIPE"]["TSDF"]["use_gt_pose"] = False
         d["TPU"]["visible_block_capacity"] = TRACKED_VISIBLE_CAP
+    d["TPU"].update(swap or {})
     cfg = Config.from_dict(d)
     engine = TsdfEngine(cfg, W, H, cams[0].K, device="cuda")
-    track = None
+    track = swapped = None
     if tracked is not None:
         engine.set_gt_poses([cams[0].c2w])
         track = TrackedStats(engine, make_tracker(cfg, W, H), tracked)
     else:
         engine.set_gt_poses([c.c2w for c in cams])
         engine.turn_off_tracking()
+    if swap is not None:
+        swapped = SwapStats(engine)
     model = GaussianModel(cfg, W, H, device="cuda")
     model._rng.manual_seed(args.seed)
     pipe = SLAMPipeline(cfg, engine, cfg.workspace_dir, is_train=False)
@@ -330,6 +371,8 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None):
             train_s, eval_s = drive()
     finally:
         gmodel.window_optimize = window_optimize
+        if swapped is not None:
+            swapped.detach()
     launches = kernels.counts()
     psnrs = []
     for cs, rgb in renders:
@@ -366,6 +409,8 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None):
         out.update(track.summary(cams))
         out["fusion_ms_per_frame"] = (pipe.t_fusion - track.track_ms
                                       - track.prepare_ms) / N
+    if swapped is not None:
+        out.update(swapped.summary())
     if args.profile and iters > 0:
         # share of the train + eval wall time during which the card ran
         # device work (an upper bound where device events overlap)
@@ -401,11 +446,13 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None):
         if track is not None and out["peak_visible"][k] > cap:
             raise RuntimeError(f"{tag}: {out['peak_visible'][k]} visible blocks "
                                f"({k}) above the cap {cap}")
-    if engine.vol.n_blocks >= cfg.tpu.block_capacity:
+    if swapped is None and engine.vol.n_blocks >= cfg.tpu.block_capacity:
         raise RuntimeError(f"{tag}: the block pool is full ({engine.vol.n_blocks})")
     if track is not None:
         track.check(tag, out)
-    return out, engine
+    if swapped is not None:
+        swapped.check(tag, out)
+    return out, engine, model
 
 
 class TrackedStats:
@@ -486,6 +533,98 @@ class TrackedStats:
                                f"{out['tracked_frames']} tracked frames")
 
 
+class SwapStats:
+    """Instruments a swapping engine: the pool's allocated count right
+    after each fusion (a drop for want of a row leaves it at capacity),
+    the raycast poses and their K3 launches, and the time of the swap
+    work (each call synchronised), by kind: the checks after fusion
+    (`maybe_reload` + `maybe_spill`), the spills before fusion after a
+    filling swap-in, and the raycasts' swap-ins (`reload_visible`)."""
+
+    def __init__(self, engine):
+        from gps_slam_torch import kernels
+        from gps_slam_torch.tsdf import integrate as tint
+
+        self.engine, self.tint = engine, tint
+        self.fused_blocks = []
+        self.raycasts = self.raycast_k3 = 0
+        self.ms = {"reload": 0.0, "spill": 0.0, "reload_visible": 0.0}
+        self.calls = {k: 0 for k in self.ms}
+        self.spills_done = 0
+        swap, fuse, run_raycast = engine.swap, tint.fuse_frame, engine.run_raycast
+        self._fuse = fuse
+
+        def timed(kind, fn):
+            def call(vol, *a, **kw):
+                torch.cuda.synchronize()
+                t, n0 = time.monotonic(), swap.n_spilled_total
+                out = fn(vol, *a, **kw)
+                torch.cuda.synchronize()
+                self.ms[kind] += (time.monotonic() - t) * 1e3
+                self.calls[kind] += 1
+                self.spills_done += swap.n_spilled_total > n0
+                return out
+            return call
+
+        def fused(vol, *a, **kw):
+            out = fuse(vol, *a, **kw)
+            self.fused_blocks.append(vol.n_blocks)
+            return out
+
+        def raycast(*a, **kw):
+            n0 = kernels.RAYCAST.launches
+            maps = run_raycast(*a, **kw)
+            self.raycasts += 1
+            self.raycast_k3 += kernels.RAYCAST.launches - n0
+            return maps
+
+        swap.maybe_reload = timed("reload", swap.maybe_reload)
+        swap.maybe_spill = timed("spill", swap.maybe_spill)
+        swap.reload_visible = timed("reload_visible", swap.reload_visible)
+        tint.fuse_frame = fused
+        engine.run_raycast = raycast
+
+    def detach(self) -> None:
+        self.tint.fuse_frame = self._fuse
+
+    def summary(self) -> dict:
+        e = self.engine
+        n = len(self.fused_blocks)
+        checks = sum(1 for i in range(n) if i % e.swap_check_interval == 0)
+        # maybe_spill also runs before a fusion that follows a filling
+        # swap-in; those calls are the ones beyond one per check
+        return {
+            "n_spilled_total": e.swap.n_spilled_total,
+            "n_reloaded_total": e.swap.n_reloaded_total,
+            "stored_blocks_end": len(e.swap.store), "checks": checks,
+            "spill_episodes": self.spills_done,
+            "spills_before_fusion": self.calls["spill"] - checks,
+            "swap_ms_per_check": (self.ms["reload"] + self.ms["spill"]) / max(checks, 1),
+            "swap_ms_total": self.ms["reload"] + self.ms["spill"],
+            "reload_visible_ms_total": self.ms["reload_visible"],
+            "reload_visible_calls": self.calls["reload_visible"],
+            "peak_blocks_after_fusion": max(self.fused_blocks),
+            "blocks_after_fusion": self.fused_blocks,
+            "raycast_poses": self.raycasts, "raycast_k3_launches": self.raycast_k3,
+        }
+
+    def check(self, tag: str, out: dict) -> None:
+        from gps_slam_torch import kernels
+
+        B = self.engine.params.block_capacity
+        if not (out["n_spilled_total"] > 0 and out["n_reloaded_total"] > 0):
+            raise RuntimeError(f"{tag}: spilled {out['n_spilled_total']}, reloaded "
+                               f"{out['n_reloaded_total']}: the pool never swapped")
+        if not out["peak_blocks_after_fusion"] < B:
+            raise RuntimeError(f"{tag}: fusion filled the pool ({out['peak_blocks_after_fusion']} "
+                               f"of {B}): allocations were dropped")
+        if len(self.fused_blocks) != out["frames"]:
+            raise RuntimeError(f"{tag}: {len(self.fused_blocks)} fusions for {out['frames']} frames")
+        k3 = out["launches"][kernels.RAYCAST.name]
+        if not (k3 == out["raycast_poses"] == out["raycast_k3_launches"]):
+            raise RuntimeError(f"{tag}: {k3} K3 launches for {out['raycast_poses']} raycast poses")
+
+
 def synthetic_cams(n: int, width: int, height: int, look: str = "out",
                    arc: float = 0.75):
     from gps_slam_torch.data import synthetic
@@ -505,15 +644,15 @@ def main_path(args) -> dict:
     from gps_slam_torch import kernels
 
     cams = synthetic_cams(N_FRAMES, 1200, 680)
-    fwd, _ = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
-    out, engine = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
+    fwd, _, _ = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
+    out, engine, model = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
     if out["adam_steps"] != ADAM_STEPS * out["windows"]:
         raise RuntimeError(f"main path ran {out['adam_steps']} Adam steps")
     if not out["psnr_mean"] >= fwd["psnr_mean"]:
         raise RuntimeError(f"trained eval PSNR {out['psnr_mean']} below the "
                            f"forward-only {fwd['psnr_mean']}")
     out["forward_only_psnr_mean"] = fwd["psnr_mean"]
-    return out, engine
+    return out, engine, model, cams
 
 
 def large_frame_paths(args, rec) -> tuple[list, tuple]:
@@ -537,7 +676,7 @@ def large_frame_paths(args, rec) -> tuple[list, tuple]:
         if tint.integrate_route(w, h) != route:
             raise RuntimeError(f"{w}x{h} takes route {tint.integrate_route(w, h)}")
         cams = synthetic_cams(n, w, h)
-        r, _ = run_path(args, cams, iters, tag, kernels.INTEGRATE_F32)
+        r, _, _ = run_path(args, cams, iters, tag, kernels.INTEGRATE_F32)
         if r["adam_steps"] != iters * r["windows"]:
             raise RuntimeError(f"{tag} ran {r['adam_steps']} Adam steps")
         out.append((tpu, body, rec.last["integrate_blocks"][0],
@@ -549,8 +688,8 @@ def large_frame_paths(args, rec) -> tuple[list, tuple]:
     try:
         if tint.integrate_route(w, h) != "packed":
             raise RuntimeError("the raised budget did not select K1's route")
-        k1, _ = run_path(args, cams, ADAM_STEPS, "large-frame path, K1 route",
-                         kernels.INTEGRATE)
+        k1, _, _ = run_path(args, cams, ADAM_STEPS, "large-frame path, K1 route",
+                            kernels.INTEGRATE)
     finally:
         tint._RESIDENT_BYTES = saved
     gap = r["psnr_mean"] - k1["psnr_mean"]
@@ -823,6 +962,34 @@ def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
     return rows
 
 
+def by_key(vol):
+    """(keys, state words, colour words) of the allocated blocks on the
+    host, sorted by key."""
+    keys = vol.block_coords[:vol.n_blocks].cpu()
+    order = torch.argsort(keys)
+    return (keys[order], vol.state[:vol.n_blocks].cpu()[order],
+            vol.color[:vol.n_blocks].cpu()[order])
+
+
+def state_diff(a, b) -> dict:
+    """Two `by_key` results (card, CPU): the same keys and, by key, every
+    state word's weights equal, sdf within 1 quantum, colour within 1."""
+    (kc, sc, cc), (kp, sp, cp) = a, b
+    out = {"n_blocks_cuda": kc.numel(), "n_blocks_cpu": kp.numel(),
+           "same_keys": torch.equal(kc, kp)}
+    if out["same_keys"]:
+        out.update(
+            weight_mismatches=int(((sc >> 16) != (sp >> 16)).sum().item()),
+            max_sdf_quanta=(sdf_of(sc) - sdf_of(sp)).abs().max().item(),
+            max_color_step=max((((cc >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max().item()
+                               for s in (0, 8, 16)),
+            integrated_voxels=int(((sc >> 16) & 0xFF).gt(0).sum().item()))
+    out["ok"] = (out["same_keys"] and out["weight_mismatches"] == 0
+                 and out["max_sdf_quanta"] <= 1 and out["max_color_step"] <= 1
+                 and out["integrated_voxels"] > 0)
+    return out
+
+
 def reference_phase() -> dict:
     """Fusion + raycast at small sizes on the card against the CPU plain
     path: K1's route at 128x96; the f32 route at 128x96 with the port's
@@ -852,28 +1019,6 @@ def reference_phase() -> dict:
                             torch.as_tensor(c.image, device=dev),
                             torch.as_tensor(c.c2w, device=dev), c.K)
         return vol
-
-    def by_key(vol):
-        keys = vol.block_coords[:vol.n_blocks].cpu()
-        order = torch.argsort(keys)
-        return (keys[order], vol.state[:vol.n_blocks].cpu()[order],
-                vol.color[:vol.n_blocks].cpu()[order])
-
-    def state_diff(a, b) -> dict:
-        (kc, sc, cc), (kp, sp, cp) = a, b
-        out = {"n_blocks_cuda": kc.numel(), "n_blocks_cpu": kp.numel(),
-               "same_keys": torch.equal(kc, kp)}
-        if out["same_keys"]:
-            out.update(
-                weight_mismatches=int(((sc >> 16) != (sp >> 16)).sum().item()),
-                max_sdf_quanta=(sdf_of(sc) - sdf_of(sp)).abs().max().item(),
-                max_color_step=max((((cc >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max().item()
-                                   for s in (0, 8, 16)),
-                integrated_voxels=int(((sc >> 16) & 0xFF).gt(0).sum().item()))
-        out["ok"] = (out["same_keys"] and out["weight_mismatches"] == 0
-                     and out["max_sdf_quanta"] <= 1 and out["max_color_step"] <= 1
-                     and out["integrated_voxels"] > 0)
-        return out
 
     def fused_and_raycast(cams, tag) -> dict:
         width, height = cams[0].width, cams[0].height
@@ -936,8 +1081,8 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
     from gps_slam_torch import kernels
 
     cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
-    out, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
-                      tracked=rec)
+    out, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
+                         tracked=rec)
     if out["adam_steps"] != ADAM_STEPS * out["windows"]:
         raise RuntimeError(f"tracked path ran {out['adam_steps']} Adam steps")
     call = rec.last["tracking prepare"]
@@ -949,8 +1094,219 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
                  {"launches_path": out["launches"][kernels.RAYCAST.name]})
 
 
+def raycast_vs_gt(engine, cam) -> tuple[float, float]:
+    """(mean |depth - gt| over pixels both hit, their share) of a raycast
+    from `cam`'s pose: tests/test_swapping.py's measure."""
+    d = engine.run_raycast(cam.c2w, cam.K, cam.width, cam.height)["depth_map"]
+    d = d[..., 0].cpu().numpy()
+    gt = cam.depth[..., 0]
+    both = (d > 0) & (gt > 0)
+    return float(np.abs(d - gt)[both].mean()), float(both.mean())
+
+
+def swap_path(args) -> dict:
+    """The swap path (phase 7): gt-pose `train` at 1200x680 on a full
+    outward turn with the block pool cut to SWAP_TPU's 16,384 rows, host
+    swapping on; then the same frames fused into a pool of 2^17 blocks
+    (no swapping, no Gaussians), and a raycast from pose 0 of both held to
+    tests/test_swapping.py's gates."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    cams = synthetic_cams(SWAP_FRAMES, 1200, 680, arc=1.0)
+    out, engine, _ = run_path(args, cams, ADAM_STEPS, "swap path", kernels.INTEGRATE,
+                              swap=SWAP_TPU)
+    if out["adam_steps"] != ADAM_STEPS * out["windows"]:
+        raise RuntimeError(f"swap path ran {out['adam_steps']} Adam steps")
+    W, H = cams[0].width, cams[0].height
+    d = bench_config(len(cams), W, H, cams[0], ADAM_STEPS)
+    d["TPU"]["block_capacity"] = SWAP_BIG_POOL
+    big = TsdfEngine(Config.from_dict(d), W, H, cams[0].K, device="cuda")
+    big.set_gt_poses([c.c2w for c in cams])
+    big.turn_off_tracking()
+    for c in cams:
+        big.process_frame(c.image, c.depth)
+    e_swap, cov_swap = raycast_vs_gt(engine, cams[0])
+    e_big, cov_big = raycast_vs_gt(big, cams[0])
+    res = {"depth_err_m": e_swap, "coverage": cov_swap, "big_pool_depth_err_m": e_big,
+           "big_pool_coverage": cov_big, "big_pool_blocks": big.vol.n_blocks,
+           "block_capacity": SWAP_TPU["block_capacity"],
+           "tolerance": "error < max(3 x the big pool's, 1 cm); coverage > 0.8 x"}
+    log("[swap roundtrip] " + json.dumps(res))
+    if not (e_swap < max(3.0 * e_big, 0.01) and cov_swap > 0.8 * cov_big
+            and big.vol.n_blocks > SWAP_TPU["block_capacity"]):
+        raise RuntimeError("swap path: the raycast after the turn lost the view")
+    out["roundtrip"] = res
+    return out
+
+
+def offline_config(cams, method: str, iters: int) -> dict:
+    """bench.py's configuration with the offline trainer's settings:
+    `render_method` and PIPE.max_iterations; the raw method densifies
+    (start, interval and end of OFFLINE_DENSIFY, every other knob at its
+    release value)."""
+    d = bench_config(len(cams), cams[0].width, cams[0].height, cams[0], ADAM_STEPS)
+    d["MODEL"]["render_method"] = method
+    d["PIPE"]["max_iterations"] = iters
+    d["PIPE"]["enable_densify"] = method == "raw"
+    if method == "raw":
+        d["MODEL"].update(OFFLINE_DENSIFY)
+    return d
+
+
+def offline_raw_phase(args, cams) -> dict:
+    """The offline raw trainer (phase 8) at 1200x680 on the main path's
+    cameras: the Gaussians of frame 0's backprojection at a pixel stride
+    that gives at most 16,384 (bench.py's spawn cap), OFFLINE_RAW_ITERS
+    iterations with densify; camera 0's PSNR must rise by more than 1 dB
+    (tests/test_raw_mode.py's gate) and densify must add or prune rows."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.gs import densify as dmod
+    from gps_slam_torch.gs import losses
+    from gps_slam_torch.gs import model as gmodel
+    from gps_slam_torch.gs.model import GaussianModel
+    from gps_slam_torch.slam.offline import OfflinePipeline
+
+    W, H = cams[0].width, cams[0].height
+    cfg = Config.from_dict(offline_config(cams, "raw", OFFLINE_RAW_ITERS))
+    model = GaussianModel(cfg, W, H, device="cuda")
+    model._rng.manual_seed(args.seed)
+    fm = cams[0].get_frame_maps(device="cuda")
+    stride = next(s for s in range(1, 64) if -(-W // s) * -(-H // s) <= 16384)
+    mask = torch.zeros((H, W), dtype=torch.bool, device="cuda")
+    mask[::stride, ::stride] = True
+    gmodel.add_gaussians(model.pool, fm["vertex_map"], fm["color_map"], fm["normal_map"],
+                         mask, 1.0, 16384, cfg.model.default_opacities,
+                         (cfg.model.min_init_scale, cfg.model.max_init_scale),
+                         model.next_rng())
+    n0 = model.num_gaussians
+    cam0 = cams[0]
+    gt0 = torch.as_tensor(cam0.image, device="cuda")
+
+    def psnr0():
+        with torch.no_grad():
+            r = gmodel.raw_forward(model.pool.params, model.pool.alive,
+                                   torch.as_tensor(cam0.c2w, device="cuda"), cam0.K, 0,
+                                   model.statics)
+        return float(losses.psnr(torch.clamp(r["rgb"], 0, 1), gt0))
+
+    rounds, step = [], dmod.densify_step
+
+    def densify(pool, *a, **kw):
+        n_before = pool.n_alive
+        out = step(pool, *a, **kw)
+        rounds.append({**out[2], "alive_before": n_before, "alive_after": pool.n_alive})
+        return out
+
+    p0 = psnr0()
+    pipe = OfflinePipeline(cfg, cfg.workspace_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dmod.densify_step = densify
+    try:
+        t0 = time.monotonic()
+        pipe.raw_train_cams(model, cams)
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+    finally:
+        dmod.densify_step = step
+    p1 = psnr0()
+    out = {"width": W, "height": H, "cameras": len(cams), "iterations": OFFLINE_RAW_ITERS,
+           **OFFLINE_DENSIFY, "spawn_stride": stride, "gaussians_before": n0,
+           "gaussians_after": model.num_gaussians, "densify_rounds": rounds,
+           "ms_per_iteration": train_s * 1e3 / OFFLINE_RAW_ITERS,
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "psnr_cam0_before": p0, "psnr_cam0_after": p1}
+    log("[offline raw] " + json.dumps(out))
+    if not p1 > p0 + 1.0:
+        raise RuntimeError(f"offline raw: camera 0's PSNR {p0} -> {p1}, not +1 dB")
+    if not any(r["n_dup"] + r["n_split"] + r["n_pruned"] > 0 for r in rounds):
+        raise RuntimeError(f"offline raw: densify changed no row: {rounds}")
+    return out
+
+
+def offline_ges_phase(args, engine, model, cams) -> dict:
+    """The offline GES trainer (phase 9) at 1200x680: OFFLINE_GES_ITERS
+    iterations from the main path's trained pool against its engine's
+    raycasts of its training cameras.  K4 and K5 launch once per training
+    iteration whose camera has an active tile (K4 also once per such log
+    render); the L1 to the ground truth of the first camera that sees a
+    Gaussian falls (tests/test_aux.py's gate, there on camera 0, which
+    its spawn comes from: the main path spawns at its windows, and no
+    Gaussian of its pool projects into camera 0); the eval views' PSNR
+    does not fall."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.eval import metrics as M
+    from gps_slam_torch.gs import model as gmodel
+    from gps_slam_torch.slam.offline import OfflinePipeline
+
+    cfg = Config.from_dict(offline_config(cams, "ges", OFFLINE_GES_ITERS))
+    targets = []
+    with torch.no_grad():
+        for c in cams:
+            m = engine.run_raycast(c.c2w, c.K)
+            targets.append({"depth_map": m["depth_map"], "color_map": m["color_map"]})
+    eval_ids = list(range(0, len(cams), 6))
+
+    def render(i):
+        with torch.no_grad():
+            return model.forward(cams[i].c2w, cams[i].K, targets[i]["depth_map"],
+                                 targets[i]["color_map"])
+
+    l1_cam = next(i for i in range(len(cams)) if render(i)["n_pairs"] > 0)
+
+    def renders():
+        l1 = [float((render(i)["rgb"] - torch.as_tensor(cams[i].image, device="cuda"))
+                    .abs().mean()) for i in (0, l1_cam)]
+        psnr = float(np.mean([M.psnr(torch.clamp(render(i)["rgb"], 0, 1).cpu().numpy(),
+                                     cams[i].image) for i in eval_ids]))
+        return l1, psnr
+
+    l1_0, psnr_0 = renders()
+    active = {"train": 0, "log": 0}
+    forward = gmodel.ges_forward
+
+    def counted(*a, **kw):
+        res = forward(*a, **kw)
+        if res["n_pairs"] > 0:
+            active["train" if torch.is_grad_enabled() else "log"] += 1
+        return res
+
+    pipe = OfflinePipeline(cfg, cfg.workspace_dir)
+    torch.cuda.synchronize()
+    gmodel.ges_forward = counted
+    kernels.reset_counts()
+    try:
+        t0 = time.monotonic()
+        pipe.ges_train_cams(model, cams, targets)
+        torch.cuda.synchronize()
+        train_s = time.monotonic() - t0
+    finally:
+        gmodel.ges_forward = forward
+    launches = kernels.counts()
+    l1_1, psnr_1 = renders()
+    out = {"width": cams[0].width, "height": cams[0].height, "cameras": len(cams),
+           "iterations": OFFLINE_GES_ITERS, "gaussians": model.num_gaussians,
+           "ms_per_iteration": train_s * 1e3 / OFFLINE_GES_ITERS,
+           "iterations_with_tiles": active["train"], "log_renders_with_tiles": active["log"],
+           "l1_camera": l1_cam, "l1_before": l1_0[1], "l1_after": l1_1[1],
+           "l1_cam0_before": l1_0[0], "l1_cam0_after": l1_1[0],
+           "eval_psnr_before": psnr_0, "eval_psnr_after": psnr_1, "launches": launches}
+    log("[offline ges] " + json.dumps(out))
+    k4, k5 = launches[kernels.SPLAT_FWD.name], launches[kernels.SPLAT_BWD.name]
+    if not (k5 == active["train"] > 0 and k4 == active["train"] + active["log"]):
+        raise RuntimeError(f"offline ges: K4 {k4}, K5 {k5} for {active} active renders")
+    if not l1_1[1] < l1_0[1]:
+        raise RuntimeError(f"offline ges: camera {l1_cam}'s L1 {l1_0[1]} -> {l1_1[1]}")
+    if not psnr_1 >= psnr_0:
+        raise RuntimeError(f"offline ges: eval PSNR fell {psnr_0} -> {psnr_1}")
+    return out
+
+
 def mesh_phase(engine) -> dict:
-    """The TSDF mesh of a path's volume (phase 8), by the native mesher and
+    """The TSDF mesh of a path's volume (phase 11), by the native mesher and
     by the numpy route, each timed from the device volume (its host copy
     included)."""
     from gps_slam_torch.tsdf import meshing, native
@@ -1050,6 +1406,165 @@ def reference_tracked() -> dict:
     return res
 
 
+def reference_swap() -> dict:
+    """tests/test_swapping.py's fixture (a full outward turn, 24 frames at
+    128x96, 1024-block pool, check every 2 frames, waters 0.80 / 0.50) on
+    the card and on the CPU in lockstep: after every frame equal allocated,
+    spill and reload counts; after every check equal block-key and
+    store-key sets; at the end, by key, the pool's and the store's state
+    words with equal weights, sdf within 1 quantum, colour within 1."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    W, H, N = 128, 96, 24
+    cams = synthetic.make_cameras(n_frames=N, width=W, height=H, look="out", arc=1.0)
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": N - 1, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    d = synthetic.default_config_dict("build/smoke_ws", node)
+    d["TPU"].update(block_capacity=1024, hash_size=2 ** 15, visible_block_capacity=2 ** 12,
+                    alloc_candidate_cap=2 ** 13, enable_swapping=1, swap_check_interval=2,
+                    swap_high_water=0.80, swap_low_water=0.50)
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        e = TsdfEngine(Config.from_dict(d), W, H, c0.K, device=dev)
+        e.set_gt_poses([c.c2w for c in cams])
+        e.turn_off_tracking()
+        engines[dev] = e
+    card, cpu = engines["cuda"], engines["cpu"]
+    count_diffs, set_diffs = [], []
+    for i, c in enumerate(cams):
+        for e in (card, cpu):
+            e.process_frame(c.image, c.depth)
+        counts = [(e.vol.n_blocks, e.swap.n_spilled_total, e.swap.n_reloaded_total)
+                  for e in (card, cpu)]
+        if counts[0] != counts[1]:
+            count_diffs.append((i, counts))
+        if i % card.swap_check_interval == 0:
+            kc, kp = (set(by_key(e.vol)[0].tolist()) for e in (card, cpu))
+            if kc != kp or set(card.swap.store) != set(cpu.swap.store):
+                set_diffs.append(i)
+    res = {"width": W, "height": H, "frames": N,
+           "n_spilled_total": card.swap.n_spilled_total,
+           "n_reloaded_total": card.swap.n_reloaded_total,
+           "frames_counts_differ": count_diffs, "checks_sets_differ": set_diffs,
+           "pool": state_diff(by_key(card.vol), by_key(cpu.vol))}
+    ks = sorted(card.swap.store)
+    if set(ks) == set(cpu.swap.store) and ks:
+        def stored(e, f):
+            return torch.as_tensor(np.stack([e.swap.store[k][f] for k in ks]).view(np.int32))
+
+        kt = torch.as_tensor(ks, dtype=torch.int64)
+        res["store"] = state_diff((kt, stored(card, "state"), stored(card, "color")),
+                                  (kt, stored(cpu, "state"), stored(cpu, "color")))
+    res["tolerance"] = ("counts equal after every frame, key sets and store keys equal "
+                        "after every check; by key weights equal, sdf within 1 quantum, "
+                        "colour within 1")
+    log("[reference swap] " + json.dumps(res))
+    if (count_diffs or set_diffs or not res["pool"]["ok"] or not res.get("store", {}).get("ok")
+            or not (res["n_spilled_total"] > 0 and res["n_reloaded_total"] > 0)):
+        raise RuntimeError("the card's swap run disagrees with the CPU's")
+    return res
+
+
+def reference_offline(args) -> dict:
+    """The offline raw path at 128x96 on the card against the CPU: one
+    `raw_forward` and its backward (the classic compositor's) from one pool
+    (renders within 1e-5, gradients within 1e-4 of each one's largest
+    |value| plus 2e-4 of their own: f32 sums in another order, the
+    gathers' gradients summed by atomics on the card); then OFFLINE_REF_ITERS
+    raw iterations with densify every 5 (its pause after the opacity reset
+    set to 0 here) from one pool, the same camera order (one numpy seed)
+    and the same split noise injected: the same alive rows after each
+    densify."""
+    from gps_slam_torch import convert
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.gs import densify as dmod
+    from gps_slam_torch.gs import losses
+    from gps_slam_torch.gs import model as gmodel
+    from gps_slam_torch.gs.model import GaussianModel
+    from gps_slam_torch.slam.offline import OfflinePipeline
+
+    W, H = 128, 96
+    cams = synthetic.make_cameras(n_frames=3, width=W, height=H)
+    d = offline_config(cams, "raw", OFFLINE_REF_ITERS)
+    d["MODEL"].update(densify_start_iter=3, densify_interval=5,
+                      densify_end_iter=OFFLINE_REF_ITERS)
+    d["PIPE"]["log_iter"] = 10 ** 6
+    cfg = Config.from_dict(d)
+    spawn = GaussianModel(cfg, W, H, device="cpu")
+    spawn._rng.manual_seed(args.seed)
+    fm = cams[0].get_frame_maps(device="cpu")
+    mask = torch.zeros((H, W), dtype=torch.bool)
+    mask[::3, ::3] = True
+    gmodel.add_gaussians(spawn.pool, fm["vertex_map"], fm["color_map"], fm["normal_map"],
+                         mask, 1.0, 4096, 0.5, (-1.0, 0.05), spawn.next_rng())
+    params = {k: v.numpy() for k, v in spawn.pool.params.items()}
+    alive = spawn.pool.alive.numpy()
+    cam = cams[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pool = convert.pool_from_numpy(params, alive, dev)
+        p = {k: v.clone().requires_grad_(True) for k, v in pool.params.items()}
+        probe = torch.zeros((pool.capacity, 2), device=dev, requires_grad=True)
+        res = gmodel.raw_forward(p, pool.alive, torch.as_tensor(cam.c2w, device=dev),
+                                 cam.K, 0, spawn.statics, means2d_probe=probe)
+        losses.compute_loss(res["rgb"], res["depth"], torch.as_tensor(cam.image, device=dev),
+                            None, 0.0, 0.0)["total"].backward()
+        out[dev] = {"rgb": res["rgb"], "alpha": res["alpha"], "probe": probe.grad,
+                    **{k: p[k].grad for k in ("means", "scales", "quats", "features_dc",
+                                              "opacities")}}
+    errs = {}
+    for k, x in out["cuda"].items():
+        a, b = x.detach().cpu(), out["cpu"][k].detach()
+        scale = float(b.abs().max())
+        errs[k] = {"max_abs": float((a - b).abs().max()),
+                   "of_largest": float((a - b).abs().max()) / max(scale, 1e-30),
+                   "ok": bool(torch.allclose(a, b, rtol=2e-4, atol=1e-4 * scale)
+                              if k not in ("rgb", "alpha") else
+                              torch.allclose(a, b, rtol=0, atol=1e-5))}
+
+    rng = np.random.default_rng(args.seed)
+    noises = [torch.as_tensor(rng.standard_normal(dmod.split_noise_shape(
+        cfg.tpu.max_new_gaussians)).astype(np.float32)) for _ in range(OFFLINE_REF_ITERS)]
+    step, pause = dmod.densify_step, dmod.PAUSE_REFINE_AFTER_RESET
+    alive_after = {}
+    for dev in ("cuda", "cpu"):
+        model = GaussianModel(cfg, W, H, device=dev)
+        model.pool = convert.pool_from_numpy(params, alive, dev)
+        rounds = alive_after.setdefault(dev, [])
+
+        def densify(pool, g2, vc, gen, *a, _dev=dev, _rounds=rounds):
+            res = step(pool, g2, vc, gen, *a, noise=noises[len(_rounds)].to(_dev))
+            _rounds.append(pool.alive.cpu().clone())
+            return res
+
+        dmod.densify_step, dmod.PAUSE_REFINE_AFTER_RESET = densify, 0
+        try:
+            OfflinePipeline(cfg, cfg.workspace_dir).raw_train_cams(model, cams)
+        finally:
+            dmod.densify_step, dmod.PAUSE_REFINE_AFTER_RESET = step, pause
+    same_alive = (len(alive_after["cuda"]) == len(alive_after["cpu"]) > 0
+                  and all(torch.equal(a, b) for a, b in zip(alive_after["cuda"],
+                                                            alive_after["cpu"])))
+    res = {"width": W, "height": H, "gaussians": int(alive.sum()), "errors": errs,
+           "iterations": OFFLINE_REF_ITERS, "densify_rounds": len(alive_after["cuda"]),
+           "alive_after_each_round": [int(a.sum()) for a in alive_after["cuda"]],
+           "alive_after_each_round_cpu": [int(a.sum()) for a in alive_after["cpu"]],
+           "same_alive_rows": same_alive,
+           "tolerance": "renders within 1e-5; gradients within 1e-4 of the largest "
+                        "|gradient| + 2e-4 relative; equal alive rows after each densify"}
+    log("[reference offline] " + json.dumps(res))
+    if not (all(e["ok"] for e in errs.values()) and same_alive):
+        raise RuntimeError("the card's offline raw path disagrees with the CPU's")
+    return res
+
+
 def profiled(fn):
     """Run fn under torch.profiler; print device time by kernel and return
     (fn's result, the summed time of the device's own kernel, copy and set
@@ -1100,17 +1615,23 @@ def main() -> int:
     log(smi.stdout.strip())
 
     rec = Recorder()
-    mp, main_engine = main_path(args)
+    mp, main_engine, main_model, main_cams = main_path(args)
     main_last = dict(rec.last)
     mesh_phase(main_engine)
-    del main_engine
+    offline_ges_phase(args, main_engine, main_model, main_cams)
+    del main_engine, main_model
     k2, k3_large = large_frame_paths(args, rec)
     _, k3_tracked = tracked_path(args, rec)
+    swap_path(args)
+    offline_raw_phase(args, main_cams)
+    del main_cams
     k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
           k3_tracked]
     rows = kernel_phase(main_last, mp["launches"], k2, k3)
     reference_phase()
     reference_tracked()
+    reference_swap()
+    reference_offline(args)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in rows]}))

@@ -65,6 +65,24 @@ def _imread_depth(path: str, depth_scale: float, depth_mode: str = "affine",
     return (d.astype(np.float32) / depth_scale)[..., None]
 
 
+class RandomSelector:
+    """Shuffled draws without replacement: walk a permutation of the items
+    drawn from `rng` (a numpy Generator), draw a new one when it is used
+    up.  The same generator state gives the JAX package's sequence."""
+
+    def __init__(self, items, rng: np.random.Generator | None = None):
+        self.items = list(items)
+        self.rng = rng or np.random.default_rng(0)
+        self._order: list[int] = []
+
+    def get_next(self):
+        """(item, its index)."""
+        if not self._order:
+            self._order = list(self.rng.permutation(len(self.items)))
+        idx = int(self._order.pop(0))
+        return self.items[idx], idx
+
+
 class DatasetReader:
     def __init__(self, cfg: ReaderConfig):
         self.cfg = cfg

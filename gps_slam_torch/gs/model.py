@@ -1,9 +1,10 @@
-"""Gaussian model — the port of gps_slam_tpu/gs/model.py (GES path): the
-render (`ges_forward`, with `ges_bin` for a binning reused across a
-window), batched eval renders, the per-window Adam loop
-(`window_optimize`), SLAM-mode spawning (`add_gaussians`), redundancy
-pruning and the `GaussianModel` host facade with model.npz / model.pt /
-PLY persistence.
+"""Gaussian model — the port of gps_slam_tpu/gs/model.py: the GES render
+(`ges_forward`, with `ges_bin` for a binning reused across a window), the
+classic render of the offline `raw` method (`raw_forward`), batched eval
+renders, the per-window Adam loop (`window_optimize`), SLAM-mode spawning
+(`add_gaussians`), redundancy pruning and the `GaussianModel` host facade
+with the offline trainers' optimizer state and model.npz / model.pt / PLY
+persistence.
 """
 
 from __future__ import annotations
@@ -42,7 +43,10 @@ class RenderStatics(NamedTuple):
     bin_margin_px: float = 2.0
 
 
-def _project_and_colors(params, alive, c2w, K, st: RenderStatics):
+def _project_and_colors(params, alive, c2w, K, st: RenderStatics,
+                        active_sh_degree=None):
+    """Projection and SH colours (+0.5, clamped at 0) shared by the GES and
+    classic renders; `active_sh_degree` is the offline SH ramp."""
     viewmat = pose_inv(c2w)
     proj = projection.project(
         params["means"], params["quats"], torch.exp(params["scales"]),
@@ -55,7 +59,8 @@ def _project_and_colors(params, alive, c2w, K, st: RenderStatics):
     coeffs = torch.cat([params["features_dc"][:, None, :],
                         params["features_rest"]], 1)
     viewdirs = params["means"] - c2w[:3, 3]
-    colors = sh.eval_sh(st.sh_degree, viewdirs, coeffs, mask=radii > 0)
+    colors = sh.eval_sh(st.sh_degree, viewdirs, coeffs, mask=radii > 0,
+                        active_degree=active_sh_degree)
     return proj, radii, torch.clamp(colors + 0.5, min=0.0)
 
 
@@ -75,14 +80,16 @@ def ges_bin(params, alive, c2w, K, st: RenderStatics,
 
 def ges_forward(params: dict, alive, c2w, K, ref_depth, base_color,
                 cam_id: int, st: RenderStatics,
-                bins: rasterize.ActiveBins | None = None) -> dict:
+                bins: rasterize.ActiveBins | None = None,
+                active_sh_degree=None) -> dict:
     """project -> SH -> bin -> weighted-sum rasterize -> blend with the
     SDF base layer: rgb = (raw + base) / (weight + 1).  Pass `bins` to
-    reuse an earlier binning (the window loop).  Differentiable in the
-    params."""
+    reuse an earlier binning (the window loop); `active_sh_degree` (an int
+    tensor) is the offline SH ramp.  Differentiable in the params."""
     ref = ref_depth
     ref_clamped = torch.where(ref < 0.01, 1000.0, ref)
-    proj, radii, colors = _project_and_colors(params, alive, c2w, K, st)
+    proj, radii, colors = _project_and_colors(params, alive, c2w, K, st,
+                                              active_sh_degree)
     colors4 = torch.cat([colors, proj.depths[:, None]], 1)
     if bins is None:
         tile_w = -(-st.width // st.tile_size)
@@ -112,6 +119,38 @@ def ges_forward(params: dict, alive, c2w, K, ref_depth, base_color,
         "n_span_overflow": bins.n_span_overflow,
         "n_active_overflow": bins.n_active_overflow,
     }
+
+
+def raw_forward(params: dict, alive, c2w, K, cam_id: int, st: RenderStatics,
+                means2d_probe=None, active_sh_degree=None) -> dict:
+    """The classic 3DGS render of the offline `raw` method: project -> SH ->
+    depth-ordered binning -> front-to-back compositing; depth = blended
+    depth / alpha.  `means2d_probe` ([C, 2] zeros with requires_grad) is
+    added to the projected means, so its .grad after backward is
+    d(loss)/d(means2d), the densify statistic.  `cam_id` is unused, as in
+    the JAX package (the raw method has no exposure)."""
+    from . import rasterize_classic as rcl
+
+    proj, radii, colors = _project_and_colors(params, alive, c2w, K, st,
+                                              active_sh_degree)
+    means2d = proj.means2d
+    if means2d_probe is not None:
+        means2d = means2d + means2d_probe
+    colors4 = torch.cat([colors, proj.depths[:, None]], 1)
+    tile_w = -(-st.width // st.tile_size)
+    tile_h = -(-st.height // st.tile_size)
+    bins = rcl.bin_gaussians_depth(
+        means2d, radii, proj.depths, st.tile_size, tile_w, tile_h,
+        st.visible_cap, st.tiles_per_gaussian_cap, st.tile_cap)
+    render, alpha = rcl.classic_rasterize(
+        means2d, proj.conics, colors4, torch.sigmoid(params["opacities"][:, 0]),
+        bins, st.width, st.height, st.tile_size)
+    rgb, raw_depth = render[..., :3], render[..., 3]
+    depth = raw_depth / torch.clamp(alpha, min=1e-10)
+    return {"rgb": rgb, "depth": depth, "alpha": alpha, "radii": radii,
+            "means2d": means2d, "n_pairs": bins.n_pairs,
+            "n_tile_overflow": bins.n_tile_overflow,
+            "n_span_overflow": bins.n_span_overflow}
 
 
 def render_eval_batch(params, alive, cam_batch: dict, st: RenderStatics) -> dict:
@@ -296,19 +335,37 @@ class GaussianModel:
         # spawn draws: one CPU generator seeded from dev_id hands each
         # window a fresh device generator, in call order
         self._rng = torch.Generator("cpu").manual_seed(cfg.dev_id)
+        # the offline trainers' optimizer (init_optimizers)
+        self.opt_state: optim.WindowAdam | None = None
+        # the SLAM path keeps the live rows a prefix (spawn fills the free
+        # tail, prune compacts); offline densify keeps rows in place, since
+        # its Adam state is aligned to them
+        self.pool_compact = True
 
     @property
     def num_gaussians(self) -> int:
         return self.pool.n_alive
 
     def opt_cap(self, extra: int = 0) -> int:
-        """Smallest bucket covering the live prefix plus `extra` rows."""
+        """Smallest bucket covering the live prefix plus `extra` rows; the
+        whole pool when it is not kept compact."""
         cap = self.pool.capacity
+        if not self.pool_compact:
+            return cap
         need = self.num_gaussians + extra
         for b in self.BUCKETS:
             if need <= b <= cap:
                 return b
         return cap
+
+    def init_optimizers(self, cfg: Config | None = None) -> None:
+        """Fresh offline Adam state over the pool's own tensors, with the
+        learning rates and PIPE.max_iterations of `cfg` (the trainer's; the
+        model's own by default): one state across the run, the means
+        learning rate decaying by the global step."""
+        cfg = cfg or self.cfg
+        self.opt_state = optim.WindowAdam(self.pool.params, cfg.model,
+                                          cfg.pipe.max_iterations)
 
     def eval_slice(self, height: int | None = None, width: int | None = None):
         """(params, alive, statics) over the compact live prefix."""

@@ -5,7 +5,9 @@ One Adam per attribute (b1 0.9, b2 0.999, eps 1e-8); only the means
 decay, lr_k = means_lr * gamma**k with gamma = 0.01**(1 / max_iterations),
 k counted from 0 at a window's first update.  Exposure learns only with
 `use_exposure`.  The window loop makes a fresh optimizer every window, as
-the reference re-initialises its Adam state.
+the reference re-initialises its Adam state; the offline trainers keep one
+across PIPE.max_iterations (`GaussianModel.init_optimizers`), where
+`zero_state_rows` clears the moments of the pool rows densify touched.
 
 Written out rather than torch.optim.Adam because the bias corrections
 1 - b**t are ill-conditioned in f32 (1 - 0.999 rounds to 1.3e-5 off):
@@ -60,3 +62,17 @@ class WindowAdam:
     def zero_grad(self) -> None:
         for p in self.params.values():
             p.grad = None
+
+
+@torch.no_grad()
+def zero_state_rows(opt: WindowAdam, row_mask: torch.Tensor) -> WindowAdam:
+    """Zero both moments of the pool rows in `row_mask` [C] for every
+    attribute with one row per pool slot (exposure keeps its state); the
+    step count stays.  The fixed-pool form of the reference's optimizer
+    surgery when densify adds and removes Gaussians."""
+    for state in (opt.mu, opt.nu):
+        for k, m in state.items():
+            if m.ndim >= 1 and m.shape[0] == row_mask.shape[0]:
+                shape = (-1,) + (1,) * (m.ndim - 1)
+                state[k] = torch.where(row_mask.reshape(shape), 0.0, m)
+    return opt

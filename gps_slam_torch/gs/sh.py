@@ -26,28 +26,37 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
 
 
 def eval_sh(degree: int, dirs: torch.Tensor, coeffs: torch.Tensor,
-            mask: torch.Tensor | None = None) -> torch.Tensor:
+            mask: torch.Tensor | None = None,
+            active_degree: torch.Tensor | None = None) -> torch.Tensor:
     """dirs [N, 3] (not necessarily normalized), coeffs [N, K, 3] with
     K >= num_sh_bases(degree), optional visibility mask [N] (invisible ->
-    zeros).  Returns colours [N, 3] before the +0.5 offset."""
+    zeros).  `active_degree`, an optional int tensor, zeroes the bands
+    above it (the offline trainers' SH warm-up ramp) without changing the
+    code path; `degree` stays the bound.  Returns colours [N, 3] before
+    the +0.5 offset."""
+    def band(b, x):
+        # (active >= b) * x is 0 or x exactly, as the JAX ramp multiplies
+        return x if active_degree is None else (active_degree >= b).to(x.dtype) * x
+
     norm2 = (dirs * dirs).sum(-1, keepdim=True)
     d = dirs * torch.rsqrt(norm2 + 1e-20)
     x, y, z = d[..., 0:1], d[..., 1:2], d[..., 2:3]
     res = C0 * coeffs[:, 0]
     if degree >= 1:
-        res = res + C1 * (-y * coeffs[:, 1] + z * coeffs[:, 2] - x * coeffs[:, 3])
+        res = res + band(1, C1 * (
+            -y * coeffs[:, 1] + z * coeffs[:, 2] - x * coeffs[:, 3]))
     if degree >= 2:
         xx, yy, zz = x * x, y * y, z * z
         xy, yz, xz = x * y, y * z, x * z
-        res = res + (
+        res = res + band(2, (
             C2[0] * xy * coeffs[:, 4]
             + C2[1] * yz * coeffs[:, 5]
             + C2[2] * (2.0 * zz - xx - yy) * coeffs[:, 6]
             + C2[3] * xz * coeffs[:, 7]
             + C2[4] * (xx - yy) * coeffs[:, 8]
-        )
+        ))
     if degree >= 3:
-        res = res + (
+        res = res + band(3, (
             C3[0] * y * (3.0 * xx - yy) * coeffs[:, 9]
             + C3[1] * xy * z * coeffs[:, 10]
             + C3[2] * y * (4.0 * zz - xx - yy) * coeffs[:, 11]
@@ -55,9 +64,9 @@ def eval_sh(degree: int, dirs: torch.Tensor, coeffs: torch.Tensor,
             + C3[4] * x * (4.0 * zz - xx - yy) * coeffs[:, 13]
             + C3[5] * z * (xx - yy) * coeffs[:, 14]
             + C3[6] * x * (xx - 3.0 * yy) * coeffs[:, 15]
-        )
+        ))
     if degree >= 4:
-        res = res + (
+        res = res + band(4, (
             C4[0] * xy * (xx - yy) * coeffs[:, 16]
             + C4[1] * yz * (3.0 * xx - yy) * coeffs[:, 17]
             + C4[2] * xy * (7.0 * zz - 1.0) * coeffs[:, 18]
@@ -67,7 +76,7 @@ def eval_sh(degree: int, dirs: torch.Tensor, coeffs: torch.Tensor,
             + C4[6] * (xx - yy) * (7.0 * zz - 1.0) * coeffs[:, 22]
             + C4[7] * xz * (xx - 3.0 * yy) * coeffs[:, 23]
             + C4[8] * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy)) * coeffs[:, 24]
-        )
+        ))
     if mask is not None:
         res = torch.where(mask[:, None], res, 0.0)
     return res

@@ -117,6 +117,7 @@ class SLAMPipeline:
             os.makedirs(os.path.join(workspace_dir, cfg.pipe.tsdf.saved_images),
                         exist_ok=True)
             os.makedirs(os.path.join(workspace_dir, "before_opt"), exist_ok=True)
+        self.scene_scale = 1.0  # the reader's; read by offline densify only
         self._pose_idx: dict[int, int] = {}
         self._spawn_overflow = 0
         self._bin_overflow = [0, 0, 0]   # tile, span and active caps

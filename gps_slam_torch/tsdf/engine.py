@@ -1,12 +1,19 @@
 """TSDF engine facade — the port of gps_slam_tpu/tsdf/engine.py (eager
-per-frame path, without spatial sharding or swapping).
+per-frame path, without spatial sharding).
 
 Per frame: optional bilateral depth filter -> the pose (the ground truth
 in gt-pose mode; in tracked mode the attached tracker's estimate against
 the previous tracking-prepare raycast, with the behaviour-on-failure
 policy: pose revert, `stop_integration` or `relocalise`) -> fuse -> record
 the pose and intrinsics for later raycasts -> in tracked mode the next
-frame's tracking-prepare raycast.  Counts (allocated blocks, candidates)
+frame's tracking-prepare raycast.  With `TPU.enable_swapping` fusion
+stamps each integrated block with the frame index, every
+`swap_check_interval` frames the host swap engine merges re-allocated
+stored blocks back and spills the coldest ones, and every raycast first
+brings back the stored blocks in its view (`tsdf/swapping.py`); when that
+leaves the pool at or past its high-water mark, the next frame spills
+before it fuses (the JAX package fuses into the full pool and drops the
+frame's new blocks).  Counts (allocated blocks, candidates)
 are read exactly every frame; the JAX package's asynchronous count caches,
 prefix buckets and one-dispatch tracked megastep exist only for its slow
 host link and are left out (the megastep's in-graph pose revert is the
@@ -56,9 +63,8 @@ class TsdfEngine:
             raycast_samples=tpu.raycast_samples,
             raycast_bisect=tpu.raycast_bisect,
         )
-        if int(tpu.space_shards) > 1 or tpu.enable_swapping:
-            raise NotImplementedError(
-                "space_shards and enable_swapping are not ported yet")
+        if int(tpu.space_shards) > 1:
+            raise NotImplementedError("space_shards is not ported yet")
         self.vol: TsdfVolume = create(self.params, self.device)
         self.width, self.height = int(width), int(height)
         self.K = np.asarray(K, dtype=np.float32)
@@ -86,6 +92,13 @@ class TsdfEngine:
         # the raycasts' surface blocks in depth range, both before the
         # visible_capacity cap
         self.peak_visible = {"fusion": 0, "raycast": 0}
+        self.swap = None
+        self.swap_check_interval = int(tpu.swap_check_interval)
+        if tpu.enable_swapping:
+            from .swapping import HostSwapEngine
+
+            self.swap = HostSwapEngine(high_water=tpu.swap_high_water,
+                                       low_water=tpu.swap_low_water)
 
     # -- configuration -------------------------------------------------------
 
@@ -142,10 +155,17 @@ class TsdfEngine:
             pose = self._last_pose
 
         if not skip_fusion:
+            if self.swap is not None and self.swap.over_high_water:
+                # a raycast's swap-in filled the pool: make room first
+                self.swap.maybe_spill(self.vol)
             integrate.fuse_frame(
-                self.vol, d, c, torch.as_tensor(pose, device=self.device), self.K)
+                self.vol, d, c, torch.as_tensor(pose, device=self.device), self.K,
+                frame_idx=i if self.swap is not None else None)
             self.peak_visible["fusion"] = max(self.peak_visible["fusion"],
                                               self.vol.n_visible)
+            if self.swap is not None and i % self.swap_check_interval == 0:
+                self.swap.maybe_reload(self.vol)
+                self.swap.maybe_spill(self.vol)
         self._last_pose = np.asarray(pose, dtype=np.float32)
         self.cam_poses.append(self._last_pose.copy())
         self.cam_intrinsics.append(self.K.copy())
@@ -163,24 +183,33 @@ class TsdfEngine:
 
     def run_raycast(self, c2w, K=None, width: int | None = None,
                     height: int | None = None, quality: bool = True,
-                    need_color: bool = True) -> dict:
+                    need_color: bool = True, need_normals: bool = True) -> dict:
         """Raycast from an arbitrary pose; `quality` refines k_blocks=2
-        candidates per pixel, otherwise 1 (window raycasts)."""
+        candidates per pixel, otherwise 1 (window raycasts).  With swapping
+        on, the stored blocks in view come back into the pool first."""
         p = self.params
+        c2w = np.asarray(c2w, np.float32)
+        K = self.K if K is None else np.asarray(K, np.float32)
+        width, height = width or self.width, height or self.height
+        if self.swap is not None:
+            self.swap.reload_visible(self.vol, c2w, K, width, height)
         maps = raycast_tiles.raycast(
-            self.vol, np.asarray(c2w, np.float32),
-            self.K if K is None else np.asarray(K, np.float32),
-            width or self.width, height or self.height, p.raycast_lb,
+            self.vol, c2w, K, width, height, p.raycast_lb,
             p.raycast_samples, max(p.raycast_bisect, 3), 2 if quality else 1,
-            need_color=need_color)
+            need_color=need_color, need_normals=need_normals)
         self.peak_visible["raycast"] = max(self.peak_visible["raycast"],
                                            maps["n_visible"])
         return maps
 
     def run_raycast_batch(self, c2ws, K=None, quality: bool = False,
                           need_normals: bool = False) -> dict:
-        """Raycast M poses; stacked [M, ...] map dict."""
+        """Raycast M poses; stacked [M, ...] map dict.  With swapping on,
+        one `run_raycast` per pose (each swaps in its own view)."""
         p = self.params
+        if self.swap is not None:
+            return raycast_tiles.stack_maps([
+                self.run_raycast(c, K, quality=quality, need_normals=need_normals)
+                for c in np.asarray(c2ws, np.float32)])
         maps = raycast_tiles.raycast_batch(
             self.vol, np.asarray(c2ws, np.float32),
             self.K if K is None else np.asarray(K, np.float32),

@@ -470,10 +470,13 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
 
 
 def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
-               c2w: torch.Tensor, K) -> TsdfVolume:
+               c2w: torch.Tensor, K, frame_idx: int | None = None) -> TsdfVolume:
     """One frame of allocation + integration, updating `vol` in place
     (the JAX version returns a new volume; here the pools are written in
-    place and the same object is returned)."""
+    place and the same object is returned).  With `frame_idx` (host
+    swapping on) every row of the integration set gets it as its
+    `last_seen` stamp, on every route; without it `last_seen` is not
+    touched."""
     p = vol.params
     Kf = [[float(x) for x in r] for r in K.tolist()] if torch.is_tensor(K) \
         else [[float(x) for x in r] for r in K]
@@ -502,4 +505,6 @@ def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
         integrate_blocks_packed(depth.contiguous(), rgb_packed.contiguous(),
                                 keys, ptrs, vol.state, vol.color, vol.summary,
                                 w2c, fx, fy, cx, cy, p.voxel_size, p.mu, p.max_w)
+    if frame_idx is not None:
+        vol.last_seen[ptrs[ptrs >= 0].to(torch.int64)] = frame_idx
     return vol

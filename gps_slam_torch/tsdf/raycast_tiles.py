@@ -450,8 +450,14 @@ def raycast_batch(vol: TsdfVolume, c2ws, K, width: int, height: int,
                   k_blocks: int = 2, need_normals: bool = False) -> dict:
     """`raycast` over M poses, stacked [M, ...] (overflow counts summed,
     the largest visible count kept)."""
-    outs = [raycast(vol, c2w, K, width, height, lb, s_coarse, s_refine,
-                    k_blocks, need_normals=need_normals) for c2w in c2ws]
+    return stack_maps([raycast(vol, c2w, K, width, height, lb, s_coarse,
+                               s_refine, k_blocks, need_normals=need_normals)
+                       for c2w in c2ws])
+
+
+def stack_maps(outs: list[dict]) -> dict:
+    """`raycast` map dicts -> one [M, ...] dict (overflow counts summed,
+    the largest visible count kept)."""
     res = {k: torch.stack([o[k] for o in outs]) for k in outs[0]
            if k not in COUNTS}
     res["n_tile_overflow"] = sum(o["n_tile_overflow"] for o in outs)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -53,6 +54,14 @@ def unpack_rgb(p: torch.Tensor) -> torch.Tensor:
     """Packed rgb888 -> float [..., 3] in 0..255."""
     return torch.stack([p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF],
                        dim=-1).to(torch.float32)
+
+
+def unpack_color_np(packed) -> np.ndarray:
+    """Host rgb888 words (uint32, or int32 with the same bits) -> uint8
+    [..., 3]."""
+    p = np.asarray(packed).view(np.uint32)
+    return np.stack([p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF],
+                    axis=-1).astype(np.uint8)
 
 
 @dataclass(frozen=True)

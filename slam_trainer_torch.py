@@ -45,6 +45,7 @@ def main(config_path: str, device=None) -> None:
                           exposure_num=len(train_cams) if cfg.model.use_exposure else 0,
                           device=engine.device)
     pipe = SLAMPipeline(cfg, engine, ws, is_train=cfg.work_mode != "eval")
+    pipe.scene_scale = reader.scene_scale
 
     if cfg.work_mode in ("train", "recon"):
         pipe.slam_train_cams(model, train_cams)

@@ -997,3 +997,95 @@ def test_mesher_library_name_follows_source_and_flags(tmp_path, monkeypatch):
     assert edited not in libs
     monkeypatch.setattr(native.platform, "node", lambda: "another-host")
     assert native.lib_path() not in libs + [edited]
+
+
+@pytest.mark.cuda
+def test_swapping_cuda_matches_cpu(cuda_device):
+    """tests/test_swapping.py's fixture shortened to 16 frames (a full
+    outward turn at 128x96, 1024-block pool, check every 2 frames, waters
+    0.80 / 0.50) on the card and on the CPU: after every frame the same
+    allocated, spill and reload counts and the same store keys; at the end
+    the same block keys, and by key the state words' weights equal, sdf
+    within 1 quantum, colour within 1 (fusion's tolerance: the host merge
+    then works on words that agree that far)."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    W, H = 128, 96
+    cams = synthetic.make_cameras(n_frames=24, width=W, height=H, look="out", arc=1.0)[:16]
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": 15, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    d = synthetic.default_config_dict("build/test_ws", node)
+    d["TPU"].update(block_capacity=1024, hash_size=2 ** 15, visible_block_capacity=2 ** 12,
+                    alloc_candidate_cap=2 ** 13, enable_swapping=1, swap_check_interval=2,
+                    swap_high_water=0.80, swap_low_water=0.50)
+    engines = []
+    for dev in (cuda_device, "cpu"):
+        e = TsdfEngine(Config.from_dict(d), W, H, c0.K, device=dev)
+        e.set_gt_poses([c.c2w for c in cams])
+        e.turn_off_tracking()
+        engines.append(e)
+    for c in cams:
+        counts = []
+        for e in engines:
+            e.process_frame(c.image, c.depth)
+            counts.append((e.vol.n_blocks, e.swap.n_spilled_total,
+                           e.swap.n_reloaded_total, sorted(e.swap.store)))
+        assert counts[0] == counts[1]
+    card, cpu = engines
+    assert card.swap.n_spilled_total > 0
+    n = cpu.vol.n_blocks
+    kc, kp = (e.vol.block_coords[:n].cpu() for e in engines)
+    assert torch.equal(torch.sort(kc).values, torch.sort(kp).values)
+    sc, sp = card.vol.state[:n].cpu()[torch.argsort(kc)], cpu.vol.state[:n][torch.argsort(kp)]
+    cc, cp = card.vol.color[:n].cpu()[torch.argsort(kc)], cpu.vol.color[:n][torch.argsort(kp)]
+    assert torch.equal(sc >> 16, sp >> 16)
+    sdf = lambda w: ((w & 0xFFFF) ^ 0x8000) - 0x8000  # noqa: E731
+    assert int((sdf(sc) - sdf(sp)).abs().max()) <= 1
+    for s in (0, 8, 16):
+        assert int((((cc >> s) & 0xFF) - ((cp >> s) & 0xFF)).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_classic_rasterize_cuda_matches_cpu(cuda_device):
+    """The classic compositor at 96x72 over 300 wide Gaussians (some pixels
+    past T < 1e-4) on the card against the CPU: the same lists, render
+    and alpha within 1e-5, and the gradients of sum(render * R) +
+    sum(alpha * A) within 1e-4 of each input's largest |gradient| plus
+    2e-4 of its own value (sums in another order; the gathers' gradients
+    are summed by atomics on the card)."""
+    from gps_slam_torch.gs import rasterize_classic as trc_
+
+    rng = np.random.default_rng(4)
+    n, W, H = 300, 96, 72
+    a, c = rng.uniform(0.005, 0.05, n), rng.uniform(0.005, 0.05, n)
+    g = {"means2d": np.stack([rng.uniform(-10, W + 10, n), rng.uniform(-10, H + 10, n)], -1),
+         "conics": np.stack([a, rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c), c], -1),
+         "colors": rng.uniform(0, 1, (n, 4)), "opac": rng.uniform(0.5, 0.99, n)}
+    g = {k: v.astype(np.float32) for k, v in g.items()}
+    radii = rng.integers(1, 40, n).astype(np.int32)
+    depths = (rng.integers(1, 12, n) * 0.25).astype(np.float32)
+    R = rng.normal(size=(H, W, 4)).astype(np.float32)
+    A = rng.normal(size=(H, W)).astype(np.float32)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        xs = [torch.tensor(g[k], device=dev, requires_grad=True)
+              for k in ("means2d", "conics", "colors", "opac")]
+        bins = trc_.bin_gaussians_depth(xs[0], torch.as_tensor(radii, device=dev),
+                                        torch.as_tensor(depths, device=dev), 16, 6, 5, n, 16, 64)
+        r, al = trc_.classic_rasterize(*xs, bins, W, H, 16)
+        ((r * torch.as_tensor(R, device=dev)).sum()
+         + (al * torch.as_tensor(A, device=dev)).sum()).backward()
+        out.append((bins, r.detach().cpu(), al.detach().cpu(), [x.grad.cpu() for x in xs]))
+    (bk, rk, ak, gk), (bp, rp, ap, gp) = out
+    assert torch.equal(bk.valid.cpu(), bp.valid) and torch.equal(bk.gids.cpu()[bp.valid],
+                                                                 bp.gids[bp.valid])
+    assert float((ap > 0.9999).float().mean()) > 0.01
+    torch.testing.assert_close(rk, rp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ak, ap, rtol=0, atol=1e-5)
+    for x, y in zip(gk, gp):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=1e-4 * float(y.abs().max()))
