@@ -52,10 +52,11 @@ Phases (any failure exits non-zero before the final line):
      per iteration with an active tile, the L1 of the first camera that
      sees a Gaussian falls, the eval views' PSNR does not;
  10. kernels: each kernel against its plain PyTorch version on the inputs
-     of its last call on its path (K2 once per route, K3 on the main path,
-     on the 1920x1080 path and on the tracked path's last tracking-prepare
-     call), with CUDA-event timings, the least time the card could take
-     for the same work and the kernel's design;
+     of its last call on its path (K1 on the main and the sharded path, K2
+     once per route, K3 on the main path, on the 1920x1080 path, on the
+     tracked path's last tracking-prepare call and on the sharded path's
+     last shard raycast), with CUDA-event timings, the least time the card
+     could take for the same work and the kernel's design;
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -75,7 +76,33 @@ Phases (any failure exits non-zero before the final line):
      store keys at every check, words within fusion's tolerance; and the
      offline raw path at 128x96: one render and its gradients, then 20
      iterations with densify and one injected split noise, equal alive
-     rows after each densify.
+     rows after each densify;
+ 13. sharded path (run right after phase 9, on the main path's volume and
+     model): the main path's loop with the raycasts' visible cap at 4x
+     (then also 32 blocks per tile list), then its loop and frames with
+     TPU.space_shards 4 (per shard a 2^19 hash and 32,768 blocks, all on
+     the one card): K1 once per shard and frame, K3 once per shard and
+     raycast pose, K5 and the loss gates as on the main path, eval PSNR
+     above 15 dB and within ROUTE_PSNR_GAP_DB of the main path's and of
+     both raised-cap runs'; the last sharded K1 and K3 calls held against
+     their plain versions in phase 10 (K3 bit for bit); every key owned by its
+     shard and >= 99.9% of the keys with the main path's state, colour and
+     summary words bit for bit; the pose-0 raycast within
+     tests/test_parallel.py's gates; the scene.npz round trip bit for bit;
+     the per-shard mesh's triangles and time;
+ 14. dp: the pipeline's data-parallel eval render over [cuda:0, cuda:0]
+     equals forward_batch bit for bit; a 2-replica dp_train_step equals
+     the single-replica step within 1e-6; over 2 replicas of 2 different
+     cameras its averaged gradient equals one replica's gradient of the
+     mean loss over both within 1e-6 of each parameter's largest
+     |gradient|, and its loss the per-camera mean within 1e-6;
+ 15. viewer: viewer.server.serve answers 3 requests on localhost (2 at
+     1200x680, 1 at 800x600) with the model's render bytes, bit for bit;
+ 16. lpips: seeded random LPIPS(vgg) weights on the card and the CPU within
+     1e-5 relative on a 300x170 crop, the card's ms per 1200x680 pair, and
+     metrics.lpips None without a weight file;
+ 17. prefetch: FramePrefetcher yields the main path's 30 frames in order,
+     equal to DeviceFrameCache's tensors bit for bit.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -136,6 +163,22 @@ OFFLINE_DENSIFY = {"densify_start_iter": 100, "densify_interval": 50,
 OFFLINE_REF_ITERS = 20  # the card-against-CPU raw run at 128x96
 # the tests/test_native.py comparison of two meshes of one volume
 MESH_TRI_ATOL, MESH_COL_ATOL = 1e-5, 2e-2
+# the sharded path: the main path's configuration with TPU.space_shards 4
+# (per shard a 2^19 hash and 32,768 blocks); the share of the main path's
+# blocks whose words it must give bit for bit (a claim round may drop a
+# key in one table and not in the other)
+SHARDS = 4
+SHARD_KEY_SHARE = 0.999
+# the main path with the raycasts' caps raised towards what the shards'
+# raycasts hold together (each shard bins up to the visible capacity of its
+# own blocks and keeps up to LB of them per tile): SHARDS x the visible
+# capacity, then also K3's largest tile list
+WIDE_CAP_RUNS = (("main path, visible cap x4", {"visible_block_capacity": SHARDS * 2 ** 13}),
+                 ("main path, visible cap x4, LB 32",
+                  {"visible_block_capacity": SHARDS * 2 ** 13, "raycast_lb": 32}))
+# the viewer's requests: two at the main path's size and one of another
+VIEWER_REQUESTS = ((1200, 680), (1200, 680), (800, 600))
+LPIPS_CROP = (170, 300)  # rows, columns of the card-against-CPU LPIPS crop
 
 
 def log(*a):
@@ -293,7 +336,8 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
     return float(hist[:n_cams].mean()), float(hist[(k - 1) * n_cams:k * n_cams].mean())
 
 
-def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
+def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
+             shards: int = 1, tpu: dict | None = None):
     """Drive the train loop with `iters` Adam steps per window over `cams`,
     then the eval render, with every kernel count set to 0 just before and
     read just after; check the output and return the numbers of the
@@ -302,7 +346,10 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
     other one never.  Poses are the gt ones, or with `tracked` (the
     Recorder of the kernel wrappers' calls) the ICP tracker's (frame 0
     seeded with its gt pose), timed apart from fusion.  `swap` (TPU
-    settings) turns host swapping on, instrumented by `SwapStats`."""
+    settings) turns host swapping on, instrumented by `SwapStats`.  With
+    `shards` > 1 the pool splits into that many space shards
+    (`TPU.space_shards`): fusion launches once per shard and frame, K3 once
+    per shard and raycast pose.  `tpu` overrides other TPU settings."""
     from gps_slam_torch import kernels
     from gps_slam_torch.config import Config
     from gps_slam_torch.eval import metrics as M
@@ -318,6 +365,9 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
         d["PIPE"]["TSDF"]["use_gt_pose"] = False
         d["TPU"]["visible_block_capacity"] = TRACKED_VISIBLE_CAP
     d["TPU"].update(swap or {})
+    d["TPU"].update(tpu or {})
+    if shards > 1:
+        d["TPU"]["space_shards"] = shards
     cfg = Config.from_dict(d)
     engine = TsdfEngine(cfg, W, H, cams[0].K, device="cuda")
     track = swapped = None
@@ -329,6 +379,16 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
         engine.turn_off_tracking()
     if swap is not None:
         swapped = SwapStats(engine)
+    vols = engine.shards
+    raycast_poses = [0]
+    if shards > 1:
+        run_raycast = engine.run_raycast
+
+        def counted_raycast(*a, **kw):
+            raycast_poses[0] += 1
+            return run_raycast(*a, **kw)
+
+        engine.run_raycast = counted_raycast
     model = GaussianModel(cfg, W, H, device="cuda")
     model._rng.manual_seed(args.seed)
     pipe = SLAMPipeline(cfg, engine, cfg.workspace_dir, is_train=False)
@@ -397,11 +457,12 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
             for n, h, _ in windows if iters > 0 for e in [epoch_means(h, n)]],
         "bin_overflow": dict(zip(("tile", "span", "active"), pipe._bin_overflow)),
         "eval_views": len(eval_cams), "eval_s": eval_s,
-        "n_blocks": engine.vol.n_blocks, "gaussians": model.num_gaussians,
+        "n_blocks": sum(v.n_blocks for v in vols), "gaussians": model.num_gaussians,
         "psnr_mean": float(np.mean(psnrs)), "psnr_min": float(np.min(psnrs)),
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
         "peak_visible": dict(engine.peak_visible),
         "visible_capacity": cfg.tpu.visible_block_capacity,
+        "raycast_lb": cfg.tpu.raycast_lb,
         "block_capacity": cfg.tpu.block_capacity,
         "launches": launches,
     }
@@ -411,6 +472,9 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
                                       - track.prepare_ms) / N
     if swapped is not None:
         out.update(swapped.summary())
+    if shards > 1:
+        out.update(space_shards=shards, shard_blocks=[v.n_blocks for v in vols],
+                   raycast_poses=raycast_poses[0])
     if args.profile and iters > 0:
         # share of the train + eval wall time during which the card ran
         # device work (an upper bound where device events overlap)
@@ -422,9 +486,13 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
         if launches[k.name] <= 0:
             raise RuntimeError(f"{tag}: kernel {k.name} was not launched")
     idle = kernels.INTEGRATE_F32 if fusion is kernels.INTEGRATE else kernels.INTEGRATE
-    if launches[fusion.name] != N or launches[idle.name] != 0:
+    if launches[fusion.name] != N * shards or launches[idle.name] != 0:
         raise RuntimeError(f"{tag}: {launches[fusion.name]} {fusion.name} launches for "
-                           f"{N} frames and {launches[idle.name]} of {idle.name}")
+                           f"{N} frames x {shards} shards and {launches[idle.name]} of "
+                           f"{idle.name}")
+    if shards > 1 and launches[kernels.RAYCAST.name] != shards * raycast_poses[0]:
+        raise RuntimeError(f"{tag}: {launches[kernels.RAYCAST.name]} K3 launches for "
+                           f"{raycast_poses[0]} raycast poses x {shards} shards")
     # a step on a camera that sees no Gaussian has no active tile and no
     # splat to differentiate; every other step launches K5 once
     if launches[kernels.SPLAT_BWD.name] != out["adam_steps_with_tiles"]:
@@ -446,8 +514,8 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None):
         if track is not None and out["peak_visible"][k] > cap:
             raise RuntimeError(f"{tag}: {out['peak_visible'][k]} visible blocks "
                                f"({k}) above the cap {cap}")
-    if swapped is None and engine.vol.n_blocks >= cfg.tpu.block_capacity:
-        raise RuntimeError(f"{tag}: the block pool is full ({engine.vol.n_blocks})")
+    if swapped is None and any(v.n_blocks >= v.params.block_capacity for v in vols):
+        raise RuntimeError(f"{tag}: a block pool is full ({out['n_blocks']})")
     if track is not None:
         track.check(tag, out)
     if swapped is not None:
@@ -640,19 +708,24 @@ def synthetic_cams(n: int, width: int, height: int, look: str = "out",
 def main_path(args) -> dict:
     """The forward-only path (no Adam steps), then the main path with
     ADAM_STEPS per window over the same frames, at 1200x680 (K1's route);
-    the main path's eval PSNR must be at least the forward-only one's."""
+    the main path's eval PSNR must be at least the forward-only one's.
+    Also returns the main path's `AllocFrames`."""
     from gps_slam_torch import kernels
 
     cams = synthetic_cams(N_FRAMES, 1200, 680)
     fwd, _, _ = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
-    out, engine, model = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
+    alloc = AllocFrames()
+    try:
+        out, engine, model = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
+    finally:
+        alloc.detach()
     if out["adam_steps"] != ADAM_STEPS * out["windows"]:
         raise RuntimeError(f"main path ran {out['adam_steps']} Adam steps")
     if not out["psnr_mean"] >= fwd["psnr_mean"]:
         raise RuntimeError(f"trained eval PSNR {out['psnr_mean']} below the "
                            f"forward-only {fwd['psnr_mean']}")
     out["forward_only_psnr_mean"] = fwd["psnr_mean"]
-    return out, engine, model, cams
+    return out, engine, model, cams, alloc
 
 
 def large_frame_paths(args, rec) -> tuple[list, tuple]:
@@ -701,120 +774,16 @@ def large_frame_paths(args, rec) -> tuple[list, tuple]:
     return out, k3
 
 
-def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
-    """K2 (`integrate_f32_cuda`) against `integrate_blocks_plain` on the
-    arguments of one `integrate_blocks` call; the output of rows with
-    valid False is unwritten by the kernel and not compared."""
+def k1_row(tag: str | None, call: tuple, launches: int) -> dict:
+    """K1 (`integrate_cuda`) against `integrate_blocks_packed_plain` on the
+    arguments of one `integrate_blocks_packed` call (`call`: args, kwargs),
+    each on its own copy of the pools; `tag` names the path when it is not
+    the main path."""
     from gps_slam_torch import kernels
     from gps_slam_torch.tsdf import integrate as tint
     from gps_slam_torch.tsdf.volume import BLOCK_VOL
 
-    depth, rgbp, keys, valid = args[:4]
-    ok_out = tint.integrate_blocks(*args)
-    pl_out = tint.integrate_blocks_plain(*args)
-    torch.cuda.synchronize()
-    (fk, wk, ck, wck), (fp, wp, cp, wcp) = ([x[valid] for x in o] for o in (ok_out, pl_out))
-    f_err = (fk - fp).abs().max().item()
-    c_err = (ck - cp).abs().max().item()
-    bitwise_equal = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                        for x, y in ((fk, fp), (wk, wp), (ck, cp), (wck, wcp)))
-    ms = time_ms(lambda: tint.integrate_blocks(*args), 50)
-    plain_ms = time_ms(lambda: tint.integrate_blocks_plain(*args), 5, 1)
-    V, Vv = keys.shape[0], int(valid.sum().item())
-    w2c, fx, fy, cx, cy, W, H, vs = args[8:16]
-    n_px = tap_pixels(keys[valid], w2c, fx, fy, cx, cy, W, H, vs)
-    # live rows only: the depth and rgb words of the pixels their voxels
-    # tap, each row's key and valid flag, four [512] input planes and six
-    # f32 output planes (sdf, weight, r, g, b, colour weight)
-    n_bytes = (n_px * 8 + Vv * 5
-               + Vv * BLOCK_VOL * 4 * 4 + Vv * BLOCK_VOL * 4 * 6)
-    n_ops = Vv * BLOCK_VOL * 110
-    b, by = bound_ms(n_bytes, n_ops)
-    return {"name": f"integrate_f32_cuda ({tag})", "tpu": tag,
-            "design": kernels.INTEGRATE_F32.design, "route": "cuda",
-            "source": "gps_slam_torch/csrc/integrate_f32.cu", "replaces": replaces,
-            "launches": launches, "max_abs_err": float(max(f_err, c_err)),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, "ok": bitwise_equal, "bytes": n_bytes, "ops": n_ops,
-            "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
-                       "tap_pixels": n_px},
-            "tolerance": "valid rows: bit for bit",
-            "sdf_err": f_err, "color_err": c_err, "bitwise_equal": bitwise_equal}
-
-
-def k3_row(tag: str | None, call: tuple, launches: int, extra: dict | None = None) -> dict:
-    """K3 (`raycast_cuda`) against `march_plain` on the arguments of one
-    `march` call (`call`: args, kwargs); `tag` names the path when it is
-    not the main path; `extra` is added to the row."""
-    from gps_slam_torch import kernels
-    from gps_slam_torch.tsdf import raycast_tiles as trc
-
-    a, kw = call
-    gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b = a[:10]
-    need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
-    margs = (gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b, need_color)
-    ok_out = trc.march(*margs)
-    pl_out = trc.march_plain(*margs)
-    torch.cuda.synchronize()
-    hk, hp = ok_out[:, 5] > 0, pl_out[:, 5] > 0
-    hit_flips = int((hk != hp).sum().item())
-    px_err = (ok_out[:, :5] - pl_out[:, :5]).abs().amax(1)[hk & hp]
-    max_err = px_err.max().item() if px_err.numel() else 0.0
-    ok3 = hit_flips == 0 and max_err < 1e-4
-    ms = time_ms(lambda: trc.march(*margs), 20)
-    plain_ms = time_ms(lambda: trc.march_plain(*margs), 2, 1)
-    T, LB = gids.shape
-    valid = gids[gids >= 0]
-    n_rows = torch.unique(valid).numel()
-    n_slots = valid.numel()
-    work = march_work(margs)
-    n_hit = int(hp.sum().item())
-    # colour words: the hit pixels' 8 corner words, at most each picked
-    # block's whole row
-    col_words = min(work["picked_rows"] * 512, n_hit * 8) if need_color else 0
-    # the lists, each listed block's mip row, max weight and coordinate
-    # key, the picked blocks' state rows, the colour words, the output
-    n_bytes = (gids.numel() * 4 + n_rows * (64 + 1 + 1) * 4
-               + work["picked_rows"] * 512 * 4 + col_words * 4 + ok_out.numel() * 4)
-    n_ops = (n_slots * 64 * 20                        # quad slab test, every listed pair
-             + work["hit_pairs"] * s_c * 60           # coarse mip samples, pairs that hit
-             + work["picks"] * 4 * (20 + s_r * 60)    # refine, the picked quads' pixels
-             + (n_hit * 3 * 60 if need_color else 0))  # colour read, pixels that hit
-    b, by = bound_ms(n_bytes, n_ops)
-    return {"name": "raycast_cuda" + (f" ({tag})" if tag else ""), "tpu": "K3",
-            "design": kernels.RAYCAST.design, "route": "cuda",
-            "source": "gps_slam_torch/csrc/raycast.cu",
-            "replaces": "gps_slam_tpu/tsdf/raycast_pallas.py:51",
-            "launches": launches, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, "ok": ok3,
-            "bytes": n_bytes, "ops": n_ops,
-            "shapes": {"T": T, "LB": LB, "valid_slots": n_slots,
-                       "distinct_blocks": n_rows, "hit_pairs": work["hit_pairs"],
-                       "picks": work["picks"], "picked_rows": work["picked_rows"],
-                       "hit_pixels": n_hit, "k_blocks": k_b,
-                       "s_coarse": s_c, "s_refine": s_r, "need_color": bool(need_color)},
-            "tolerance": "hit masks equal; t*, confidence, colour within "
-                         "1e-4 wherever both hit",
-            "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item(), **(extra or {})}
-
-
-def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
-    """Each kernel against its plain version: K1, K4 and K5 on the inputs
-    of their last main-path call (`last`, with the main path's
-    `launches`), K2 on each route's last call (`k2`: (tag, replaces,
-    arguments, launches) per route), K3 on the last call of the main path
-    of the 1920x1080 path and of the tracked path's tracking-prepare
-    raycasts (`k3`: `k3_row`'s arguments per path)."""
-    from gps_slam_torch import kernels
-    from gps_slam_torch.gs import rasterize as trz
-    from gps_slam_torch.tsdf import integrate as tint
-    from gps_slam_torch.tsdf.volume import BLOCK_VOL
-
-    rows = []
-
-    # ---- K1: integrate, on the last fused frame's inputs
-    (a, _) = last["integrate_blocks_packed"]
+    (a, _) = call
     depth, rgbp, keys, ptrs, state, color, summary = a[:7]
     rest = a[7:]
     pools = {}
@@ -857,23 +826,141 @@ def kernel_phase(last: dict, launches: dict, k2: list, k3: list) -> list[dict]:
                + Vv * BLOCK_VOL * 4 * 4 + Vv * 128 * 4)
     n_ops = Vv * BLOCK_VOL * 110
     b, by = bound_ms(n_bytes, n_ops)
-    rows.append({"name": "integrate_cuda", "tpu": "K1",
-                 "design": kernels.INTEGRATE.design, "route": "cuda",
-                 "source": "gps_slam_torch/csrc/integrate.cu",
-                 "replaces": "gps_slam_tpu/tsdf/integrate_pallas.py:239",
-                 "launches": launches["integrate_cuda"],
-                 "max_abs_err": float(max(sdf_err / 32767.0, col_err / 255.0, sum_err)),
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                 "library_ms": None, "ok": ok,
-                 "bytes": n_bytes, "ops": n_ops,
-                 "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
-                            "pool_rows": state.shape[0], "tap_pixels": n_px},
-                 "tolerance": "whole pools: rows outside the integration set "
-                              "unchanged; weights equal, sdf within 1 quantum, "
-                              "colour channels within 1, >= 99.9% of the "
-                              "integrated rows' state and colour words equal; "
-                              "summary within 1e-6",
-                 "word_match": word_match, "color_match": col_match})
+    return {"name": "integrate_cuda" + (f" ({tag})" if tag else ""), "tpu": "K1",
+            "design": kernels.INTEGRATE.design, "route": "cuda",
+            "source": "gps_slam_torch/csrc/integrate.cu",
+            "replaces": "gps_slam_tpu/tsdf/integrate_pallas.py:239",
+            "launches": launches,
+            "max_abs_err": float(max(sdf_err / 32767.0, col_err / 255.0, sum_err)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "ok": ok,
+            "bytes": n_bytes, "ops": n_ops,
+            "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
+                       "pool_rows": state.shape[0], "tap_pixels": n_px},
+            "tolerance": "whole pools: rows outside the integration set "
+                         "unchanged; weights equal, sdf within 1 quantum, "
+                         "colour channels within 1, >= 99.9% of the "
+                         "integrated rows' state and colour words equal; "
+                         "summary within 1e-6",
+            "word_match": word_match, "color_match": col_match}
+
+
+def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
+    """K2 (`integrate_f32_cuda`) against `integrate_blocks_plain` on the
+    arguments of one `integrate_blocks` call; the output of rows with
+    valid False is unwritten by the kernel and not compared."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.tsdf import integrate as tint
+    from gps_slam_torch.tsdf.volume import BLOCK_VOL
+
+    depth, rgbp, keys, valid = args[:4]
+    ok_out = tint.integrate_blocks(*args)
+    pl_out = tint.integrate_blocks_plain(*args)
+    torch.cuda.synchronize()
+    (fk, wk, ck, wck), (fp, wp, cp, wcp) = ([x[valid] for x in o] for o in (ok_out, pl_out))
+    f_err = (fk - fp).abs().max().item()
+    c_err = (ck - cp).abs().max().item()
+    bitwise_equal = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                        for x, y in ((fk, fp), (wk, wp), (ck, cp), (wck, wcp)))
+    ms = time_ms(lambda: tint.integrate_blocks(*args), 50)
+    plain_ms = time_ms(lambda: tint.integrate_blocks_plain(*args), 5, 1)
+    V, Vv = keys.shape[0], int(valid.sum().item())
+    w2c, fx, fy, cx, cy, W, H, vs = args[8:16]
+    n_px = tap_pixels(keys[valid], w2c, fx, fy, cx, cy, W, H, vs)
+    # live rows only: the depth and rgb words of the pixels their voxels
+    # tap, each row's key and valid flag, four [512] input planes and six
+    # f32 output planes (sdf, weight, r, g, b, colour weight)
+    n_bytes = (n_px * 8 + Vv * 5
+               + Vv * BLOCK_VOL * 4 * 4 + Vv * BLOCK_VOL * 4 * 6)
+    n_ops = Vv * BLOCK_VOL * 110
+    b, by = bound_ms(n_bytes, n_ops)
+    return {"name": f"integrate_f32_cuda ({tag})", "tpu": tag,
+            "design": kernels.INTEGRATE_F32.design, "route": "cuda",
+            "source": "gps_slam_torch/csrc/integrate_f32.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": float(max(f_err, c_err)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "ok": bitwise_equal, "bytes": n_bytes, "ops": n_ops,
+            "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
+                       "tap_pixels": n_px},
+            "tolerance": "valid rows: bit for bit",
+            "sdf_err": f_err, "color_err": c_err, "bitwise_equal": bitwise_equal}
+
+
+def k3_row(tag: str | None, call: tuple, launches: int, extra: dict | None = None,
+           exact: bool = False) -> dict:
+    """K3 (`raycast_cuda`) against `march_plain` on the arguments of one
+    `march` call (`call`: args, kwargs); `tag` names the path when it is
+    not the main path; `extra` is added to the row.  With `exact` the hit
+    pixels' words must equal the plain version's bit for bit."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.tsdf import raycast_tiles as trc
+
+    a, kw = call
+    gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b = a[:10]
+    need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
+    margs = (gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b, need_color)
+    ok_out = trc.march(*margs)
+    pl_out = trc.march_plain(*margs)
+    torch.cuda.synchronize()
+    hk, hp = ok_out[:, 5] > 0, pl_out[:, 5] > 0
+    hit_flips = int((hk != hp).sum().item())
+    px_err = (ok_out[:, :5] - pl_out[:, :5]).abs().amax(1)[hk & hp]
+    max_err = px_err.max().item() if px_err.numel() else 0.0
+    ok3 = hit_flips == 0 and (max_err == 0.0 if exact else max_err < 1e-4)
+    ms = time_ms(lambda: trc.march(*margs), 20)
+    plain_ms = time_ms(lambda: trc.march_plain(*margs), 2, 1)
+    T, LB = gids.shape
+    valid = gids[gids >= 0]
+    n_rows = torch.unique(valid).numel()
+    n_slots = valid.numel()
+    work = march_work(margs)
+    n_hit = int(hp.sum().item())
+    # colour words: the hit pixels' 8 corner words, at most each picked
+    # block's whole row
+    col_words = min(work["picked_rows"] * 512, n_hit * 8) if need_color else 0
+    # the lists, each listed block's mip row, max weight and coordinate
+    # key, the picked blocks' state rows, the colour words, the output
+    n_bytes = (gids.numel() * 4 + n_rows * (64 + 1 + 1) * 4
+               + work["picked_rows"] * 512 * 4 + col_words * 4 + ok_out.numel() * 4)
+    n_ops = (n_slots * 64 * 20                        # quad slab test, every listed pair
+             + work["hit_pairs"] * s_c * 60           # coarse mip samples, pairs that hit
+             + work["picks"] * 4 * (20 + s_r * 60)    # refine, the picked quads' pixels
+             + (n_hit * 3 * 60 if need_color else 0))  # colour read, pixels that hit
+    b, by = bound_ms(n_bytes, n_ops)
+    return {"name": "raycast_cuda" + (f" ({tag})" if tag else ""), "tpu": "K3",
+            "design": kernels.RAYCAST.design, "route": "cuda",
+            "source": "gps_slam_torch/csrc/raycast.cu",
+            "replaces": "gps_slam_tpu/tsdf/raycast_pallas.py:51",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "ok": ok3,
+            "bytes": n_bytes, "ops": n_ops,
+            "shapes": {"T": T, "LB": LB, "valid_slots": n_slots,
+                       "distinct_blocks": n_rows, "hit_pairs": work["hit_pairs"],
+                       "picks": work["picks"], "picked_rows": work["picked_rows"],
+                       "hit_pixels": n_hit, "k_blocks": k_b,
+                       "s_coarse": s_c, "s_refine": s_r, "need_color": bool(need_color)},
+            "tolerance": "hit masks equal; t*, confidence, colour "
+                         + ("bit for bit" if exact else "within 1e-4") + " wherever both hit",
+            "hit_flips": hit_flips, "hit_ratio": hk.float().mean().item(), **(extra or {})}
+
+
+def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> list[dict]:
+    """Each kernel against its plain version: K4 and K5 on the inputs of
+    their last main-path call (`last`, with the main path's `launches`),
+    K1 on the last call of the main path and of the sharded path (`k1`:
+    `k1_row`'s arguments per path), K2 on each route's last call (`k2`:
+    (tag, replaces, arguments, launches) per route), K3 on the last call
+    of the main path, of the 1920x1080 path, of the tracked path's
+    tracking-prepare raycasts and of the sharded path (`k3`: `k3_row`'s
+    arguments per path)."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.gs import rasterize as trz
+
+    rows = []
+
+    # ---- K1: integrate, on the last fused frame's inputs of each path
+    rows += [k1_row(*r) for r in k1]
 
     # ---- K2a / K2b: the f32-I/O update, on each route's last call
     rows += [k2_row(*r) for r in k2]
@@ -1565,6 +1652,524 @@ def reference_offline(args) -> dict:
     return res
 
 
+class AllocFrames:
+    """Records every volume's allocated count after each of its fusions (a
+    wrapper on `integrate.fuse_frame`), so that a block's allocation frame
+    can be read off its pool row: rows are handed out in claim order,
+    frame by frame."""
+
+    def __init__(self):
+        from gps_slam_torch.tsdf import integrate as tint
+
+        self.tint, self.fuse = tint, tint.fuse_frame
+        self.marks: dict[int, list] = {}
+
+        def fused(vol, *a, **kw):
+            out = self.fuse(vol, *a, **kw)
+            self.marks.setdefault(id(vol), []).append(vol.n_blocks)
+            return out
+
+        tint.fuse_frame = fused
+
+    def detach(self) -> None:
+        self.tint.fuse_frame = self.fuse
+
+    def frames(self, vol) -> torch.Tensor:
+        """The frame that allocated each of `vol`'s allocated rows."""
+        marks = torch.as_tensor(self.marks[id(vol)])
+        return torch.searchsorted(marks, torch.arange(vol.n_blocks), right=True)
+
+
+def blocks_by_key(vols, alloc: AllocFrames) -> dict:
+    """Keys, state, colour and summary words (as int32) and allocation
+    frames of the allocated blocks of `vols` on the host, sorted by key."""
+    parts = {k: [] for k in ("keys", "state", "color", "summary", "frame")}
+    for v in vols:
+        n = v.n_blocks
+        parts["keys"].append(v.block_coords[:n].cpu())
+        parts["state"].append(v.state[:n].cpu())
+        parts["color"].append(v.color[:n].cpu())
+        parts["summary"].append(v.summary[:n].cpu().view(torch.int32))
+        parts["frame"].append(alloc.frames(v))
+    out = {k: torch.cat(x) for k, x in parts.items()}
+    order = torch.argsort(out["keys"])
+    return {k: x[order] for k, x in out.items()}
+
+
+def sharded_path(args, rec: Recorder, main: dict, main_engine, main_alloc: AllocFrames,
+                 cams, main_mesh: dict) -> tuple[dict, tuple, tuple]:
+    """The sharded path (phase 13): first the main path's loop with the
+    raycasts' caps raised (WIDE_CAP_RUNS), then that loop and frames with
+    the block pool split SHARDS ways by key-hash ownership
+    (`TPU.space_shards`; per shard a 2^19 hash and 32,768 blocks), 2
+    windows x 20 Adam steps.  K1 once per shard and frame, K3 once per
+    shard and raycast pose, K5 once per Adam step with an active tile; each
+    window's loss falls; eval PSNR above 15 dB and within ROUTE_PSNR_GAP_DB
+    of the main path's and of each raised-cap run's (each shard's raycasts
+    bin up to the visible capacity and LB per tile of its own blocks, so
+    the sharded renders may see blocks that the main path's caps leave
+    out; the raised-cap runs show what that is worth).  Then, against the
+    main path's volume: every key owned
+    by its shard, and by key the same blocks with the same state, colour
+    and summary words on >= SHARD_KEY_SHARE of the keys (K1 updates a block
+    from the frame alone; a key that a claim round dropped in one table and
+    not the other is printed with its allocation frames); the raycast from
+    pose 0 within tests/test_parallel.py's gates of a raycast of the main
+    path's volume binned with SHARDS x its visible capacity and tile lists
+    (the most candidates the shards' merged lists can hold; K3's plain
+    version, as the lists are longer than K3 takes); a scene.npz round trip
+    into a fresh sharded engine giving the same pose-0 raycast bit for
+    bit; and the per-shard mesh's triangles and time.  Returns the path's
+    numbers and `k1_row`'s and `k3_row`'s arguments for its last K1 and K3
+    calls (K3 held bit for bit)."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    import dataclasses
+
+    from gps_slam_torch.tsdf import meshing, raycast_tiles
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+    from gps_slam_torch.tsdf.integrate import shard_owner
+
+    psnr = {"main path": main["psnr_mean"]}
+    for tag, tpu in WIDE_CAP_RUNS:
+        r, _, _ = run_path(args, cams, ADAM_STEPS, tag, kernels.INTEGRATE, tpu=tpu)
+        psnr[tag] = r["psnr_mean"]
+    alloc = AllocFrames()
+    try:
+        out, engine, _ = run_path(args, cams, ADAM_STEPS, "sharded path", kernels.INTEGRATE,
+                                  shards=SHARDS)
+    finally:
+        alloc.detach()
+    last = dict(rec.last)
+    tag = f"sharded, {cams[0].width}x{cams[0].height}"
+    k1 = (tag, last["integrate_blocks_packed"], out["launches"][kernels.INTEGRATE.name])
+    k3 = (tag, last["march"], out["launches"][kernels.RAYCAST.name],
+          {"space_shards": SHARDS, "pool_rows": last["march"][0][1].shape[0]}, True)
+    res = {"psnr_mean": out["psnr_mean"], "psnr_of": psnr,
+           "psnr_gap_db": {k: out["psnr_mean"] - v for k, v in psnr.items()},
+           "shard_params": {"hash_size": engine.params.hash_size,
+                            "block_capacity": engine.params.block_capacity}}
+    owned = all(bool((shard_owner(v.block_coords[:v.n_blocks], SHARDS) == s).all())
+                for s, v in enumerate(engine.shards))
+
+    # ---- blocks by key against the main path's volume
+    a = blocks_by_key(engine.shards, alloc)
+    b = blocks_by_key([main_engine.vol], main_alloc)
+    ka, kb = a["keys"].numpy(), b["keys"].numpy()
+    common, ia, ib = np.intersect1d(ka, kb, return_indices=True)
+    ia, ib = torch.as_tensor(ia), torch.as_tensor(ib)
+    same = torch.ones(len(common), dtype=torch.bool)
+    for k in ("state", "color", "summary"):
+        same &= (a[k][ia] == b[k][ib]).all(1)
+    n_equal = int(same.sum())
+    sa, sb = set(ka.tolist()), set(kb.tolist())
+    differ = ([(int(k), None, int(a["frame"][i])) for i, k in enumerate(ka) if k not in sb]
+              + [(int(k), int(b["frame"][i]), None) for i, k in enumerate(kb) if k not in sa]
+              + [(int(common[j]), int(b["frame"][ib[j]]), int(a["frame"][ia[j]]))
+                 for j in torch.nonzero(~same)[:, 0].tolist()])
+    res["keys"] = {"sharded": len(ka), "main": len(kb), "common": len(common),
+                   "equal_words": n_equal,
+                   "equal_share": n_equal / max(len(ka), len(kb)),
+                   "owned_by_their_shard": owned,
+                   "differing": len(differ),
+                   # (key, allocation frame on the main path, on the sharded one)
+                   "differing_first": differ[:20]}
+
+    # ---- the raycast from pose 0 against the main path's volume.  Each
+    # shard bins up to the visible capacity of its own surface blocks and
+    # keeps up to LB of them per tile, so the merged candidates of a tile
+    # are its S x LB nearest blocks at most; the reference bins the main
+    # path's volume with S x both, through the march's plain version (S x
+    # LB is past K3's 32 slots); the engine's own raycast is printed too
+    cam = cams[0]
+    d_sh = engine.run_raycast(cam.c2w)
+    p = main_engine.params
+    wide = dataclasses.replace(main_engine.vol, params=dataclasses.replace(
+        p, visible_capacity=SHARDS * p.visible_capacity))
+    march = raycast_tiles.march
+    raycast_tiles.march = raycast_tiles.march_plain
+    try:
+        d1 = raycast_tiles.raycast(wide, cam.c2w, cam.K, cam.width, cam.height,
+                                   SHARDS * p.raycast_lb, p.raycast_samples,
+                                   max(p.raycast_bisect, 3), 2)
+    finally:
+        raycast_tiles.march = march
+    m_eng = main_engine.run_raycast(cam.c2w)
+    capped = m_eng["depth_map"][..., 0].cpu().numpy()
+    ds, dm = d_sh["depth_map"][..., 0].cpu().numpy(), d1["depth_map"][..., 0].cpu().numpy()
+    both = (ds > 0) & (dm > 0)
+    gt = cam.depth[..., 0]
+    vox = engine.params.voxel_size
+    res["raycast_pose0"] = {
+        "surface_blocks": d1["n_visible"], "visible_capacity": p.visible_capacity,
+        "lb": p.raycast_lb, "tile_overflow_engine": m_eng["n_tile_overflow"],
+        "tile_overflow_sharded": d_sh["n_tile_overflow"],
+        "hits_sharded": float(np.mean(ds > 0)), "hits_engine": float(np.mean(capped > 0)),
+        "hits_reference": float(np.mean(dm > 0)),
+        "hit_mask_differs_from_engine": float(np.mean((ds > 0) != (capped > 0))),
+        "hit_mask_differs": float(np.mean((ds > 0) != (dm > 0))),
+        "both_hit_within_2_voxels": float(np.mean(np.abs(ds - dm)[both] < 2 * vox)),
+        "median_err_voxels": float(np.median(np.abs(ds - gt)[(ds > 0) & (gt > 0)]) / vox),
+        "color_diff_mean": float((d_sh["color_map"] - d1["color_map"]).abs()
+                                 .cpu().numpy()[both].mean()),
+        "tolerance": "tests/test_parallel.py: masks differ < 6%, >= 94% within 2 voxels, "
+                     "median error < 1.5 voxels, colour < 0.05"}
+
+    # ---- the eval cameras' raycast colour alone against gt: the main
+    # volume (K3, 2 picks per quad), the merged shards (each shard refines
+    # its own 2 nearest candidates per quad, so the merge up to SHARDS x 2)
+    # and the main volume through K3's plain version with SHARDS x the
+    # tile lists and the picks: which of them the sharded PSNR follows
+    from gps_slam_torch.eval import metrics as M
+
+    march = raycast_tiles.march
+    raycast_tiles.march = raycast_tiles.march_plain
+    try:
+        picks = [raycast_tiles.raycast(wide, c.c2w, c.K, c.width, c.height,
+                                       SHARDS * p.raycast_lb, p.raycast_samples,
+                                       max(p.raycast_bisect, 3), 2 * SHARDS)
+                 for c in cams[::6]]
+    finally:
+        raycast_tiles.march = march
+    ev = {"main": [], "sharded": [], f"main, {2 * SHARDS} picks": []}
+    for c, mk in zip(cams[::6], picks):
+        for k, m in (("main", main_engine.run_raycast(c.c2w)),
+                     ("sharded", engine.run_raycast(c.c2w)),
+                     (f"main, {2 * SHARDS} picks", mk)):
+            ev[k].append((M.psnr(m["color_map"].cpu().numpy(), c.image),
+                          float((m["depth_map"][..., 0] > 0).float().mean())))
+    res["raycast_eval"] = {k: {"color_psnr_mean": float(np.mean([x[0] for x in v])),
+                               "hits_mean": float(np.mean([x[1] for x in v]))}
+                           for k, v in ev.items()}
+
+    # ---- scene.npz round trip into a fresh sharded engine
+    d = bench_config(len(cams), cam.width, cam.height, cam, ADAM_STEPS)
+    d["TPU"]["space_shards"] = SHARDS
+    ws = "build/smoke_sharded_scene"
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    engine.save_scene(ws)
+    t1 = time.monotonic()
+    fresh = TsdfEngine(Config.from_dict(d), cam.width, cam.height, cam.K, device="cuda")
+    fresh.load_scene(ws)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    m_fresh = fresh.run_raycast(cam.c2w)
+    res["roundtrip"] = {"save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3,
+                        "raycast_bit_equal": all(torch.equal(d_sh[k], m_fresh[k]) for k in (
+                            "depth_map", "vertex_map", "color_map", "confidence_map",
+                            "normal_map"))}
+    del fresh
+
+    # ---- the per-shard mesh, as TsdfEngine.save_mesh meshes it
+    t0 = time.monotonic()
+    tris = sum(meshing.extract_mesh(v)[0].shape[0] // 3 for v in engine.shards)
+    res["mesh"] = {"triangles": tris, "ms": (time.monotonic() - t0) * 1e3,
+                   "main_path_triangles": main_mesh["triangles_native"]}
+    log("[sharded path check] " + json.dumps(res))
+    rc = res["raycast_pose0"]
+    for k, gap in res["psnr_gap_db"].items():
+        if not abs(gap) <= ROUTE_PSNR_GAP_DB:
+            raise RuntimeError(f"sharded path: eval PSNR {out['psnr_mean']} is {gap} dB "
+                               f"off the {k}'s {psnr[k]}")
+    if not (owned and res["keys"]["equal_share"] >= SHARD_KEY_SHARE):
+        raise RuntimeError(f"sharded path: blocks by key differ from the main path's: "
+                           f"{res['keys']}")
+    if not (rc["hit_mask_differs"] < 0.06 and rc["both_hit_within_2_voxels"] >= 0.94
+            and rc["median_err_voxels"] < 1.5 and rc["color_diff_mean"] < 0.05):
+        raise RuntimeError(f"sharded path: the pose-0 raycast is off: {rc}")
+    if not res["roundtrip"]["raycast_bit_equal"]:
+        raise RuntimeError("sharded path: the reloaded scene raycasts otherwise")
+    if not tris > 0:
+        raise RuntimeError("sharded path: empty mesh")
+    out["check"] = res
+    return out, k1, k3
+
+
+def dp_phase(engine, model, cams) -> dict:
+    """Camera data parallelism (phase 14) on one card, over the device list
+    [cuda:0, cuda:0]: the pipeline's data-parallel eval render of the main
+    path's 5 eval cameras (padded to 6, cut back) equals `forward_batch`
+    bit for bit; one `dp_train_step` over two replicas of one camera
+    equals the single-replica step within 1e-6 (loss and every
+    parameter), on copies of the model's parameters.  Then the
+    cross-replica mean, over two replicas of two different cameras: the
+    averaged gradient equals one replica's gradient of the mean loss over
+    both cameras within 1e-6 of each parameter's largest |gradient| (two
+    terms summed in another order), the loss the mean of the cameras'
+    losses within 1e-6, while one camera's gradient alone is off by more
+    than 100x that."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.gs import losses
+    from gps_slam_torch.gs.model import ges_forward
+    from gps_slam_torch.gs.optim import WindowAdam
+    from gps_slam_torch.parallel import mesh as pmesh
+    from gps_slam_torch.slam.pipeline import SLAMPipeline
+
+    cam0 = cams[0]
+    cfg = Config.from_dict(bench_config(len(cams), cam0.width, cam0.height, cam0, ADAM_STEPS))
+    pipe = SLAMPipeline(cfg, engine, cfg.workspace_dir, is_train=False)
+    eval_cams = cams[::6]
+    poses = np.stack([c.c2w for c in eval_cams]).astype(np.float32)
+    rays = engine.run_raycast_batch(poses, K=np.asarray(cam0.K), quality=True)
+    batch = {"c2w": torch.as_tensor(poses, device="cuda"),
+             "K": torch.as_tensor(np.stack([c.K for c in eval_cams]), device="cuda"),
+             "ref_depth": rays["depth_map"][..., 0], "base_color": rays["color_map"],
+             "cam_id": torch.full((len(eval_cams),), -1, dtype=torch.int32)}
+    ref = model.forward_batch(batch)
+    pipe.eval_devices = pmesh.make_mesh(2, ["cuda:0", "cuda:0"])
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.monotonic()
+    dp = pipe._eval_render_batch(model, batch)
+    torch.cuda.synchronize()
+    render_ms = (time.monotonic() - t0) * 1e3
+    render_launches = kernels.counts()
+    render_equal = all(torch.equal(dp[k], ref[k]) for k in ("rgb", "alpha", "depth"))
+
+    # one Adam step over 2 replicas of a camera that sees Gaussians
+    i = next(j for j in range(len(eval_cams)) if float(ref["alpha"][j].sum()) > 0)
+    gt = pipe.frame_cache.get(eval_cams[i])[0]
+    params, alive, st = model.eval_slice(cam0.height, cam0.width)
+    steps = {}
+    kernels.reset_counts()
+    for n in (2, 1):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        opt = WindowAdam(p, cfg.model, cfg.pipe.max_iterations)
+        one = {k: batch[k][i:i + 1] for k in batch}
+        one["gt_rgb"] = gt[None]
+        rep = {k: v.repeat(n, *([1] * (v.ndim - 1))) for k, v in one.items()}
+        loss = pmesh.dp_train_step(pmesh.make_mesh(n, ["cuda:0"] * n), p, alive, opt, rep,
+                                   st, cfg.pipe.ssim_weight)
+        steps[n] = (float(loss), p)
+    step_launches = kernels.counts()
+    p_err = max(float((steps[2][1][k] - steps[1][1][k]).abs().max()) for k in params)
+    moved = sum(int((steps[1][1][k] != params[k]).sum()) for k in params)
+
+    # the cross-replica mean: 2 replicas of 2 cameras that see Gaussians
+    seen = [j for j in range(len(eval_cams)) if float(ref["alpha"][j].sum()) > 0]
+    if len(seen) < 2:
+        raise RuntimeError(f"dp: {len(seen)} eval cameras see a Gaussian")
+    two = seen[:2]
+    pair = {k: batch[k][two] for k in batch}
+    pair["gt_rgb"] = torch.stack([pipe.frame_cache.get(eval_cams[j])[0] for j in two])
+    grads = {}
+    kernels.reset_counts()
+    for tag, n, b in (("dp", 2, pair), ("single", 1, pair),
+                      ("first camera", 1, {k: v[:1] for k, v in pair.items()})):
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        opt = WindowAdam(p, cfg.model, cfg.pipe.max_iterations)
+        loss, g = pmesh.dp_train_step(pmesh.make_mesh(n, ["cuda:0"] * n), p, alive, opt, b,
+                                      st, cfg.pipe.ssim_weight, return_grads=True)
+        grads[tag] = (float(loss), g)
+    mean_launches = kernels.counts()
+    with torch.no_grad():
+        per_cam = [float(losses.compute_loss(r["rgb"], r["depth"], pair["gt_rgb"][m], None,
+                                             cfg.pipe.ssim_weight, 0.0)["total"])
+                   for m in range(2) for r in [ges_forward(
+                       params, alive, pair["c2w"][m], pair["K"][m], pair["ref_depth"][m],
+                       pair["base_color"][m], int(pair["cam_id"][m]), st)]]
+    g_dp, g_one = grads["dp"][1], grads["single"][1]
+    g_rel = {k: float((g_dp[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+             for k, g in g_one.items()}
+    g_first = {k: float((grads["first camera"][1][k] - g).abs().max())
+               / max(float(g.abs().max()), 1e-30) for k, g in g_one.items()}
+    res = {"eval_cameras": len(eval_cams), "devices": ["cuda:0", "cuda:0"],
+           "render_bit_equal": render_equal, "render_ms": render_ms,
+           "render_launches": render_launches, "step_camera": i,
+           "loss_2": steps[2][0], "loss_1": steps[1][0],
+           "loss_diff": abs(steps[2][0] - steps[1][0]), "max_param_diff": p_err,
+           "params_moved": moved, "step_launches": step_launches,
+           "mean_cameras": two, "mean_loss_dp": grads["dp"][0],
+           "mean_loss_single": grads["single"][0], "per_camera_loss": per_cam,
+           "grad_rel_diff": g_rel, "first_camera_grad_rel_diff": g_first,
+           "mean_launches": mean_launches,
+           "tolerance": "render bit for bit; step loss and parameters within 1e-6; "
+                        "the averaged gradient within 1e-6 of each parameter's "
+                        "largest |gradient|, the loss within 1e-6 of the "
+                        "per-camera mean"}
+    log("[dp] " + json.dumps(res))
+    if not render_equal or render_launches[kernels.SPLAT_FWD.name] <= 0:
+        raise RuntimeError(f"dp: the data-parallel eval render disagrees: {res}")
+    if not (res["loss_diff"] <= 1e-6 and p_err <= 1e-6 and moved > 0
+            and step_launches[kernels.SPLAT_BWD.name] == 3):
+        raise RuntimeError(f"dp: the 2-replica step disagrees with the single one: {res}")
+    if not (all(v <= 1e-6 for v in g_rel.values())
+            and max(g_first.values()) > 100 * 1e-6
+            and abs(grads["dp"][0] - float(np.mean(per_cam))) <= 1e-6
+            and abs(grads["dp"][0] - grads["single"][0]) <= 1e-6
+            and mean_launches[kernels.SPLAT_BWD.name] == 5):
+        raise RuntimeError(f"dp: the replicas' mean disagrees with the batch's: {res}")
+    return res
+
+
+class _Replay:
+    """A socket stand-in that replays a request to `server.read_message`."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+    def recv(self, n: int) -> bytes:
+        out, self.data = self.data[:n], self.data[n:]
+        return out
+
+
+def viewer_phase(engine, model, cams) -> dict:
+    """The remote viewer (phase 15): `viewer.server.serve` answers
+    VIEWER_REQUESTS on localhost from the main path's engine and model
+    (two at 1200x680, one at 800x600 that raycasts and renders at its own
+    intrinsics and size); each response's render bytes equal
+    `vis.to_u8_rgb` of the model's render over the pipeline's raycast for
+    that request, bit for bit; K3 once per request."""
+    import socket
+    import struct
+    import threading
+
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.slam.pipeline import SLAMPipeline
+    from gps_slam_torch.utils import vis
+    from gps_slam_torch.viewer import server
+
+    cam0 = cams[0]
+    cfg = Config.from_dict(bench_config(len(cams), cam0.width, cam0.height, cam0, ADAM_STEPS))
+    pipe = SLAMPipeline(cfg, engine, cfg.workspace_dir, is_train=False)
+    reqs = []
+    for (w, h), i in zip(VIEWER_REQUESTS, (0, len(cams) // 2, len(cams) - 1)):
+        pose = cams[i].c2w.copy()
+        pose[:, 1:3] *= -1      # the SIBR convention the server undoes
+        fov_x = 2 * np.arctan(w / (2 * 0.75 * w))
+        fov_y = 2 * np.arctan(h / (2 * 0.75 * w))
+        msg = json.dumps({"fov_x": fov_x, "fov_y": fov_y, "resolution_x": w,
+                          "resolution_y": h, "pose": pose.T.reshape(-1).tolist()}).encode()
+        reqs.append((w, h, struct.pack("<i", len(msg)) + msg))
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    kernels.reset_counts()
+    t = threading.Thread(target=server.serve, args=(pipe, model, port, cfg.pipe.depth_vis_max),
+                         kwargs={"max_requests": len(reqs)}, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+            break
+        except ConnectionRefusedError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+    responses, ms = [], []
+    with sock:
+        f = sock.makefile("rb")
+        for w, h, msg in reqs:
+            t0 = time.monotonic()
+            sock.sendall(msg)
+            imgs = []
+            for _ in range(4):
+                iw, ih = struct.unpack("<II", f.read(8))
+                imgs.append((iw, ih, f.read(iw * ih * 3)))
+            f.read(48)
+            f.read(struct.unpack("<I", f.read(4))[0])
+            f.read(64)
+            ms.append((time.monotonic() - t0) * 1e3)
+            responses.append(imgs)
+    t.join(timeout=60)
+    launches = kernels.counts()
+    equal = []
+    for (w, h, msg), imgs in zip(reqs, responses):
+        cam = server.read_message(_Replay(msg))
+        ray = pipe.run_raycast_by_cam(cam)
+        rgb = model.forward(cam.c2w_slam, cam.K, ray["depth_map"][..., 0], ray["color_map"])["rgb"]
+        want = vis.to_u8_rgb(np.clip(rgb.cpu().numpy(), 0, 1)).tobytes()
+        equal.append(imgs[0][:2] == (w, h) and imgs[0][2] == want)
+    res = {"requests": [list(r) for r in VIEWER_REQUESTS], "ms_per_request": ms,
+           "render_bytes_equal": equal, "server_finished": not t.is_alive(),
+           "launches": launches}
+    log("[viewer] " + json.dumps(res))
+    if not (all(equal) and res["server_finished"]
+            and launches[kernels.RAYCAST.name] == len(reqs)
+            and launches[kernels.SPLAT_FWD.name] > 0):
+        raise RuntimeError(f"viewer: {res}")
+    return res
+
+
+def lpips_phase(args, engine, model, cams) -> dict:
+    """LPIPS(vgg) (phase 16) with seeded `random_weights` (nothing is
+    downloaded): the card and the CPU within 1e-5 relative on a 300x170
+    crop of eval camera 0's render and ground truth; the card's time per
+    1200x680 pair (CUDA events, 5 pairs after one warm-up); `metrics.lpips`
+    returns None without a weight file."""
+    import os
+
+    from gps_slam_torch.eval import lpips_torch
+    from gps_slam_torch.eval import metrics as M
+
+    w = lpips_torch.random_weights(np.random.default_rng(args.seed))
+    card, cpu = lpips_torch.LpipsTorch(w, "cuda"), lpips_torch.LpipsTorch(w, "cpu")
+    cam = cams[0]
+    ray = engine.run_raycast(cam.c2w)
+    with torch.no_grad():
+        rgb = torch.clamp(model.forward(cam.c2w, cam.K, ray["depth_map"][..., 0],
+                                        ray["color_map"])["rgb"], 0, 1).cpu().numpy()
+    gt = cam.image.astype(np.float32)
+    r0, c0 = (cam.height - LPIPS_CROP[0]) // 2, (cam.width - LPIPS_CROP[1]) // 2
+    crop = (slice(r0, r0 + LPIPS_CROP[0]), slice(c0, c0 + LPIPS_CROP[1]))
+    v_card, v_cpu = card(rgb[crop], gt[crop]), cpu(rgb[crop], gt[crop])
+    a = torch.as_tensor(rgb, device="cuda")[None]
+    b = torch.as_tensor(gt, device="cuda")[None]
+    with torch.no_grad():
+        lpips_torch._forward(card.weights, a, b)
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        for _ in range(5):
+            lpips_torch._forward(card.weights, a, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+    prev = os.environ.get("LPIPS_WEIGHTS")
+    os.environ["LPIPS_WEIGHTS"] = "build/no_lpips_weights.npz"
+    try:
+        marker = M.lpips(rgb, gt)
+    finally:
+        if prev is None:
+            del os.environ["LPIPS_WEIGHTS"]
+        else:
+            os.environ["LPIPS_WEIGHTS"] = prev
+    res = {"crop": list(LPIPS_CROP), "lpips_card": v_card, "lpips_cpu": v_cpu,
+           "rel_err": abs(v_card - v_cpu) / abs(v_cpu),
+           "ms_per_pair_1200x680": ev[0].elapsed_time(ev[1]) / 5,
+           "without_weights": marker, "tolerance": "card within 1e-5 relative of the CPU"}
+    log("[lpips] " + json.dumps(res))
+    if not (res["rel_err"] <= 1e-5 and v_cpu > 0 and marker is None):
+        raise RuntimeError(f"lpips: {res}")
+    return res
+
+
+def prefetch_phase(cams) -> dict:
+    """Frame staging (phase 17): `FramePrefetcher` on the card yields the
+    main path's frames in order, each equal to `DeviceFrameCache`'s
+    tensors bit for bit."""
+    from gps_slam_torch.data.device_cache import DeviceFrameCache
+    from gps_slam_torch.data.prefetch import FramePrefetcher
+
+    cache = DeviceFrameCache("cuda")
+    seen, equal = [], []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for cam, depth, rgb in FramePrefetcher(cams, "cuda"):
+        r, d = cache.get(cam)
+        equal.append(bool(torch.equal(depth, d) and torch.equal(rgb, r)))
+        seen.append(cam.id)
+    torch.cuda.synchronize()
+    res = {"frames": len(seen), "in_order": seen == [c.id for c in cams],
+           "bit_equal": all(equal), "ms_total": (time.monotonic() - t0) * 1e3}
+    log("[prefetch] " + json.dumps(res))
+    if not (res["in_order"] and res["bit_equal"] and len(seen) == len(cams)):
+        raise RuntimeError(f"prefetch: {res}")
+    return res
+
+
 def profiled(fn):
     """Run fn under torch.profiler; print device time by kernel and return
     (fn's result, the summed time of the device's own kernel, copy and set
@@ -1615,19 +2220,27 @@ def main() -> int:
     log(smi.stdout.strip())
 
     rec = Recorder()
-    mp, main_engine, main_model, main_cams = main_path(args)
+    mp, main_engine, main_model, main_cams, main_alloc = main_path(args)
     main_last = dict(rec.last)
-    mesh_phase(main_engine)
+    main_mesh = mesh_phase(main_engine)
     offline_ges_phase(args, main_engine, main_model, main_cams)
-    del main_engine, main_model
+    _, k1_sharded, k3_sharded = sharded_path(args, rec, mp, main_engine, main_alloc,
+                                             main_cams, main_mesh)
+    dp_phase(main_engine, main_model, main_cams)
+    viewer_phase(main_engine, main_model, main_cams)
+    lpips_phase(args, main_engine, main_model, main_cams)
+    prefetch_phase(main_cams)
+    del main_engine, main_model, main_alloc
     k2, k3_large = large_frame_paths(args, rec)
     _, k3_tracked = tracked_path(args, rec)
     swap_path(args)
     offline_raw_phase(args, main_cams)
     del main_cams
+    k1 = [(None, main_last["integrate_blocks_packed"], mp["launches"][kernels.INTEGRATE.name]),
+          k1_sharded]
     k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
-          k3_tracked]
-    rows = kernel_phase(main_last, mp["launches"], k2, k3)
+          k3_tracked, k3_sharded]
+    rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
     reference_phase()
     reference_tracked()
     reference_swap()

@@ -2,7 +2,9 @@
 into the port's tensors.
 
 `pool_from_numpy` takes a `GaussianPool.params` dict plus `alive`;
-`volume_from_numpy` takes the fields of a `TsdfVolume` either as
+`lpips_weights_from_numpy` takes LPIPS(vgg) weights in the npz layout of
+both packages (`eval/lpips_torch.weight_names`).  `volume_from_numpy`
+takes the fields of a `TsdfVolume` either as
 scene.npz stores them (flat table, sdf/w_depth/w_color planes, mip and
 per-block min sdf / max weight) or as the in-memory packed fields (`state`
 [B, 512] and `summary` [B, 128]).  Unsigned 32-bit words become int32
@@ -91,3 +93,14 @@ def volume_from_numpy(arrays: dict, params: TsdfParams, device) -> TsdfVolume:
         summary=dev(summary),
         last_seen=dev(last_seen),
     )
+
+
+def lpips_weights_from_numpy(weights: dict, device) -> dict:
+    """LPIPS(vgg) weights in the npz layout (conv weights HWIO, as the JAX
+    package's `lax.conv` reads them) -> tensors for `F.conv2d` (OIHW) on
+    `device` (None means the card); biases and head weights as they are."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(np.ascontiguousarray(
+                np.transpose(v, (3, 2, 0, 1)) if k.endswith("_w") and np.ndim(v) == 4
+                else v), dtype=torch.float32, device=device)
+            for k, v in weights.items()}

@@ -1,6 +1,8 @@
-"""Eval metrics — the port's own copy of gps_slam_tpu/eval/metrics.py
-without LPIPS: PSNR/SSIM of the eval render (SSIM = 11x11 Gaussian
+"""Eval metrics — the port's own copy of gps_slam_tpu/eval/metrics.py:
+PSNR/SSIM of the eval render (SSIM = 11x11 Gaussian
 window, same constants as the reference's utils/image_utils + fused SSIM),
+LPIPS(vgg) from a local weight file (`eval/lpips_torch.py`), an unweighted
+VGG feature distance under its own name,
 the trajectory error of tracked runs (Horn alignment, ATE) and the
 geometry metrics of an exported mesh (surface sampling, accuracy,
 completion, F1).
@@ -46,6 +48,83 @@ def ssim(a: np.ndarray, b: np.ndarray, c1=0.01 ** 2, c2=0.03 ** 2) -> float:
         (mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2)
     )
     return float(m.mean())
+
+
+def lpips(a, b, device=None):
+    """TRUE LPIPS(vgg) — learned linear weights over VGG features, the
+    exact metric the reference vendors (scripts/lpipsPyTorch/modules/
+    lpips.py) — of two [H, W, 3] images in [0, 1], on the card unless
+    `device` says otherwise.  The weights come from a local file
+    ($LPIPS_WEIGHTS / ~/.cache/gps_slam_tpu/lpips_vgg.npz, see
+    eval/lpips_torch.py); without one this returns None after one warning,
+    and callers serialize that as JSON null: no stand-in metric is reported
+    under the LPIPS name.  (The JAX package first tries the `lpips`
+    package, which fetches its weights; the port never does.)"""
+    from . import lpips_torch
+
+    net = lpips_torch.get(device=device)
+    return None if net is None else float(net(a, b))
+
+
+_VGG: dict = {}  # (weight file, device) -> VGG16 feature stack, or None
+
+
+def _vgg16_features(device):
+    """torchvision's VGG16 feature stack with its ImageNet weights from the
+    local torch hub cache, on `device`, loaded once per file and device;
+    None without torchvision or the cached file (nothing is downloaded)."""
+    import os
+
+    import torch
+
+    path = os.path.join(torch.hub.get_dir(), "checkpoints", "vgg16-397923af.pth")
+    key = (path, str(device))
+    if key not in _VGG:
+        try:
+            import torchvision
+        except ImportError:
+            torchvision = None
+        net = None
+        if torchvision is not None and os.path.exists(path):
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            net = torchvision.models.vgg16().features.eval()
+            net.load_state_dict({k[len("features."):]: v for k, v in sd.items()
+                                 if k.startswith("features.")})
+            net = net.to(device)
+        _VGG[key] = net
+    return _VGG[key]
+
+
+def vgg_perceptual(a, b, device=None):
+    """Unweighted normalized-VGG-feature distance (LPIPS architecture
+    minus the learned linear layer) of two [H, W, 3] images in [0, 1], on
+    the card unless `device` says otherwise, reported under its own name,
+    never as LPIPS.  Needs torchvision and its ImageNet VGG16 weights
+    already in the local torch hub cache (nothing is downloaded); returns
+    None without them."""
+    import torch
+
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    net = _vgg16_features(dev)
+    if net is None:
+        return None
+    ta, tb = (torch.as_tensor(np.asarray(x, np.float32), device=dev).permute(2, 0, 1)[None]
+              for x in (a, b))
+    with torch.no_grad():
+        mean = torch.tensor([0.485, 0.456, 0.406], device=dev).view(1, 3, 1, 1)
+        std = torch.tensor([0.229, 0.224, 0.225], device=dev).view(1, 3, 1, 1)
+        xa, xb = (ta - mean) / std, (tb - mean) / std
+        dist = 0.0
+        layers = {3, 8, 15, 22, 29}
+        for i, layer in enumerate(net):
+            xa, xb = layer(xa), layer(xb)
+            if i in layers:
+                na = xa / (xa.norm(dim=1, keepdim=True) + 1e-10)
+                nb = xb / (xb.norm(dim=1, keepdim=True) + 1e-10)
+                dist = dist + ((na - nb) ** 2).sum(1).mean()
+        return float(dist / len(layers))
 
 
 # ------------------------------------------------------------ trajectory

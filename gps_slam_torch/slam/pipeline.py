@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import os
 import time
-from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.device_cache import DeviceFrameCache
 from ..gs import losses, model as gmodel, params as pmod
 from ..gs.model import GaussianModel
 from ..tsdf import raycast_tiles
@@ -27,41 +27,6 @@ from ..tsdf.engine import TsdfEngine
 from ..utils import io as uio, vis
 from ..utils.camera import Camera
 from ..utils.se3 import compute_normal_map
-
-DEPTH_SCALE = 5000.0  # frame-cache u16 depth quantization: 0.2 mm steps
-
-
-class FrameCache:
-    """Device-resident frames, quantized like the JAX package's
-    DeviceFrameCache (rgb888 + u16 depth at 0.2 mm) so both packages fuse
-    and compare against the same values."""
-
-    def __init__(self, device, capacity: int = 256):
-        self.device = device
-        self.capacity = capacity
-        self._cache: OrderedDict = OrderedDict()
-
-    def get(self, cam: Camera):
-        key = cam.id if cam.id >= 0 else id(cam)
-        if key in self._cache:
-            self._cache.move_to_end(key)
-            return self._cache[key]
-        rgb_u8 = np.clip(np.asarray(cam.image) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-        if cam.depth is not None:
-            d = np.asarray(cam.depth)
-            if d.ndim == 3:
-                d = d[..., 0]
-            depth_u16 = np.clip(d * DEPTH_SCALE + 0.5, 0, 65535).astype(np.uint16)
-        else:
-            depth_u16 = np.zeros(rgb_u8.shape[:2], np.uint16)
-        rgb = torch.as_tensor(rgb_u8, device=self.device).to(torch.float32) / 255.0
-        depth = torch.as_tensor(depth_u16.astype(np.int32),
-                                device=self.device).to(torch.float32) / DEPTH_SCALE
-        self._cache[key] = (rgb, depth)
-        while len(self._cache) > self.capacity:
-            self._cache.popitem(last=False)
-        return rgb, depth
-
 
 def _spawn_mask_bootstrap(depth, vertex, color, gt, vis_min, vis_max,
                           color_thres):
@@ -111,7 +76,14 @@ class SLAMPipeline:
         self.opt_raycast_list: list[dict] = []
         self.keyframe_loss_dict: dict[str, list[float]] = {}
         self._rng = np.random.default_rng(cfg.dev_id + 1)
-        self.frame_cache = FrameCache(self.device)
+        self.frame_cache = DeviceFrameCache(self.device)
+        # the devices the eval renders split over: every card when there
+        # are several (one `forward_batch` otherwise)
+        self.eval_devices = None
+        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            from ..parallel.mesh import make_mesh
+
+            self.eval_devices = make_mesh()
         if is_train:
             os.makedirs(self.log_path, exist_ok=True)
             os.makedirs(os.path.join(workspace_dir, cfg.pipe.tsdf.saved_images),
@@ -425,8 +397,28 @@ class SLAMPipeline:
                     "base_color": rays["color_map"],
                     "cam_id": torch.full((len(cs),), -1, dtype=torch.int32),
                 }
-                res = model.forward_batch(batch)
+                res = self._eval_render_batch(model, batch)
             yield cs, rays, res
+
+    def _eval_render_batch(self, model: GaussianModel, batch: dict) -> dict:
+        """Render a stacked camera batch: data-parallel over
+        `eval_devices` (the batch padded with copies of its last camera to
+        a multiple of their count, then cut back), else one
+        `forward_batch`."""
+        devs = self.eval_devices
+        if not devs or len(devs) <= 1:
+            return model.forward_batch(batch)
+        from ..parallel.mesh import dp_render
+
+        H, W = batch["ref_depth"].shape[1:3]
+        params, alive, st = model.eval_slice(H, W)
+        M = batch["c2w"].shape[0]
+        pad = (-M) % len(devs)
+        if pad:
+            batch = {k: torch.cat([v, v[-1:].expand(pad, *v.shape[1:])])
+                     for k, v in batch.items()}
+        out = dp_render(devs, params, alive, batch, st)
+        return {k: v[:M] for k, v in out.items()}
 
     def render_eval_imgs(self, model: GaussianModel, cams: list[Camera],
                          names: tuple = ("rgb",), chunk: int = 0) -> None:

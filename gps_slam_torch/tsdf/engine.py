@@ -1,5 +1,5 @@
 """TSDF engine facade — the port of gps_slam_tpu/tsdf/engine.py (eager
-per-frame path, without spatial sharding).
+per-frame path).
 
 Per frame: optional bilateral depth filter -> the pose (the ground truth
 in gt-pose mode; in tracked mode the attached tracker's estimate against
@@ -13,7 +13,12 @@ stored blocks back and spills the coldest ones, and every raycast first
 brings back the stored blocks in its view (`tsdf/swapping.py`); when that
 leaves the pool at or past its high-water mark, the next frame spills
 before it fuses (the JAX package fuses into the full pool and drops the
-frame's new blocks).  Counts (allocated blocks, candidates)
+frame's new blocks).  With `TPU.space_shards` = S > 1 the block pool
+splits S ways by key-hash ownership (`parallel/spatial.py`) into S volumes
+at capacity / S each, every frame fuses into each shard and every raycast
+merges the shards' maps by nearest hit; swapping and sharding exclude each
+other.  `shards` is the list of volumes (one without sharding) and `vol`
+the one volume of an unsharded engine.  Counts (allocated blocks, candidates)
 are read exactly every frame; the JAX package's asynchronous count caches,
 prefix buckets and one-dispatch tracked megastep exist only for its slow
 host link and are left out (the megastep's in-graph pose revert is the
@@ -22,6 +27,7 @@ rule `ICPTracker.track` applies).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -29,8 +35,9 @@ import torch
 
 from .. import resolve_device
 from ..config import Config
-from . import integrate, raycast_tiles
-from .volume import TsdfParams, TsdfVolume, create
+from ..parallel import spatial
+from . import raycast_tiles
+from .volume import TsdfParams, TsdfVolume
 
 
 class TrackingResult:
@@ -63,9 +70,14 @@ class TsdfEngine:
             raycast_samples=tpu.raycast_samples,
             raycast_bisect=tpu.raycast_bisect,
         )
-        if int(tpu.space_shards) > 1:
-            raise NotImplementedError("space_shards is not ported yet")
-        self.vol: TsdfVolume = create(self.params, self.device)
+        self.space_shards = S = int(tpu.space_shards)
+        if S > 1:
+            if tpu.enable_swapping:
+                raise ValueError("enable_swapping and space_shards are mutually exclusive")
+            self.params = dataclasses.replace(
+                self.params, hash_size=max(self.params.hash_size // S, 1 << 12),
+                block_capacity=max(self.params.block_capacity // S, 1 << 9))
+        self.shards: list[TsdfVolume] = spatial.create_sharded(self.params, S, self.device)
         self.width, self.height = int(width), int(height)
         self.K = np.asarray(K, dtype=np.float32)
         self.use_gt_pose = bool(t.use_gt_pose)
@@ -99,6 +111,14 @@ class TsdfEngine:
 
             self.swap = HostSwapEngine(high_water=tpu.swap_high_water,
                                        low_water=tpu.swap_low_water)
+
+    @property
+    def vol(self) -> TsdfVolume:
+        """The volume of an unsharded engine."""
+        if len(self.shards) != 1:
+            raise RuntimeError(f"the engine holds {len(self.shards)} space shards, "
+                               "not one volume: read `shards`")
+        return self.shards[0]
 
     # -- configuration -------------------------------------------------------
 
@@ -158,11 +178,11 @@ class TsdfEngine:
             if self.swap is not None and self.swap.over_high_water:
                 # a raycast's swap-in filled the pool: make room first
                 self.swap.maybe_spill(self.vol)
-            integrate.fuse_frame(
-                self.vol, d, c, torch.as_tensor(pose, device=self.device), self.K,
-                frame_idx=i if self.swap is not None else None)
-            self.peak_visible["fusion"] = max(self.peak_visible["fusion"],
-                                              self.vol.n_visible)
+            pose_t = torch.as_tensor(pose, device=self.device)
+            spatial.fuse_frame_sharded(self.shards, d, c, pose_t, self.K,
+                                       frame_idx=i if self.swap is not None else None)
+            n_visible = sum(v.n_visible for v in self.shards)
+            self.peak_visible["fusion"] = max(self.peak_visible["fusion"], n_visible)
             if self.swap is not None and i % self.swap_check_interval == 0:
                 self.swap.maybe_reload(self.vol)
                 self.swap.maybe_spill(self.vol)
@@ -186,17 +206,18 @@ class TsdfEngine:
                     need_color: bool = True, need_normals: bool = True) -> dict:
         """Raycast from an arbitrary pose; `quality` refines k_blocks=2
         candidates per pixel, otherwise 1 (window raycasts).  With swapping
-        on, the stored blocks in view come back into the pool first."""
+        on, the stored blocks in view come back into the pool first; a
+        sharded volume raycasts each shard and merges by nearest hit."""
         p = self.params
         c2w = np.asarray(c2w, np.float32)
         K = self.K if K is None else np.asarray(K, np.float32)
         width, height = width or self.width, height or self.height
         if self.swap is not None:
             self.swap.reload_visible(self.vol, c2w, K, width, height)
-        maps = raycast_tiles.raycast(
-            self.vol, c2w, K, width, height, p.raycast_lb,
-            p.raycast_samples, max(p.raycast_bisect, 3), 2 if quality else 1,
-            need_color=need_color, need_normals=need_normals)
+        maps = spatial.raycast_sharded(
+            self.shards, c2w, K, width, height, p.raycast_lb, p.raycast_samples,
+            max(p.raycast_bisect, 3), 2 if quality else 1, need_color=need_color,
+            need_normals=need_normals)
         self.peak_visible["raycast"] = max(self.peak_visible["raycast"],
                                            maps["n_visible"])
         return maps
@@ -204,9 +225,10 @@ class TsdfEngine:
     def run_raycast_batch(self, c2ws, K=None, quality: bool = False,
                           need_normals: bool = False) -> dict:
         """Raycast M poses; stacked [M, ...] map dict.  With swapping on,
-        one `run_raycast` per pose (each swaps in its own view)."""
+        one `run_raycast` per pose (each swaps in its own view), and so
+        with sharding (each merges its shards)."""
         p = self.params
-        if self.swap is not None:
+        if self.swap is not None or len(self.shards) > 1:
             return raycast_tiles.stack_maps([
                 self.run_raycast(c, K, quality=quality, need_normals=need_normals)
                 for c in np.asarray(c2ws, np.float32)])
@@ -223,48 +245,77 @@ class TsdfEngine:
     # -- persistence -----------------------------------------------------------
 
     def save_scene(self, out_dir: str) -> None:
-        """Scene checkpoint in the JAX package's scene.npz format."""
+        """Scene checkpoint in the JAX package's scene.npz format.  A
+        sharded volume writes every volume field with a leading [S] axis
+        and records `space_shards` (the JAX package's sharded save slices
+        the summary on the wrong axis and flattens the table across the
+        shards, so its file does not load back)."""
         os.makedirs(out_dir, exist_ok=True)
-        v = self.vol
-        st_np = v.state.cpu().numpy().view(np.uint32)
-        sdf_i = (st_np & 0xFFFF).astype(np.int32)
-        sdf_i = np.where(sdf_i >= 32768, sdf_i - 65536, sdf_i).astype(np.int16)
-        summ = v.summary.cpu().numpy()
+        parts = [_scene_arrays(v) for v in self.shards]
+        if len(parts) > 1:
+            arrays = {k: np.stack([a[k] for a in parts]) for k in parts[0]}
+            arrays["space_shards"] = np.int32(len(parts))
+        else:
+            arrays = parts[0]
         np.savez_compressed(
-            os.path.join(out_dir, "scene.npz"),
-            table_keys=v.table_keys.cpu().numpy().view(np.uint32).reshape(-1),
-            table_ptrs=v.table_ptrs.cpu().numpy().reshape(-1),
-            block_coords=v.block_coords.cpu().numpy().view(np.uint32),
-            sdf=sdf_i,
-            w_depth=((st_np >> 16) & 0xFF).astype(np.uint8),
-            color=v.color.cpu().numpy().view(np.uint32),
-            w_color=(st_np >> 24).astype(np.uint8),
-            n_blocks=np.asarray(v.n_blocks, np.int32),
-            mip=summ[:, :64],
-            block_min_sdf=summ[:, 64],
-            block_max_w=summ[:, 65].astype(np.int32),
-            last_seen=v.last_seen.cpu().numpy(),
+            os.path.join(out_dir, "scene.npz"), **arrays,
             cam_poses=np.stack(self.cam_poses) if self.cam_poses else np.zeros((0, 4, 4)),
             cam_intrinsics=np.stack(self.cam_intrinsics)
             if self.cam_intrinsics else np.zeros((0, 3, 3)),
         )
 
     def load_scene(self, in_dir: str) -> None:
-        """Reset, then load a scene.npz written by either package."""
+        """Reset, then load a scene.npz written by either package (a
+        sharded one only by the port, into an engine of as many shards)."""
         from ..convert import volume_from_numpy
 
         z = np.load(os.path.join(in_dir, "scene.npz"))
-        self.vol = volume_from_numpy({k: z[k] for k in z.files}, self.params,
-                                     self.device)
+        n_shards = int(z["space_shards"]) if "space_shards" in z.files else 1
+        if n_shards != self.space_shards:
+            raise ValueError(f"scene.npz holds {n_shards} space shards, the "
+                             f"engine {self.space_shards}")
+        fields = [k for k in z.files
+                  if k not in ("cam_poses", "cam_intrinsics", "space_shards")]
+        parts = ([{k: z[k][s] for k in fields} for s in range(n_shards)] if n_shards > 1
+                 else [{k: z[k] for k in fields}])
+        self.shards = [volume_from_numpy(a, self.params, v.device)
+                       for a, v in zip(parts, self.shards)]
         self.cam_poses = [p.astype(np.float32) for p in z["cam_poses"]]
         self.cam_intrinsics = [k.astype(np.float32) for k in z["cam_intrinsics"]]
         self.current_frame = len(self.cam_poses)
 
     def save_mesh(self, path: str) -> None:
         """Iso-surface -> coloured triangle-soup PLY (TPU.mesh_algo: "mt"
-        or "mc"), meshed on the host by the native mesher."""
+        or "mc"), meshed on the host by the native mesher.  A sharded
+        volume meshes each shard and concatenates the triangles (blocks
+        are disjoint by ownership; a cell whose neighbour block lives in
+        another shard is skipped, a sub-voxel seam)."""
         from ..utils import io as uio
         from .meshing import extract_mesh
 
-        verts, cols = extract_mesh(self.vol, algo=self.mesh_algo)
-        uio.save_mesh_ply(path, verts, cols)
+        parts = [extract_mesh(v, algo=self.mesh_algo) for v in self.shards]
+        uio.save_mesh_ply(path, np.concatenate([v for v, _ in parts], 0),
+                          np.concatenate([c for _, c in parts], 0))
+
+
+def _scene_arrays(v: TsdfVolume) -> dict:
+    """A volume's scene.npz fields: the flat hash table, the reference's
+    separate voxel planes, the mip and per-block min sdf / max weight."""
+    st_np = v.state.cpu().numpy().view(np.uint32)
+    sdf_i = (st_np & 0xFFFF).astype(np.int32)
+    sdf_i = np.where(sdf_i >= 32768, sdf_i - 65536, sdf_i).astype(np.int16)
+    summ = v.summary.cpu().numpy()
+    return dict(
+        table_keys=v.table_keys.cpu().numpy().view(np.uint32).reshape(-1),
+        table_ptrs=v.table_ptrs.cpu().numpy().reshape(-1),
+        block_coords=v.block_coords.cpu().numpy().view(np.uint32),
+        sdf=sdf_i,
+        w_depth=((st_np >> 16) & 0xFF).astype(np.uint8),
+        color=v.color.cpu().numpy().view(np.uint32),
+        w_color=(st_np >> 24).astype(np.uint8),
+        n_blocks=np.asarray(v.n_blocks, np.int32),
+        mip=summ[:, :64],
+        block_min_sdf=summ[:, 64],
+        block_max_w=summ[:, 65].astype(np.int32),
+        last_seen=v.last_seen.cpu().numpy(),
+    )

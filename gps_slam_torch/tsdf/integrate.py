@@ -469,22 +469,52 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
     vol.summary[rows] = _summary_rows(new_f, new_w)
 
 
+def _intrinsics(K) -> tuple[float, float, float, float]:
+    Kf = [[float(x) for x in r] for r in (K.tolist() if torch.is_tensor(K) else K)]
+    return Kf[0][0], Kf[1][1], Kf[0][2], Kf[1][2]
+
+
+def frame_candidates(params, depth: torch.Tensor, c2w: torch.Tensor, K) -> torch.Tensor:
+    """The frame's raw block-candidate stream (`alloc_candidates` with the
+    volume's settings), before any shard mask or dedup."""
+    fx, fy, cx, cy = _intrinsics(K)
+    p = params
+    return alloc_candidates(depth, c2w, fx, fy, cx, cy, p.voxel_size, p.mu,
+                            p.frustum_min, p.frustum_max, p.alloc_steps,
+                            stride=p.alloc_stride)
+
+
+def shard_owner(keys: torch.Tensor, shard_n: int) -> torch.Tensor:
+    """The space shard that owns each packed key (parallel/spatial.py).
+    Ownership takes hash bits above the table index (>> 21, clear of the
+    default 2^21 table's index bits): low bits would make every key of
+    shard s hash to a home slot = s (mod S) and leave each shard table only
+    H/S reachable home slots.  The bits equal the JAX package's, whose
+    int32 product wraps where the port masks an int64 one."""
+    return (vhash.hash_packed(keys, 1 << 30) >> 21) % shard_n
+
+
 def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
-               c2w: torch.Tensor, K, frame_idx: int | None = None) -> TsdfVolume:
+               c2w: torch.Tensor, K, frame_idx: int | None = None,
+               shard_sid: int | None = None, shard_n: int = 1,
+               cand: torch.Tensor | None = None) -> TsdfVolume:
     """One frame of allocation + integration, updating `vol` in place
     (the JAX version returns a new volume; here the pools are written in
     place and the same object is returned).  With `frame_idx` (host
     swapping on) every row of the integration set gets it as its
     `last_seen` stamp, on every route; without it `last_seen` is not
-    touched."""
+    touched.  With `shard_n` > 1 `vol` is space shard `shard_sid`: the
+    candidates another shard owns are dropped before dedup.  `cand` is the
+    frame's `frame_candidates` when the caller has them already (the
+    sharded fusion computes them once for every shard)."""
     p = vol.params
-    Kf = [[float(x) for x in r] for r in K.tolist()] if torch.is_tensor(K) \
-        else [[float(x) for x in r] for r in K]
-    fx, fy, cx, cy = Kf[0][0], Kf[1][1], Kf[0][2], Kf[1][2]
+    fx, fy, cx, cy = _intrinsics(K)
     H, W = depth.shape
-    cand = alloc_candidates(depth, c2w, fx, fy, cx, cy, p.voxel_size, p.mu,
-                            p.frustum_min, p.frustum_max, p.alloc_steps,
-                            stride=p.alloc_stride)
+    if cand is None:
+        cand = frame_candidates(p, depth, c2w, K)
+    if shard_n > 1:
+        cand = torch.where((shard_owner(cand, shard_n) == shard_sid)
+                           & (cand != vhash.EMPTY), cand, vhash.EMPTY)
     cand = vhash.dedup_candidates(cand, p.alloc_candidate_cap)
     vol.n_blocks, cand_ptrs = vhash.insert(
         vol.table_keys, vol.table_ptrs, vol.n_blocks, vol.block_coords, cand,

@@ -419,30 +419,31 @@ def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
     vertex_img = _unpack_img(vertex, th, tw, height, width)
     color_img = _unpack_img(out[:, 2:5].transpose(1, 2), th, tw, height, width)
     conf_img = _unpack_img(conf * found, th, tw, height, width)
-    if need_normals:
-        # Sobel normals of the world vertex map, kept where the 3x3
-        # neighbourhood is all hits.  The JAX package also zeroes every
-        # normal whose world-space z <= 0 (compute_normal_map's camera-depth
-        # test applied to world vertices), which drops a whole wall lying in
-        # the plane z = 0; the port keeps those normals (see ROADMAP.md,
-        # faults of the reference).
-        normal_img = sobel_normals(vertex_img.contiguous())
-        hit = (depth_img > 0).to(torch.float32)
-        # 3x3 min-pool of the hit mask ('SAME', pad value 1)
-        nb = -F.max_pool2d(-F.pad(hit[None, None], (1, 1, 1, 1), value=1.0),
-                           3, stride=1)[0, 0]
-        normal_img = torch.where(nb[..., None] > 0.5, normal_img, 0.0)
-    else:
-        normal_img = torch.zeros_like(vertex_img)
     return {
         "vertex_map": vertex_img.contiguous(),
         "color_map": color_img.contiguous(),
         "confidence_map": conf_img[..., None].contiguous(),
         "depth_map": depth_img[..., None].contiguous(),
-        "normal_map": normal_img.contiguous(),
+        "normal_map": (hit_normals(vertex_img, depth_img) if need_normals
+                       else torch.zeros_like(vertex_img)),
         "n_tile_overflow": n_overflow,
         "n_visible": n_visible,
     }
+
+
+def hit_normals(vertex_img: torch.Tensor, depth_img: torch.Tensor) -> torch.Tensor:
+    """Sobel normals of the world vertex map [H, W, 3], kept where the 3x3
+    neighbourhood of the depth map [H, W] is all hits.  The JAX package
+    also zeroes every normal whose world-space z <= 0 (compute_normal_map's
+    camera-depth test applied to world vertices), which drops a whole wall
+    lying in the plane z = 0; the port keeps those normals (see
+    ROADMAP.md, faults of the reference)."""
+    normal_img = sobel_normals(vertex_img.contiguous())
+    hit = (depth_img > 0).to(torch.float32)
+    # 3x3 min-pool of the hit mask ('SAME', pad value 1)
+    nb = -F.max_pool2d(-F.pad(hit[None, None], (1, 1, 1, 1), value=1.0),
+                       3, stride=1)[0, 0]
+    return torch.where(nb[..., None] > 0.5, normal_img, 0.0).contiguous()
 
 
 def raycast_batch(vol: TsdfVolume, c2ws, K, width: int, height: int,

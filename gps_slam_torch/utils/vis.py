@@ -12,18 +12,31 @@ def to_u8_rgb(img: np.ndarray) -> np.ndarray:
     return np.clip(np.asarray(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
 
+def _jet_lut() -> np.ndarray:
+    """OpenCV's COLORMAP_JET table as RGB [256, 3] uint8, written as its
+    linear pieces so that no OpenCV is needed (the card machine has none);
+    equal to cv2.applyColorMap's table entry for entry
+    (tests/test_torch_viewer.py).  OpenCV's rounding puts blue at 1, not
+    2, in entry 159."""
+    i = np.arange(256)
+    r = np.minimum(4 * i - 382, 4 * (287 - i))
+    g = np.minimum(4 * i - 128, 4 * (223 - i))
+    b = np.minimum(4 * i + 128, 4 * (160 - i) - 2)
+    b[159] = 1
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+_JET = _jet_lut()
+
+
 def jet(values: np.ndarray, vmin: float, vmax: float,
         zero_black: bool = False) -> np.ndarray:
     """Jet colormap -> uint8 RGB (tensorToJetMat)."""
-    import cv2
-
     v = np.asarray(values, dtype=np.float32)
     if v.ndim == 3:
         v = v[..., 0]
     norm = np.clip((v - vmin) / max(vmax - vmin, 1e-9), 0.0, 1.0)
-    u8 = (norm * 255).astype(np.uint8)
-    bgr = cv2.applyColorMap(u8, cv2.COLORMAP_JET)
-    rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    rgb = _JET[(norm * 255).astype(np.uint8)]
     if zero_black:
         rgb[v <= 0] = 0
     return rgb

@@ -1089,3 +1089,112 @@ def test_classic_rasterize_cuda_matches_cpu(cuda_device):
     torch.testing.assert_close(ak, ap, rtol=0, atol=1e-5)
     for x, y in zip(gk, gp):
         torch.testing.assert_close(x, y, rtol=2e-4, atol=1e-4 * float(y.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sharded_fusion_and_raycast_cuda_match_cpu(cuda_device):
+    """8 frames at 128x96 fused into 2 space shards on the card and on the
+    CPU: each shard holds the same block keys, and by key the state words'
+    weights are equal, sdf within 1 quantum and colour within 1 (fusion's
+    tolerance, test_swapping_cuda_matches_cpu); the merged raycast from
+    frame 3 has equal hit masks and depths within 1e-4 m."""
+    from gps_slam_torch.parallel import spatial
+
+    cams = synthetic.make_cameras(n_frames=8, width=128, height=96)
+    p = tvol.TsdfParams(voxel_size=0.02, mu=0.08, hash_size=1 << 15,
+                        block_capacity=1 << 12, visible_capacity=1 << 12)
+    shards = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        s = spatial.create_sharded(p, 2, dev)
+        for cam in cams:
+            spatial.fuse_frame_sharded(
+                s, torch.as_tensor(cam.depth[..., 0], device=dev),
+                torch.as_tensor(cam.image, device=dev),
+                torch.as_tensor(cam.c2w, device=dev), cam.K)
+        shards[dev.type] = s
+    sdf = lambda w: ((w & 0xFFFF) ^ 0x8000) - 0x8000  # noqa: E731
+    for vc, vp in zip(shards["cuda"], shards["cpu"]):
+        assert vc.n_blocks == vp.n_blocks > 0
+        n = vp.n_blocks
+        kc, kp = vc.block_coords[:n].cpu(), vp.block_coords[:n]
+        oc, op = torch.argsort(kc), torch.argsort(kp)
+        assert torch.equal(kc[oc], kp[op])
+        sc, sp = vc.state[:n].cpu()[oc], vp.state[:n][op]
+        cc, cp = vc.color[:n].cpu()[oc], vp.color[:n][op]
+        assert torch.equal(sc >> 16, sp >> 16)
+        assert int((sdf(sc) - sdf(sp)).abs().max()) <= 1
+        for b in (0, 8, 16):
+            assert int((((cc >> b) & 0xFF) - ((cp >> b) & 0xFF)).abs().max()) <= 1
+    cam = cams[3]
+    mc, mp = (spatial.raycast_sharded(shards[k], cam.c2w, cam.K, 128, 96, 16, 4, 6, 2)
+              for k in ("cuda", "cpu"))
+    dc, dp = mc["depth_map"].cpu(), mp["depth_map"]
+    assert torch.equal(dc > 0, dp > 0) and float((dp > 0).float().mean()) > 0.5
+    assert float((dc - dp).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_dp_render_and_prefetch_cuda(cuda_device):
+    """`dp_render` over [cuda, cuda] equals `render_eval_batch` on the card
+    bit for bit (4 cameras), and `FramePrefetcher` on the card yields 6
+    frames in order, each equal to `DeviceFrameCache`'s tensors bit for
+    bit after the consumer stream's wait."""
+    from gps_slam_torch.data.device_cache import DeviceFrameCache
+    from gps_slam_torch.data.prefetch import FramePrefetcher
+    from gps_slam_torch.gs.model import RenderStatics, render_eval_batch
+    from gps_slam_torch.gs.params import create
+    from gps_slam_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(0)
+    W, H, n, cap = 64, 48, 256, 512
+    pool = create(cap, 1, device=cuda_device)
+    with torch.no_grad():
+        pool.means[:n] = torch.as_tensor(rng.uniform(-1, 1, (n, 3)) + [0, 0, 2.0],
+                                         dtype=torch.float32, device=cuda_device)
+        pool.scales[:n] = -3.0
+        pool.quats[:n, 0] = 1.0
+        pool.features_dc[:n] = torch.as_tensor(rng.uniform(-0.5, 0.5, (n, 3)),
+                                               dtype=torch.float32, device=cuda_device)
+        pool.opacities[:n] = 1.0
+        pool.alive[:n] = True
+    st = RenderStatics(width=W, height=H, sh_degree=1, tile_size=16, max_gs_radii=100,
+                       delta_depth=0.1, use_exposure=False, visible_cap=cap,
+                       tiles_per_gaussian_cap=16, tile_cap=64)
+    K = torch.tensor([[48.0, 0, 32], [0, 48.0, 24], [0, 0, 1]], device=cuda_device)
+    poses = torch.eye(4, device=cuda_device).repeat(4, 1, 1)
+    poses[:, :3, 3] = torch.as_tensor(rng.normal(0, 0.05, (4, 3)), dtype=torch.float32,
+                                      device=cuda_device)
+    batch = {"c2w": poses, "K": K.repeat(4, 1, 1),
+             "ref_depth": torch.zeros((4, H, W), device=cuda_device),
+             "base_color": torch.zeros((4, H, W, 3), device=cuda_device),
+             "cam_id": torch.full((4,), -1, dtype=torch.int32)}
+    ref = render_eval_batch(pool.params, pool.alive, batch, st)
+    dp = pmesh.dp_render([cuda_device, cuda_device], pool.params, pool.alive, batch, st)
+    for k in ("rgb", "alpha", "depth"):
+        assert torch.equal(dp[k], ref[k]), k
+    assert float(ref["alpha"].sum()) > 0
+
+    cams = synthetic.make_cameras(6, 160, 120)
+    cache = DeviceFrameCache(cuda_device)
+    seen = []
+    for cam, depth, rgb in FramePrefetcher(cams, cuda_device):
+        r, d = cache.get(cam)
+        assert depth.is_cuda and torch.equal(depth, d) and torch.equal(rgb, r)
+        seen.append(cam.id)
+    assert seen == [c.id for c in cams]
+
+
+@pytest.mark.cuda
+def test_lpips_cuda_matches_cpu(cuda_device):
+    """LPIPS(vgg) with seeded random weights on a batch of 2 pairs at
+    64x48: the card (cuDNN convolutions, TF32 off) within 1e-5 relative of
+    the CPU."""
+    from gps_slam_torch.eval import lpips_torch
+
+    w = lpips_torch.random_weights(np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0, 1, (2, 48, 64, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    got = lpips_torch.LpipsTorch(w, cuda_device)(a, b)
+    want = lpips_torch.LpipsTorch(w, "cpu")(a, b)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
