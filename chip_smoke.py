@@ -14,10 +14,17 @@ Phases (any failure exits non-zero before the final line):
   3. main path: the same loop with the Adam window (`local_opt_iters` 20
      per window, as bench.py runs it: bench.py's Replica-equivalent
      config), >= 2 optimization windows, then an eval render; K1, K3, K4
-     and K5 must launch (K5 once per Adam step whose camera has an active
-     tile) and K2 must not, each window's loss must fall from its first
-     epoch of cameras to its last, and the eval PSNR must clear both the
-     15 dB floor and the forward-only PSNR;
+     and K5 must launch and K2 must not, each window's loss must fall from
+     its first epoch of cameras to its last, and the eval PSNR must clear
+     both the 15 dB floor and the forward-only PSNR.  The first window
+     (empty model) is eager, every later one the window megastep
+     (slam/megastep.py: a CUDA graph captured once per static key and
+     replayed), on every path but the swap and sharded ones, which the
+     pipeline keeps eager.  K5 launches once per Adam step whose camera has
+     an active tile in an eager window and once per Adam step in a
+     megastep window (its lists always hold act_cap rows); a replay calls
+     no wrapper, so each path adds its graphs' launches x replays to the
+     wrappers' counts;
   4. resident-route path: the forward-only loop at 1296x968 for 21 frames
      (2 windows), the frame size at which the JAX package integrates with
      K2a; K2 (`integrate_f32_cuda`) once per frame, K1 never;
@@ -56,7 +63,11 @@ Phases (any failure exits non-zero before the final line):
      once per route, K3 on the main path, on the 1920x1080 path, on the
      tracked path's last tracking-prepare call and on the sharded path's
      last shard raycast), with CUDA-event timings, the least time the card
-     could take for the same work and the kernel's design;
+     could take for the same work and the kernel's design; K4 and K5 also
+     on the tiles of their lists with a live slot alone (the same bits,
+     and its time), and their bounds count only those tiles' pixels and
+     outputs (a tile with none sums nothing; the window megastep's padded
+     lists are mostly such tiles);
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -102,7 +113,17 @@ Phases (any failure exits non-zero before the final line):
      1e-5 relative on a 300x170 crop, the card's ms per 1200x680 pair, and
      metrics.lpips None without a weight file;
  17. prefetch: FramePrefetcher yields the main path's 30 frames in order,
-     equal to DeviceFrameCache's tensors bit for bit.
+     equal to DeviceFrameCache's tensors bit for bit;
+ 18. megastep path (run right after phase 17): 110 frames of the outward
+     arc at the main path's motion per frame (1 bootstrap + 9 megastep
+     windows), once with every window eager, then with the megastep: per
+     window its route, static key, capture or replay and ms beside the
+     eager ms; after the first megastep window the pools equal (every
+     live row within 0.01 lr), at the end counts within 0.5%, eval PSNRs
+     within 0.05 dB, one camera's renders > 45 dB apart, >= 1 replay, at
+     most the pipeline's 2 graphs held at once; then
+     `[megastep reference]`: two windows of that state through a fresh
+     graph (capture, replay) and uncaptured: bit for bit.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits with code 2 and prints no result.
@@ -179,6 +200,16 @@ WIDE_CAP_RUNS = (("main path, visible cap x4", {"visible_block_capacity": SHARDS
 # the viewer's requests: two at the main path's size and one of another
 VIEWER_REQUESTS = ((1200, 680), (1200, 680), (800, 600))
 LPIPS_CROP = (170, 300)  # rows, columns of the card-against-CPU LPIPS crop
+# the megastep path: 110 frames (1 bootstrap window and 9 more at
+# local_opt_interval 10) of the outward arc at the main path's motion per
+# frame; gates against the same frames with every window eager: counts
+# within 0.5%, eval PSNR within 0.05 dB, one camera's renders more than
+# 45 dB apart (tests/test_slam.py's bound for the JAX megastep)
+MEGASTEP_FRAMES = 110
+MEGASTEP_ARC = 0.75 * MEGASTEP_FRAMES / N_FRAMES
+MEGASTEP_COUNT_GAP = 0.005
+MEGASTEP_PSNR_GAP_DB = 0.05
+MEGASTEP_RENDER_DB = 45.0
 
 
 def log(*a):
@@ -188,6 +219,16 @@ def log(*a):
 def sdf_of(words: torch.Tensor) -> torch.Tensor:
     """The signed i16 sdf in the low half of packed state words."""
     return ((words & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def live_slots(packed: torch.Tensor, gids: torch.Tensor, C: int) -> tuple:
+    """(live slots per tile, the tiles with one) of a splat kernel's lists:
+    a slot whose opacity is below 1/255 adds exactly zero, and a splat
+    kernel skips it; a tile with none is skipped whole."""
+    from gps_slam_torch.gs import rasterize as trz
+
+    live = (packed[gids.long(), 6 + C] >= trz.GMIN_ALPHA).sum(1)
+    return live, torch.nonzero(live > 0)[:, 0]
 
 
 def live_rows(packed: torch.Tensor, gids: torch.Tensor) -> int:
@@ -337,7 +378,8 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
 
 
 def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
-             shards: int = 1, tpu: dict | None = None):
+             shards: int = 1, tpu: dict | None = None, megastep: bool = True,
+             extras: dict | None = None):
     """Drive the train loop with `iters` Adam steps per window over `cams`,
     then the eval render, with every kernel count set to 0 just before and
     read just after; check the output and return the numbers of the
@@ -349,7 +391,13 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     settings) turns host swapping on, instrumented by `SwapStats`.  With
     `shards` > 1 the pool splits into that many space shards
     (`TPU.space_shards`): fusion launches once per shard and frame, K3 once
-    per shard and raycast pose.  `tpu` overrides other TPU settings."""
+    per shard and raycast pose.  `tpu` overrides other TPU settings.
+    Windows past the bootstrap one take the window megastep (a CUDA graph,
+    captured once per static key and replayed) where the pipeline's gates
+    allow it, unless `megastep` is False; each window's route, graph event
+    and wall ms are in `windows_route`, and the launches include those of
+    the replays.  `extras`, when given, receives the pipeline and the pool
+    (on the host) after the second window."""
     from gps_slam_torch import kernels
     from gps_slam_torch.config import Config
     from gps_slam_torch.eval import metrics as M
@@ -392,16 +440,59 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     model = GaussianModel(cfg, W, H, device="cuda")
     model._rng.manual_seed(args.seed)
     pipe = SLAMPipeline(cfg, engine, cfg.workspace_dir, is_train=False)
-    # (cameras, step losses, steps whose camera has active tiles) per window
+    pipe.disable_megastep = not megastep
+    # (cameras, step losses, K5 launches) per window: an eager window's
+    # steps launch K5 when their camera has an active tile, a megastep
+    # window's every step (its static lists always hold act_cap rows)
     windows = []
+    window_log = []   # route, graph event, static key and wall ms per window
     window_optimize = gmodel.window_optimize
 
     def record_window(pool, batch, idx, *a, **kw):
         pool, aux = window_optimize(pool, batch, idx, *a, **kw)
-        windows.append((len(batch["cam_id"]), aux["loss_hist"].cpu().numpy(),
-                        sum(1 for m in idx if aux["active_tiles"][m] > 0)))
+        if not kw.get("static"):   # the megastep's call runs inside its graph
+            windows.append((len(batch["cam_id"]), aux["loss_hist"].cpu().numpy(),
+                            sum(1 for m in idx if aux["active_tiles"][m] > 0)))
         return pool, aux
 
+    def snapshot():
+        if extras is not None and len(window_log) == 2:
+            extras["pool_after_window_2"] = {
+                k: v.detach().cpu() for k, v in (*model.pool.params.items(),
+                                                 ("alive", model.pool.alive))}
+
+    t_window = [0.0]
+    raycast_opt_set, remove_redundant = pipe._raycast_opt_set, pipe.remove_redundant
+    run_megastep = pipe._run_window_megastep
+
+    def eager_start():
+        torch.cuda.synchronize()
+        t_window[0] = time.monotonic()
+        raycast_opt_set()
+
+    def eager_end(model_):
+        remove_redundant(model_)
+        torch.cuda.synchronize()
+        window_log.append({"frame": pipe.curr_frame_id, "route": "eager",
+                           "ms": (time.monotonic() - t_window[0]) * 1e3})
+        snapshot()
+
+    def megastep_window(model_):
+        t = time.monotonic()
+        run_megastep(model_)   # ends in the read of the window's counts
+        ms_ = (time.monotonic() - t) * 1e3
+        hist = pipe._last_loss_hist.cpu().numpy()
+        windows.append((len(pipe.opt_cam_list), hist, len(hist)))
+        key, event = pipe._window_graphs.last
+        window_log.append({"frame": pipe.curr_frame_id, "route": "megastep",
+                           "graph": event, "ms": ms_,
+                           "key": {"M": key[0], "steps": key[1], "spawn_idx": key[11],
+                                   "pool_prefix": key[12], "opt_cap": key[13]}})
+        snapshot()
+
+    pipe._raycast_opt_set = eager_start
+    pipe.remove_redundant = eager_end
+    pipe._run_window_megastep = megastep_window
     gmodel.window_optimize = record_window
     for c in cams:
         pipe.frame_cache.get(c)
@@ -434,6 +525,9 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
         if swapped is not None:
             swapped.detach()
     launches = kernels.counts()
+    graphs = pipe._window_graphs
+    for name, n in graphs.replayed_launches.items():
+        launches[name] += n   # a replay launches without calling a wrapper
     psnrs = []
     for cs, rgb in renders:
         if tuple(rgb.shape) != (len(cs), H, W, 3) or not bool(torch.isfinite(rgb).all()):
@@ -456,6 +550,11 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
              "epoch_first": e[0], "epoch_last": e[1]}
             for n, h, _ in windows if iters > 0 for e in [epoch_means(h, n)]],
         "bin_overflow": dict(zip(("tile", "span", "active"), pipe._bin_overflow)),
+        "windows_route": window_log,
+        "megastep": {"captures": graphs.captures, "replays": graphs.replays,
+                     "dropped": graphs.dropped, "graph_mb": graphs.memory_bytes / 2 ** 20,
+                     "graphs_held_max": graphs.peak_resident,
+                     "graphs_held_end": len(graphs.graphs)},
         "eval_views": len(eval_cams), "eval_s": eval_s,
         "n_blocks": sum(v.n_blocks for v in vols), "gaussians": model.num_gaussians,
         "psnr_mean": float(np.mean(psnrs)), "psnr_min": float(np.min(psnrs)),
@@ -493,12 +592,20 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     if shards > 1 and launches[kernels.RAYCAST.name] != shards * raycast_poses[0]:
         raise RuntimeError(f"{tag}: {launches[kernels.RAYCAST.name]} K3 launches for "
                            f"{raycast_poses[0]} raycast poses x {shards} shards")
-    # a step on a camera that sees no Gaussian has no active tile and no
-    # splat to differentiate; every other step launches K5 once
+    # in an eager window a step on a camera that sees no Gaussian has no
+    # active tile and no splat to differentiate, every other step launches
+    # K5 once; in a megastep window every step launches K5 once
     if launches[kernels.SPLAT_BWD.name] != out["adam_steps_with_tiles"]:
         raise RuntimeError(f"{tag}: {launches[kernels.SPLAT_BWD.name]} K5 launches "
                            f"for {out['adam_steps_with_tiles']} Adam steps with "
-                           f"active tiles")
+                           f"active tiles (eager) or in a megastep window")
+    routes = [w["route"] for w in window_log]
+    want = (["eager"] * n_windows if not megastep or swap is not None or shards > 1
+            else ["eager"] + ["megastep"] * (n_windows - 1))
+    if routes != want:
+        raise RuntimeError(f"{tag}: windows took the routes {routes}, not {want}")
+    if extras is not None:
+        extras["pipe"] = pipe
     for _, h, _ in windows:
         if not np.isfinite(h).all():
             raise RuntimeError(f"{tag}: non-finite window loss {h}")
@@ -726,6 +833,145 @@ def main_path(args) -> dict:
                            f"forward-only {fwd['psnr_mean']}")
     out["forward_only_psnr_mean"] = fwd["psnr_mean"]
     return out, engine, model, cams, alloc
+
+
+def _pool_rows_apart(a: dict, b: dict, mcfg) -> dict:
+    """Largest row difference of two pools (host tensors by attribute) over
+    the live rows of `a`, per attribute in units of its learning rate."""
+    n = int(a["alive"].sum())
+    lrs = {"means": mcfg.means_lr, "scales": mcfg.scales_lr, "quats": mcfg.quats_lr,
+           "features_dc": mcfg.featuresDc_lr, "features_rest": mcfg.featuresRest_lr,
+           "opacities": mcfg.opacities_lr}
+    return {k: float((a[k][:n] - b[k][:n]).abs().max() / lr) for k, lr in lrs.items()}
+
+
+def megastep_path(args) -> dict:
+    """`[megastep path]`: MEGASTEP_FRAMES frames of the outward arc at the
+    main path's motion per frame, 1200x680, bench.py's configuration, 20
+    Adam steps a window: 1 bootstrap window and 9 more.  The frames run
+    twice, first with every window eager (`disable_megastep`, the witness),
+    then with the megastep (a CUDA graph per static key, replayed while
+    the key holds).  Gates: after the second window (the first megastep
+    window) the pools have equal alive masks and every live row within
+    0.01 x its attribute's learning rate; at the end Gaussian counts within
+    0.5% and eval PSNRs within 0.05 dB; one camera's renders from the two
+    runs more than 45 dB apart; at least one window replays.  Then
+    `[megastep reference]`: two more windows of the megastep run's state,
+    each through a fresh `WindowGraphs` (a capture, then a replay) and
+    uncaptured on a copy of the pool, bit for bit."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.eval import metrics as M
+
+    cams = synthetic_cams(MEGASTEP_FRAMES, 1200, 680, arc=MEGASTEP_ARC)
+    runs = {}
+    for name, mega in (("eager", False), ("megastep", True)):
+        extras = {}
+        tag = "megastep path" + ("" if mega else ", eager witness")
+        out, engine, model = run_path(args, cams, ADAM_STEPS, tag, kernels.INTEGRATE,
+                                      megastep=mega, extras=extras)
+        runs[name] = (out, engine, model, extras)
+    (eo, ee, em, ex), (mo, me, mm, mx) = runs["eager"], runs["megastep"]
+    cam = cams[MEGASTEP_FRAMES // 2]
+    imgs = []
+    for eng, model in ((ee, em), (me, mm)):
+        ray = eng.run_raycast(cam.c2w, cam.K, cam.width, cam.height)
+        with torch.no_grad():
+            res = model.forward(cam.c2w, cam.K, ray["depth_map"][..., 0], ray["color_map"])
+        imgs.append(torch.clamp(res["rgb"], 0, 1).cpu().numpy())
+    a, b = ex["pool_after_window_2"], mx["pool_after_window_2"]
+    apart = _pool_rows_apart(a, b, mm.cfg.model)
+    bitwise = all(torch.equal(a[k], b[k]) for k in a)
+    render_db = M.psnr(imgs[1], imgs[0])
+    per_window = [{"frame": w["frame"], "route": w["route"], "graph": w.get("graph"),
+                   "key": w.get("key"), "ms": w["ms"], "eager_ms": e["ms"]}
+                  for w, e in zip(mo["windows_route"], eo["windows_route"])]
+    res = {
+        "frames": MEGASTEP_FRAMES, "width": 1200, "height": 680, "arc": MEGASTEP_ARC,
+        "windows": per_window,
+        "train_s": mo["train_s"], "fps": mo["fps"],
+        "eager_train_s": eo["train_s"], "eager_fps": eo["fps"],
+        "window_ms_total": sum(w["ms"] for w in per_window),
+        "eager_window_ms_total": sum(w["eager_ms"] for w in per_window),
+        "replay_ms_mean": float(np.mean([w["ms"] for w in per_window
+                                         if w["graph"] == "replay"] or [np.nan])),
+        "capture_ms_mean": float(np.mean([w["ms"] for w in per_window
+                                          if w["graph"] == "capture"] or [np.nan])),
+        **{k: mo["megastep"][k] for k in ("captures", "replays", "dropped", "graph_mb",
+                                          "graphs_held_max", "graphs_held_end")},
+        "max_memory_allocated_mb": mo["max_memory_allocated_mb"],
+        "eager_max_memory_allocated_mb": eo["max_memory_allocated_mb"],
+        "psnr_mean": mo["psnr_mean"], "eager_psnr_mean": eo["psnr_mean"],
+        "gaussians": mo["gaussians"], "eager_gaussians": eo["gaussians"],
+        "window_2_alive_equal": bool(torch.equal(a["alive"], b["alive"])),
+        "window_2_rows_apart_lr": apart, "window_2_bit_for_bit": bitwise,
+        "render_psnr_db": render_db, "render_camera": MEGASTEP_FRAMES // 2,
+        "launches": mo["launches"],
+    }
+    log("[megastep path] " + json.dumps(res))
+    if not res["window_2_alive_equal"] or max(apart.values()) > 0.01:
+        raise RuntimeError(f"megastep path: the first megastep window's pool is off "
+                           f"the eager one's: {apart}")
+    if abs(mo["gaussians"] - eo["gaussians"]) > MEGASTEP_COUNT_GAP * eo["gaussians"]:
+        raise RuntimeError(f"megastep path: {mo['gaussians']} Gaussians against "
+                           f"{eo['gaussians']} eager")
+    if not abs(mo["psnr_mean"] - eo["psnr_mean"]) <= MEGASTEP_PSNR_GAP_DB:
+        raise RuntimeError(f"megastep path: PSNR {mo['psnr_mean']} against "
+                           f"{eo['psnr_mean']} eager")
+    if not render_db > MEGASTEP_RENDER_DB:
+        raise RuntimeError(f"megastep path: renders {render_db} dB apart")
+    if mo["megastep"]["replays"] < 1:
+        raise RuntimeError("megastep path: no window replayed a graph")
+    if mo["megastep"]["graphs_held_max"] > mx["pipe"]._window_graphs.max_graphs:
+        raise RuntimeError(f"megastep path: {mo['megastep']['graphs_held_max']} graphs "
+                           f"held at once")
+    megastep_reference(mx["pipe"], mm)
+    return res
+
+
+def megastep_reference(pipe, model) -> None:
+    """`[megastep reference]`: two windows drawn from the state at the end
+    of the megastep path (`SLAMPipeline._megastep_window`: another keyframe
+    sample, camera sequence and spawn draw each), through a fresh
+    `WindowGraphs` on one copy of the pool (a capture, then a replay of the
+    same graph) and through `window_megastep` uncaptured on another:
+    outputs and pools bit for bit."""
+    import dataclasses
+
+    from gps_slam_torch.gs import params as pmod
+    from gps_slam_torch.slam import megastep as ms
+
+    def copy_pool():
+        return dataclasses.replace(model.pool, **{
+            k: getattr(model.pool, k).clone() for k in (*pmod.PARAM_KEYS, "alive")})
+
+    eng = pipe.engine
+    ref, pool = copy_pool(), copy_pool()
+    graphs = ms.WindowGraphs()
+    rows = []
+    for _ in range(2):
+        key, inputs, statics = pipe._megastep_window(model)
+        st = dict(statics)
+        K = st.pop("K")
+        t0 = time.monotonic()
+        want = ms.window_megastep(eng.vol, ref, inputs["poses"], K,
+                                  torch.stack(inputs["gt_rgb"]), inputs["iter_cam_idx"],
+                                  inputs["spawn_noise"], **st)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        got = graphs.run(key, eng.vol, pool, inputs, **statics)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        diff = [k for k in want if not torch.equal(got[k], want[k])]
+        diff += [k for k in (*pmod.ROW_KEYS, "alive")
+                 if not torch.equal(getattr(pool, k), getattr(ref, k))]
+        rows.append({"graph": graphs.last[1], "uncaptured_ms": (t1 - t0) * 1e3,
+                     "graph_ms": (t2 - t1) * 1e3, "n_alive": int(got["n_alive"]),
+                     "not_equal": diff})
+    log("[megastep reference] " + json.dumps(
+        {"windows": rows, "captures": graphs.captures, "replays": graphs.replays,
+         "graph_mb": graphs.memory_bytes / 2 ** 20}))
+    if [r["graph"] for r in rows] != ["capture", "replay"] or any(r["not_equal"] for r in rows):
+        raise RuntimeError(f"megastep reference: {rows}")
 
 
 def large_frame_paths(args, rec) -> tuple[list, tuple]:
@@ -979,10 +1225,22 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
     ms = time_ms(lambda: trz.splat_fwd(packed, gids, px, py, ref, delta, C), 50)
     plain_ms = time_ms(lambda: trz.splat_fwd_plain(packed, gids, px, py, ref, delta, C), 5, 1)
     A, L = gids.shape
-    n_pairs = int((gids < packed.shape[0] - 1).sum().item()) * 256
+    live, t_live = live_slots(packed, gids, C)
+    # the same launch on the tiles with a live slot alone: the padded
+    # tiles' cost is the difference, and each live tile's bits the same
+    cut = [x.index_select(0, t_live).contiguous() for x in (gids, px, py, ref)]
+    cut_out = trz.splat_fwd(packed, cut[0], cut[1], cut[2], cut[3], delta, C)
+    rel_ok = (rel_ok and torch.equal(cut_out, ok_out.index_select(0, t_live))
+              and not ok_out.index_select(0, torch.nonzero(live == 0)[:, 0]).any())
+    ms_live = time_ms(lambda: trz.splat_fwd(packed, cut[0], cut[1], cut[2], cut[3],
+                                            delta, C), 50)
+    n_pairs = int(live.sum().item()) * 256
     n_rows = live_rows(packed, gids)
-    n_bytes = (n_rows * packed.shape[1] * 4 + gids.numel() * 4 + 3 * px.numel() * 4
-               + ok_out.numel() * 4)
+    # a tile with no live slot sums nothing: its pixels and its zero
+    # output are not work the function needs
+    a_live = t_live.numel()
+    n_bytes = (n_rows * packed.shape[1] * 4 + gids.numel() * 4
+               + a_live * (3 + C + 1) * 256 * 4)
     n_ops = n_pairs * (25 + 2 * (C + 1))
     b, by = bound_ms(n_bytes, n_ops)
     rows.append({"name": "splat_fwd_cuda", "tpu": "K4",
@@ -993,9 +1251,12 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                  "library_ms": None, "ok": rel_ok,
                  "bytes": n_bytes, "ops": n_ops,
+                 "ms_live_tiles": ms_live,
                  "shapes": {"A": A, "L": L, "C": C, "gaussians": packed.shape[0] - 1,
-                            "live_rows": n_rows, "live_pairs": n_pairs},
-                 "tolerance": "rtol 1e-5 / atol 1e-5"})
+                            "live_rows": n_rows, "live_pairs": n_pairs,
+                            "tiles_no_live_slot": A - a_live},
+                 "tolerance": "rtol 1e-5 / atol 1e-5; the live tiles alone give "
+                              "the same bits, the others exact zeros"})
 
     # ---- K5: splat backward, on the last Adam step's inputs
     (a, _) = last["splat_bwd"]
@@ -1012,13 +1273,24 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
     ms = time_ms(lambda: trz.splat_bwd(*bargs), 50)
     plain_ms = time_ms(lambda: trz.splat_bwd_plain(*bargs), 5, 1)
     A, L = gids.shape
-    # live slots: opacity >= 1/255 (a slot below it is exactly zero, and
-    # the kernel skips it), per tile
-    live = (packed[gids.long(), 6 + C] >= trz.GMIN_ALPHA).sum(1)
+    live, t_live = live_slots(packed, gids, C)
+    empty = torch.nonzero(live == 0)[:, 0]
+    cut = [x.index_select(0, t_live).contiguous() for x in (gids, px, py, ref, v_out)]
+    cargs = (packed, *cut, delta, C)
+    cut_out = trz.splat_bwd(*cargs)
+    # a tile with no live slot: exact zeros, as in the plain version; a
+    # live tile: the same bits whether or not padded tiles share its launch
+    ok5 = (ok5 and torch.equal(cut_out, ok_out.index_select(0, t_live))
+           and not ok_out.index_select(0, empty).any()
+           and not pl_out.index_select(0, empty).any())
+    ms_live = time_ms(lambda: trz.splat_bwd(*cargs), 50)
     n_pairs = int(live.sum().item()) * 256
     n_rows = live_rows(packed, gids)
-    n_bytes = (n_rows * packed.shape[1] * 4 + gids.numel() * 4 + 3 * px.numel() * 4
-               + v_out.numel() * 4 + ok_out.numel() * 4)
+    # a tile with no live slot has a zero gradient whatever its planes
+    # hold: its planes and its zero output are not work the function needs
+    a_live = t_live.numel()
+    n_bytes = (n_rows * packed.shape[1] * 4 + gids.numel() * 4
+               + a_live * (3 + C + 1) * 256 * 4 + a_live * L * (6 + C) * 4)
     # per live pair: the pair terms (as K4), v_w, d_alpha, v_sigma and the
     # 6 + C running sums
     n_ops = n_pairs * (55 + 4 * C)
@@ -1030,7 +1302,7 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
                  "launches": launches["splat_bwd_cuda"], "max_abs_err": max_err,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                  "library_ms": None, "ok": ok5,
-                 "bytes": n_bytes, "ops": n_ops,
+                 "bytes": n_bytes, "ops": n_ops, "ms_live_tiles": ms_live,
                  "shapes": {"A": A, "L": L, "C": C, "gaussians": packed.shape[0] - 1,
                             "live_rows": n_rows, "live_pairs": n_pairs,
                             "live_slots_mean": live.float().mean().item(),
@@ -1040,7 +1312,8 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
                  "tolerance": "each column within 1e-4 of its largest |value| "
                               "(pixel sums in another order, built with "
                               "multiply-add contraction); the same bits on a "
-                              "second launch"})
+                              "second launch and on the live tiles alone; "
+                              "exact zeros on the others"})
     for r in rows:
         log("[kernel] " + json.dumps(r))
     bad = [r["name"] for r in rows if not r["ok"]]
@@ -2231,6 +2504,7 @@ def main() -> int:
     lpips_phase(args, main_engine, main_model, main_cams)
     prefetch_phase(main_cams)
     del main_engine, main_model, main_alloc
+    megastep_path(args)
     k2, k3_large = large_frame_paths(args, rec)
     _, k3_tracked = tracked_path(args, rec)
     swap_path(args)

@@ -16,9 +16,10 @@
 // function without the moment form's cancellation (x^2 S0 - 2x Sx + Sxx)
 // for Gaussians whose centre lies tiles away.
 //
-// What bounds it on the H100.  Each tile moves ~11 KB whatever its list
-// holds (3 pixel planes, C+1 cotangent rows, the L ids and the [L, 6+C]
-// output, C = 4) plus one 64-byte row per live Gaussian, and each live
+// What bounds it on the H100.  Each tile with a live slot moves ~11 KB
+// whatever its list holds (3 pixel planes, C+1 cotangent rows, the L ids
+// and the [L, 6+C] output, C = 4) plus one 64-byte row per live Gaussian,
+// a tile without one its ids and zero output, and each live
 // (slot, pixel) pair costs ~71 f32 operations including one exp: bytes
 // bound a tile below ~12 live slots, arithmetic above.  The main path's
 // last Adam step fills 9.5 of 64 slots on average (45 at most) over 845
@@ -26,15 +27,19 @@
 // the chain of dependent loads before the arithmetic, then the SMs'
 // instruction streams.  So, one CTA of 128 threads per active tile:
 //
-//   1. thread 0 starts TMA bulk copies of the tile's px, py, ref rows and
-//      [C+1, 256] cotangent block (contiguous, 8 KB at C = 4) on one
-//      mbarrier, which land while the live slots are found;
-//   2. the live slots are compacted in list order: a slot whose opacity is
-//      below 1/255 (the NULL row's is 0) has alpha < 1/255 at every pixel,
-//      so no pixel keeps the pair and its output row is exactly zero; it
-//      is never computed (the rule of splat_fwd.cu);
-//   3. the live rows are copied by TMA onto a second mbarrier (armed with
-//      0 bytes when none is live);
+//   1. the live slots are compacted in list order: a slot whose opacity
+//      is below 1/255 (the NULL row's is 0) has alpha < 1/255 at every
+//      pixel, so no pixel keeps the pair and its output row is exactly
+//      zero; it is never computed (the rule of splat_fwd.cu).  Thread 0
+//      starts TMA bulk copies of the tile's px, py, ref rows and [C+1,
+//      256] cotangent block (contiguous, 8 KB at C = 4) on one mbarrier as
+//      soon as it sees slot 0 live, so they land while the other slots
+//      are found (else once the count is known);
+//   2. a tile with no live slot writes its zero rows and exits: it reads
+//      only its L ids and their opacities.  The window megastep's
+//      fixed-shape lists hold act_cap tiles, most of them such padded
+//      rows (sentinel ids, the NULL row);
+//   3. the live rows are copied by TMA onto a second mbarrier;
 //   4. the live work is cut into (live slot, pixel chunk) items, chunk c
 //      of n taking pixels c, c + n, ...; n is chosen per tile (each warp
 //      tries 1..32 at once, one per lane) for the fewest pixel steps of the
@@ -63,7 +68,10 @@
 // 700 W, chip_smoke.py's [kernel] rows, every build in one call): 0.0227
 // ms against 0.0310 for the design it replaced (one warp per list slot
 // over all L slots, staged by scalar loads); 0.0242 with contraction off;
-// 0.0241 with 256 threads a tile.
+// 0.0241 with 256 threads a tile.  On a window megastep step's padded
+// lists (2,048 tiles, 1,203 of them without a live slot; same card and
+// script, both builds in one run): 0.0221 ms with the early exit of step
+// 2, 0.0232 without it, 0.0217 on the live tiles alone.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -146,10 +154,11 @@ splat_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ gids,
   const uint32_t bar_pix = tma::smem_addr(&s_bar[0]);
   const uint32_t bar_rows = tma::smem_addr(&s_bar[1]);
 
-  // ---- 1. the tile's pixel planes and cotangent rows, in flight ----
-  if (t == 0) {
-    tma::mbar_init(bar_pix);
-    tma::mbar_init(bar_rows);
+  float* o = out + (size_t)a * L * K;
+  const int n_out = L * K;
+  // thread 0: the tile's pixel planes and [C+1, 256] cotangent block, 8 KB
+  // at C = 4, as TMA bulk copies onto bar_pix
+  auto fetch_planes = [&]() {
     const uint32_t plane = NPIX * 4;
     tma::mbar_expect_tx(bar_pix, (3 + C + 1) * plane);
     tma::bulk_copy(s_px, px + (size_t)a * NPIX, plane, bar_pix);
@@ -157,9 +166,15 @@ splat_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ gids,
     tma::bulk_copy(s_lim, ref + (size_t)a * NPIX, plane, bar_pix);
     tma::bulk_copy(s_vo, v_out + (size_t)a * (C + 1) * NPIX, (C + 1) * plane,
                    bar_pix);
+  };
+  if (t == 0) {
+    tma::mbar_init(bar_pix);
+    tma::mbar_init(bar_rows);
   }
 
-  // ---- 2. the live slots, compacted in list order ----
+  // ---- 1. the live slots, compacted in list order; the planes are in
+  //         flight as soon as slot 0 is seen live ----
+  bool fetched = false;  // thread 0's
   int n_live = 0;
   for (int base = 0; base < L; base += NT) {
     const int l = base + t;
@@ -168,6 +183,10 @@ splat_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ gids,
     if (l < L) {
       g = gids[(size_t)a * L + l];
       live = __ldg(packed + (size_t)g * cols + 6 + C) >= gmin;
+    }
+    if (l == 0 && live) {
+      fetch_planes();
+      fetched = true;
     }
     const unsigned m = __ballot_sync(FULL, live);
     if (lane == 0) s_count[warp] = __popc(m);
@@ -184,7 +203,21 @@ splat_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ gids,
     __syncthreads();  // s_count is reused; s_src and s_idx are complete
   }
 
-  // ---- 3. the live rows (TMA bulk copies; 0 bytes when none is live) ----
+  // ---- 2. a tile with no live slot (a padded row of the fixed-shape
+  //         lists, or every slot below 1/255): its rows are exactly zero,
+  //         and nothing else of it is read ----
+  if (n_live == 0) {
+    if ((n_out & 3) == 0) {
+      for (int e = 4 * t; e < n_out; e += 4 * NT)
+        *reinterpret_cast<float4*>(o + e) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      for (int e = t; e < n_out; e += NT) o[e] = 0.0f;
+    }
+    return;
+  }
+  if (t == 0 && !fetched) fetch_planes();
+
+  // ---- 3. the live rows (TMA bulk copies) ----
   if (warp == 0) {
     if (lane == 0) tma::mbar_expect_tx(bar_rows, n_live * cols * 4);
     __syncwarp();
@@ -267,8 +300,6 @@ splat_bwd_kernel(const float* __restrict__ packed, const int* __restrict__ gids,
     for (int c = 1; c < nchunk; ++c) v = v + pk[c * n_live];
     return v;
   };
-  float* o = out + (size_t)a * L * K;
-  const int n_out = L * K;
   if ((n_out & 3) == 0) {
     for (int e = 4 * t; e < n_out; e += 4 * NT)
       *reinterpret_cast<float4*>(o + e) =

@@ -17,7 +17,10 @@
 //
 //   1. the tile's live slots are found and compacted in list order: a slot
 //      whose opacity is below 1/255 has alpha < 1/255 at every pixel, so it
-//      adds exactly 0 and is dropped (the plain version sums it, as +0);
+//      adds exactly 0 and is dropped (the plain version sums it, as +0).
+//      A tile with none (most of the window megastep's fixed-shape lists
+//      are such padded rows: sentinel ids, the NULL row) writes zeros and
+//      exits without reading its pixels;
 //   2. the live slots' 64-byte packed rows are copied into shared memory
 //      with TMA bulk copies completing on an mbarrier, while each thread
 //      loads its pixels' coordinates and reference depths;
@@ -87,6 +90,17 @@ splat_fwd_kernel(const float* __restrict__ packed, const int* __restrict__ gids,
     if (live) s_src[n_live + before] = g;
     n_live += total;
     __syncthreads();  // s_count is reused; s_src is complete
+  }
+
+  // a tile with no live slot (a padded row of the fixed-shape lists, or
+  // every slot below 1/255) sums nothing: zeros, and nothing else read
+  if (n_live == 0) {
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      float* o = out + (size_t)a * (C + 1) * NPIX + t + j * NT;
+      for (int k = 0; k <= C; ++k) o[k * NPIX] = 0.0f;
+    }
+    return;
   }
 
   // ---- 2. stage the live rows (TMA bulk copies) ----

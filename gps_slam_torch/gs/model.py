@@ -65,27 +65,29 @@ def _project_and_colors(params, alive, c2w, K, st: RenderStatics,
 
 
 def ges_bin(params, alive, c2w, K, st: RenderStatics,
-            margin_px: float = 0.0) -> rasterize.ActiveBins:
+            margin_px: float = 0.0, static: bool = False) -> rasterize.ActiveBins:
     """Active-tile binning of the current parameters, split out so that one
     binning serves a window's Adam steps (`margin_px` inflates every radius
-    to keep the lists conservative while the Gaussians drift)."""
+    to keep the lists conservative while the Gaussians drift); `static`:
+    the fixed-shape binning of the window megastep."""
     proj, radii, _ = _project_and_colors(params, alive, c2w, K, st)
     tile_w = -(-st.width // st.tile_size)
     tile_h = -(-st.height // st.tile_size)
     return rasterize.bin_gaussians_active(
         proj.means2d, radii, st.tile_size, tile_w, tile_h, st.visible_cap,
         st.tiles_per_gaussian_cap, st.tile_cap, st.active_tile_cap,
-        margin_px=margin_px, segments=True)
+        margin_px=margin_px, segments=True, static=static)
 
 
 def ges_forward(params: dict, alive, c2w, K, ref_depth, base_color,
                 cam_id: int, st: RenderStatics,
                 bins: rasterize.ActiveBins | None = None,
-                active_sh_degree=None) -> dict:
+                active_sh_degree=None, static: bool = False) -> dict:
     """project -> SH -> bin -> weighted-sum rasterize -> blend with the
     SDF base layer: rgb = (raw + base) / (weight + 1).  Pass `bins` to
     reuse an earlier binning (the window loop); `active_sh_degree` (an int
-    tensor) is the offline SH ramp.  Differentiable in the params."""
+    tensor) is the offline SH ramp; `static` bins in fixed shapes with no
+    host read (the window megastep).  Differentiable in the params."""
     ref = ref_depth
     ref_clamped = torch.where(ref < 0.01, 1000.0, ref)
     proj, radii, colors = _project_and_colors(params, alive, c2w, K, st,
@@ -96,7 +98,8 @@ def ges_forward(params: dict, alive, c2w, K, ref_depth, base_color,
         tile_h = -(-st.height // st.tile_size)
         bins = rasterize.bin_gaussians_active(
             proj.means2d, radii, st.tile_size, tile_w, tile_h, st.visible_cap,
-            st.tiles_per_gaussian_cap, st.tile_cap, st.active_tile_cap)
+            st.tiles_per_gaussian_cap, st.tile_cap, st.active_tile_cap,
+            static=static)
     raw, weight_sum = rasterize.ges_rasterize_active(
         proj.means2d, proj.conics, colors4,
         torch.sigmoid(params["opacities"][:, 0]), bins, ref_clamped,
@@ -166,6 +169,19 @@ def render_eval_batch(params, alive, cam_batch: dict, st: RenderStatics) -> dict
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+def _tile_loss(params: dict, alive, c2w, K, st: RenderStatics, h: dict):
+    """The tile-space L1 of one camera against its hoisted tiles `h`."""
+    proj, _, colors = _project_and_colors(params, alive, c2w, K, st)
+    colors4 = torch.cat([colors, proj.depths[:, None]], 1)
+    out = rasterize.ges_splat_tiles(
+        proj.means2d, proj.conics, colors4,
+        torch.sigmoid(params["opacities"][:, 0]), proj.depths, h,
+        st.delta_depth)                                       # [A, 5, P]
+    rgb_t = (out[:, :3] + h["base_t"]) / (out[:, 4:5] + 1.0)
+    diff = (rgb_t - h["gt_t"]).abs() * h["pxmask"][:, None, :]
+    return (diff.sum() + h["inactive_sum"]) / float(st.width * st.height * 3)
+
+
 def window_loss(params: dict, alive, cam_batch: dict, st: RenderStatics,
                 ssim_weight: float, depth_weight: float, tile_space: bool):
     """(per-camera bins, loss(m)) of the window loop: each camera of the
@@ -187,19 +203,9 @@ def window_loss(params: dict, alive, cam_batch: dict, st: RenderStatics,
                                  cam_batch["ref_depth"][m]),
             cam_batch["gt_rgb"][m], cam_batch["base_color"][m],
             st.width, st.height, st.tile_size) for m in range(M)]
-        n_px = float(st.width * st.height * 3)
 
         def loss(m):
-            h = hoists[m]
-            proj, _, colors = _project_and_colors(params, alive, c2w[m], K[m], st)
-            colors4 = torch.cat([colors, proj.depths[:, None]], 1)
-            out = rasterize.ges_splat_tiles(
-                proj.means2d, proj.conics, colors4,
-                torch.sigmoid(params["opacities"][:, 0]), proj.depths, h,
-                st.delta_depth)                               # [A, 5, P]
-            rgb_t = (out[:, :3] + h["base_t"]) / (out[:, 4:5] + 1.0)
-            diff = (rgb_t - h["gt_t"]).abs() * h["pxmask"][:, None, :]
-            return (diff.sum() + h["inactive_sum"]) / n_px
+            return _tile_loss(params, alive, c2w[m], K[m], st, hoists[m])
 
         return bins, loss
     gt_moments = ([losses.ssim_gt_moments(cam_batch["gt_rgb"][m]) for m in range(M)]
@@ -217,10 +223,65 @@ def window_loss(params: dict, alive, cam_batch: dict, st: RenderStatics,
     return bins, loss
 
 
+def _pick(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x[m] for a one-element device index `m`: a gather, no host read."""
+    return x.index_select(0, m)[0]
+
+
+def window_loss_static(params: dict, alive, cam_batch: dict, st: RenderStatics,
+                       ssim_weight: float, depth_weight: float, tile_space: bool):
+    """`window_loss` in fixed shapes (the JAX package's form): the cameras'
+    `ges_bin(static=True)` binnings and hoists stacked [M, ...], and
+    loss(m) for camera m given as a one-element int64 device tensor, which
+    gathers its rows: nothing is read back to the host.  `cam_batch` holds
+    c2w, ref_depth, base_color, gt_rgb (and gt_depth) stacked on the
+    device and K, the [3, 3] intrinsics that every camera shares, on the
+    host; there is no exposure."""
+    c2w, K = cam_batch["c2w"], cam_batch["K"]
+    M = c2w.shape[0]
+    with torch.no_grad():
+        per = [ges_bin(params, alive, c2w[m], K, st, margin_px=st.bin_margin_px,
+                       static=True) for m in range(M)]
+    bins = rasterize.ActiveBins(*(torch.stack(f) for f in zip(*per)))
+    if tile_space:
+        hoists = [rasterize.hoist_window_tiles(
+            per[m], torch.where(cam_batch["ref_depth"][m] < 0.01, 1000.0,
+                                cam_batch["ref_depth"][m]),
+            cam_batch["gt_rgb"][m], cam_batch["base_color"][m],
+            st.width, st.height, st.tile_size) for m in range(M)]
+        hoist = {k: torch.stack([h[k] for h in hoists]) for k in hoists[0]}
+        del per, hoists
+
+        def loss(m):
+            return _tile_loss(params, alive, _pick(c2w, m), K, st,
+                              {k: _pick(v, m) for k, v in hoist.items()})
+
+        return bins, loss
+    del per
+    gt_moments = None
+    if ssim_weight > 0:
+        mom = [losses.ssim_gt_moments(cam_batch["gt_rgb"][m]) for m in range(M)]
+        gt_moments = tuple(torch.stack(f) for f in zip(*mom))
+
+    def loss(m):
+        b = rasterize.ActiveBins(*(_pick(x, m) for x in bins))
+        res = ges_forward(params, alive, _pick(c2w, m), K,
+                          _pick(cam_batch["ref_depth"], m),
+                          _pick(cam_batch["base_color"], m), -1, st, bins=b)
+        gt_depth = _pick(cam_batch["gt_depth"], m) if "gt_depth" in cam_batch else None
+        return losses.compute_loss(
+            res["rgb"], res["depth"], _pick(cam_batch["gt_rgb"], m), gt_depth,
+            ssim_weight, depth_weight,
+            gt_ssim_moments=(None if gt_moments is None
+                             else tuple(_pick(x, m) for x in gt_moments)))["total"]
+
+    return bins, loss
+
+
 def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
                     st: RenderStatics, mcfg, max_iterations: int,
                     ssim_weight: float, depth_weight: float,
-                    opt_cap: int) -> tuple[GaussianPool, dict]:
+                    opt_cap: int, static: bool = False) -> tuple[GaussianPool, dict]:
     """The reference's localOptimize loop: one Adam step per entry of
     `iter_cam_idx`, each on that camera of `cam_batch` (see
     `window_loss`), with optimizer state fresh for the window and the
@@ -231,21 +292,31 @@ def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
     depth weights 0, no exposure) take the tile-space L1 path.  Updates
     the pool in place; returns it with the loss of each step, the
     binning overflows summed over the window's cameras and, per camera,
-    its (tile, span, active) overflows."""
+    its (tile, span, active) overflows.
+
+    With `static` (the window megastep) the window takes
+    `window_loss_static`: `iter_cam_idx` is an int64 device tensor read by
+    each step on the device, every count is a device scalar, and no
+    per-camera lists are returned.  Its parameters are those of the
+    dynamic form, bit for bit: the lists are the same padded with empty
+    rows, which add exact zeros (only the loss value's sum runs over the
+    padding, in another order)."""
     tile_w = -(-st.width // st.tile_size)
     tile_h = -(-st.height // st.tile_size)
     st = st._replace(visible_cap=min(st.visible_cap, opt_cap),
                      active_tile_cap=min(tile_w * tile_h, st.active_tile_cap))
     cparams = {k: (v if k == "exposure" else v[:opt_cap]).detach().clone()
                .requires_grad_(True) for k, v in pool.params.items()}
-    opt = optim.WindowAdam(cparams, mcfg, max_iterations)
+    steps = len(iter_cam_idx)
+    opt = optim.WindowAdam(cparams, mcfg, max_iterations, steps=steps)
     tile_space = (ssim_weight == 0.0 and depth_weight == 0.0
                   and not st.use_exposure)
-    bins, loss_fn = window_loss(cparams, pool.alive[:opt_cap], cam_batch, st,
-                                ssim_weight, depth_weight, tile_space)
+    make_loss = window_loss_static if static else window_loss
+    bins, loss_fn = make_loss(cparams, pool.alive[:opt_cap], cam_batch, st,
+                              ssim_weight, depth_weight, tile_space)
     hist = []
-    for m in iter_cam_idx:
-        loss = loss_fn(int(m))
+    for k in range(steps):
+        loss = loss_fn(iter_cam_idx[k:k + 1] if static else int(iter_cam_idx[k]))
         opt.zero_grad()
         loss.backward()
         opt.step()
@@ -253,11 +324,19 @@ def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
     with torch.no_grad():
         for k, v in cparams.items():
             if k == "exposure":
-                pool.exposure = v.detach()
+                pool.exposure.copy_(v)
             else:
                 getattr(pool, k)[:opt_cap] = v
+    loss_hist = torch.stack(hist) if hist else pool.means.new_zeros((0,))
+    if static:
+        return pool, {
+            "loss_hist": loss_hist,
+            "n_tile_overflow": bins.n_tile_overflow.sum(),
+            "n_span_overflow": bins.n_span_overflow.sum(),
+            "n_active_overflow": bins.n_active_overflow.sum(),
+        }
     return pool, {
-        "loss_hist": torch.stack(hist) if hist else pool.means.new_zeros((0,)),
+        "loss_hist": loss_hist,
         "n_tile_overflow": sum(b.n_tile_overflow for b in bins),
         "n_span_overflow": sum(b.n_span_overflow for b in bins),
         "n_active_overflow": sum(b.n_active_overflow for b in bins),
@@ -271,20 +350,24 @@ def window_optimize(pool: GaussianPool, cam_batch: dict, iter_cam_idx,
 def add_gaussians(pool: GaussianPool, vertex_map, color_map, normal_map,
                   sample_mask, sample_ratio: float, max_new: int,
                   default_opacity: float, scale_limits: tuple,
-                  generator: torch.Generator):
+                  generator, host_count: bool = True):
     """SLAM-mode spawning: take `sample_ratio` of the masked pixels at
-    random (uniform priorities from `generator`), init attributes from the
-    vertex/colour/normal maps and add them to the pool.  Returns
-    (pool, n_added, n_overflow)."""
+    random (uniform priorities from `generator`, or the [H*W] priorities
+    themselves when it is a tensor: the window megastep draws them outside
+    its graph), init attributes from the vertex/colour/normal maps and add
+    them to the pool (`params.add_rows`).  Returns (pool, n_added,
+    n_overflow), device scalars; nothing is read back to the host unless
+    `host_count`, which brings `pool.n_alive` up to date."""
     flat_mask = sample_mask.reshape(-1)
     max_new = min(max_new, flat_mask.shape[0])
-    n_valid = int(flat_mask.sum())
-    prio = torch.rand(flat_mask.shape, generator=generator,
-                      device=flat_mask.device)
+    n_valid = flat_mask.sum()
+    prio = (generator if torch.is_tensor(generator) else
+            torch.rand(flat_mask.shape, generator=generator, device=flat_mask.device))
     prio = torch.where(flat_mask, prio, torch.inf)
     idx = torch.argsort(prio, stable=True)[:max_new]
-    n_want = int(np.float32(n_valid) * np.float32(sample_ratio))
-    n_select = min(n_want, max_new)
+    # floor of the f32 product, as the JAX package takes it
+    n_want = (n_valid.to(torch.float32) * sample_ratio).to(torch.int64)
+    n_select = torch.clamp(n_want, max=max_new)
     xyz = vertex_map.reshape(-1, 3)[idx]
     rgb = color_map.reshape(-1, 3)[idx]
     nrm = normal_map.reshape(-1, 3)[idx]
@@ -293,20 +376,26 @@ def add_gaussians(pool: GaussianPool, vertex_map, color_map, normal_map,
     min_s, max_s = scale_limits
     attrs = pmod.init_attributes(xyz, rgb, nrm, pool.sh_degree,
                                  default_opacity, max_s, min_s)
-    n0 = pool.n_alive
-    pmod.add(pool, attrs, n_select)
-    return pool, pool.n_alive - n0, n_want - n_select
+    n_added = pmod.add_rows(pool, attrs, n_select)
+    if host_count:
+        pool.n_alive += int(n_added)
+    return pool, n_added, n_want - n_select
 
 
 def remove_redundant(pool: GaussianPool, small_scale_thres: float,
-                     large_scale_thres: float, low_opac_thres: float):
-    """Prune too small, too large and too transparent Gaussians."""
+                     large_scale_thres: float, low_opac_thres: float,
+                     host_count: bool = True):
+    """Prune too small, too large and too transparent Gaussians; returns
+    (pool, the count pruned as a device scalar).  Only `host_count` reads
+    it back, to bring `pool.n_alive` up to date."""
     max_scale = torch.exp(pool.scales).amax(-1)
     opac = torch.sigmoid(pool.opacities[:, 0])
     mask = ((max_scale < small_scale_thres) | (max_scale > large_scale_thres)
             | (opac < low_opac_thres)) & pool.alive
-    n = int(mask.sum())
-    return pmod.remove(pool, mask), n
+    n = pmod.remove_rows(pool, mask)
+    if host_count:
+        pool.n_alive -= int(n)
+    return pool, n
 
 
 class GaussianModel:

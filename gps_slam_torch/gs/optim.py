@@ -17,17 +17,40 @@ bits instead of ~1e-5 of a step away.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
+@functools.lru_cache(maxsize=32)
+def window_schedule(means_lr: float, gamma: float, steps: int,
+                    device: torch.device) -> torch.Tensor:
+    """f32 [steps, 3]: (1 - b1^t, 1 - b2^t, means_lr gamma^k) of update k,
+    t = k + 1, computed on the host in f32 as optax does (scalar by
+    scalar: a vectorised pow rounds some rows another way), copied to
+    `device` once and kept: the steps index it and copy nothing from the
+    host (which a CUDA graph could not capture).  Never written."""
+    f32 = np.float32
+    b1, b2, lr, g = f32(B1), f32(B2), f32(means_lr), f32(gamma)
+    rows = np.empty((steps, 3), np.float32)
+    for k in range(steps):
+        t = f32(k + 1)
+        rows[k] = (f32(1.0) - b1 ** t, f32(1.0) - b2 ** t, lr * g ** f32(k))
+    return torch.from_numpy(rows).to(device)
+
+
 class WindowAdam:
     """Adam over a dict of leaf tensors keyed like the pool's params."""
 
-    def __init__(self, params: dict, cfg, max_iterations: int):
+    def __init__(self, params: dict, cfg, max_iterations: int,
+                 steps: int | None = None):
         """cfg: a ModelConfig (or anything with its learning rates and
-        `use_exposure`)."""
+        `use_exposure`).  `steps`: the number of updates (a window's;
+        `max_iterations` by default, the offline trainer's), whose
+        schedule rows come from `window_schedule`."""
         self.params = params
         self.lrs = {
             "means": cfg.means_lr, "scales": cfg.scales_lr, "quats": cfg.quats_lr,
@@ -39,18 +62,19 @@ class WindowAdam:
         self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.count = 0
+        dev = next(iter(params.values())).device
+        self.table = window_schedule(float(self.lrs["means"]), self.gamma,
+                                     max_iterations if steps is None else steps, dev)
 
     @torch.no_grad()
     def step(self) -> None:
         """One update from each param's .grad (a missing grad is zero)."""
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
-        t = f32(self.count + 1)
+        if self.count >= self.table.shape[0]:
+            raise IndexError(f"WindowAdam: update {self.count + 1} past the "
+                             f"{self.table.shape[0]} steps it was made for")
         # device tensors, not host scalars: torch on CUDA divides by a host
         # scalar as a multiplication by its reciprocal
-        dev = next(iter(self.params.values())).device
-        bc1, bc2, means_lr = torch.stack([
-            1.0 - f32(B1) ** t, 1.0 - f32(B2) ** t,
-            f32(self.lrs["means"]) * f32(self.gamma) ** f32(self.count)]).to(dev)
+        bc1, bc2, means_lr = self.table[self.count]
         for k, p in self.params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             self.mu[k] = (1.0 - B1) * g + B1 * self.mu[k]

@@ -1,6 +1,10 @@
 """Fixed-capacity Gaussian parameter pool — the port of
 gps_slam_tpu/gs/params.py.  The JAX `GaussianPool` struct becomes a small
-dataclass of tensors; `add`, `remove` and `compact` update it in place."""
+dataclass of tensors; `add`, `remove` and `compact` update it in place.
+`add_rows` and `remove_rows` are their fixed-shape forms (the JAX
+package's): no host read, the count changed as a device scalar, the host
+count `n_alive` left to the caller; `compact` writes the pool's own
+storage, so a captured CUDA graph keeps addressing it."""
 
 from __future__ import annotations
 
@@ -78,11 +82,14 @@ def init_attributes(xyz, rgb, normals, sh_degree: int, default_opacity: float,
     else:
         s = torch.clamp(s, max=max_init_scale)
     scales = s[:, None].repeat(1, 3)
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=xyz.device)
+    # constants filled on the device (`t[i] = 1.0` copies a host scalar,
+    # which a CUDA graph cannot capture)
+    ident = xyz.new_zeros(4)
+    ident[:1].fill_(1.0)
     if normals is not None:
         scales[:, 2] = scales[:, 2] * 0.1
         z_axis = torch.zeros_like(xyz)
-        z_axis[:, 2] = 1.0
+        z_axis[:, 2].fill_(1.0)
         quats = quat_between(z_axis, normals)
         ok = torch.linalg.norm(normals, dim=-1) > 0.5
         quats = torch.where(ok[:, None], quats, ident)
@@ -102,27 +109,53 @@ def init_attributes(xyz, rgb, normals, sh_degree: int, default_opacity: float,
 
 def add(pool: GaussianPool, attrs: dict, count: int) -> GaussianPool:
     """Scatter the first `count` rows of `attrs` into free pool slots
-    (lowest free indices first); overflow beyond capacity is dropped."""
-    m = attrs["means"].shape[0]
-    free = torch.nonzero(~pool.alive)[:, 0][:min(m, count)]
-    n = free.shape[0]
-    for k in ROW_KEYS:
-        getattr(pool, k)[free] = attrs[k][:n].to(getattr(pool, k).dtype)
-    pool.alive[free] = True
-    pool.n_alive += n
+    (lowest free indices first); overflow beyond capacity is dropped.
+    `add_rows` with the host count."""
+    pool.n_alive += int(add_rows(pool, attrs, count))
     return pool
+
+
+def add_rows(pool: GaussianPool, attrs: dict, count) -> torch.Tensor:
+    """Row j < min(count, m) of `attrs` to the j-th free slot, in place,
+    in fixed shapes (the JAX package's `add`); `count` is an int or a
+    device scalar.  Returns the rows placed as a device scalar;
+    `pool.n_alive` is not touched.  Every pool row is rewritten with
+    itself or its new value: one pass over the pool, no host read."""
+    m = attrs["means"].shape[0]
+    if m == 0:
+        return torch.zeros((), dtype=torch.int64, device=pool.alive.device)
+    free = ~pool.alive
+    # rank of each free row among the free rows: row r takes attrs[rank]
+    rank = torch.cumsum(free.to(torch.int64), 0) - 1
+    sel = free & (rank < count) & (rank < m)
+    src = rank.clamp(0, m - 1)
+    for k in ROW_KEYS:
+        dst = getattr(pool, k)
+        new = attrs[k].to(dst.dtype)[src]
+        dst.copy_(torch.where(sel.reshape((-1,) + (1,) * (dst.ndim - 1)), new, dst))
+    pool.alive |= sel
+    return sel.sum()
 
 
 def remove(pool: GaussianPool, remove_mask: torch.Tensor) -> GaussianPool:
-    kill = remove_mask & pool.alive
-    pool.alive &= ~kill
-    pool.n_alive -= int(kill.sum())
+    """`remove_rows` with the host count."""
+    pool.n_alive -= int(remove_rows(pool, remove_mask))
     return pool
 
 
+def remove_rows(pool: GaussianPool, remove_mask: torch.Tensor) -> torch.Tensor:
+    """Clear the live rows of `remove_mask` in place and return how many
+    there were, as a device scalar; `pool.n_alive` is not touched."""
+    kill = remove_mask & pool.alive
+    pool.alive &= ~kill
+    return kill.sum()
+
+
 def compact(pool: GaussianPool) -> GaussianPool:
-    """Stable-permute live rows to the pool prefix."""
+    """Stable-permute live rows to the pool prefix, in the pool's own
+    storage."""
     order = torch.argsort((~pool.alive).to(torch.int8), stable=True)
     for k in ROW_KEYS + ("alive",):
-        setattr(pool, k, getattr(pool, k)[order].contiguous())
+        t = getattr(pool, k)
+        t.copy_(t[order])
     return pool

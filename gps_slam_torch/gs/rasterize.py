@@ -24,14 +24,16 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils.static_shape import nonzero_static
 
 GMIN_ALPHA = 1.0 / 255.0
 
 
 class ActiveBins(NamedTuple):
-    """Per-tile lists restricted to tiles that contain Gaussians."""
+    """Per-tile lists restricted to tiles that contain Gaussians (the
+    counts are device scalars in the static form)."""
 
-    tiles: torch.Tensor      # int64 [A] active tile ids (A <= active_cap)
+    tiles: torch.Tensor      # int64 [A] active tile ids (A <= active_cap); T pads
     gids: torch.Tensor       # int32 [A, L] gaussian rows; N (null row) where empty
     valid: torch.Tensor      # bool [A, L]
     n_pairs: int
@@ -50,18 +52,32 @@ def bin_gaussians_active(means2d, radii, tile_size: int, tile_w: int,
                          tile_h: int, visible_cap: int,
                          tiles_per_gaussian_cap: int, tile_cap: int,
                          active_cap: int, margin_px: float = 0.0,
-                         segments: bool = False) -> ActiveBins:
+                         segments: bool = False, static: bool = False) -> ActiveBins:
     """(gaussian, tile) pair expansion with a per-Gaussian tile cap, one
     stable sort by tile id, fixed-width per-tile lists over the tiles that
     received at least one Gaussian.  Every cap that bites is counted.
-    With `segments`, also the backward's `pair_segments` of the lists."""
+    With `segments`, also the backward's `pair_segments` of the lists.
+
+    With `static` (the JAX package's form, for the window megastep) every
+    shape is fixed and nothing is read back to the host: the visible rows
+    are the first `visible_cap` in row order padded with the sentinel N,
+    the lists always hold `active_cap` rows, those past the active tiles
+    naming the tile T and only the null row N, and the counts are device
+    scalars.  The stable sorts keep the real pairs in the order of the
+    dynamic form, so its lists are the dynamic lists, padded."""
     dev = means2d.device
     N = means2d.shape[0]
     T = tile_w * tile_h
     S = max(int(math.isqrt(tiles_per_gaussian_cap)), 1)
-    vis_idx = torch.nonzero(radii > 0)[:, 0][:visible_cap]
-    m2d = means2d[vis_idx].detach()
-    r = radii[vis_idx].to(torch.float32) + margin_px
+    if static:
+        vis_idx = nonzero_static(radii > 0, visible_cap, N)
+        row_ok = vis_idx < N
+        vsafe = torch.where(row_ok, vis_idx, 0)
+    else:
+        vis_idx = vsafe = torch.nonzero(radii > 0)[:, 0][:visible_cap]
+        row_ok = None
+    m2d = means2d[vsafe].detach()
+    r = radii[vsafe].to(torch.float32) + margin_px
 
     def tcoord(x, n):
         return torch.clamp(torch.floor(x / tile_size), 0, n - 1).to(torch.int64)
@@ -83,20 +99,35 @@ def bin_gaussians_active(means2d, radii, tile_size: int, tile_w: int,
     slot = torch.arange(S * S, device=dev)
     dx, dy = slot % S, slot // S
     pair_ok = (dx[None] < span_x[:, None]) & (dy[None] < span_y[:, None])
+    if static:
+        pair_ok = pair_ok & row_ok[:, None]
+        overflow = overflow & row_ok
     tile_id = torch.where(pair_ok, (tmin_y[:, None] + dy[None]) * tile_w
                           + tmin_x[:, None] + dx[None], T).reshape(-1)
     gid = vis_idx[:, None].expand(-1, S * S).reshape(-1)
     tile_s, order = torch.sort(tile_id, stable=True)
     gids_s = gid[order]
-    counts = torch.bincount(tile_s, minlength=T + 1)[:T]
-    start = torch.cumsum(counts, 0) - counts
-    act = torch.nonzero(counts > 0)[:, 0]
-    n_active = act.shape[0]
-    act = act[:active_cap]
     l = torch.arange(tile_cap, device=dev)
-    a_cnt = counts[act]
+    if static:
+        # tile_s is sorted: each tile's pairs start where it is first found
+        bounds = torch.searchsorted(tile_s, torch.arange(T + 1, device=dev))
+        start, counts = bounds[:T], bounds[1:] - bounds[:T]
+        act = nonzero_static(counts > 0, active_cap, T)
+        a_ok = act < T
+        asafe = torch.where(a_ok, act, 0)
+        a_cnt = torch.where(a_ok, counts[asafe], 0)
+        n_active = (counts > 0).sum()
+        n_active_overflow = torch.clamp(n_active - active_cap, min=0)
+    else:
+        counts = torch.bincount(tile_s, minlength=T + 1)[:T]
+        start = torch.cumsum(counts, 0) - counts
+        act = asafe = torch.nonzero(counts > 0)[:, 0]
+        n_active = act.shape[0]
+        act = asafe = act[:active_cap]
+        a_cnt = counts[act]
+        n_active_overflow = max(n_active - active_cap, 0)
     valid = l[None] < a_cnt[:, None]
-    idx = (start[act][:, None] + l[None]).clamp(max=max(gids_s.shape[0] - 1, 0))
+    idx = (start[asafe][:, None] + l[None]).clamp(max=max(gids_s.shape[0] - 1, 0))
     if gids_s.shape[0] == 0:
         gids_a = torch.full((act.shape[0], tile_cap), N, dtype=torch.int32,
                             device=dev)
@@ -104,12 +135,14 @@ def bin_gaussians_active(means2d, radii, tile_size: int, tile_w: int,
         gids_a = torch.where(valid, gids_s[idx], N).to(torch.int32)
     gids_a = gids_a.contiguous()
     seg = pair_segments(gids_a, N) if segments else (None, None, None)
+    counts3 = (pair_ok.sum(), torch.clamp(counts - tile_cap, min=0).sum(),
+               overflow.sum())
+    if not static:
+        counts3 = tuple(int(c) for c in counts3)
     return ActiveBins(
         tiles=act, gids=gids_a, valid=valid,
-        n_pairs=int(pair_ok.sum()),
-        n_tile_overflow=int(torch.clamp(counts - tile_cap, min=0).sum()),
-        n_span_overflow=int(overflow.sum()),
-        n_active_overflow=max(n_active - active_cap, 0),
+        n_pairs=counts3[0], n_tile_overflow=counts3[1], n_span_overflow=counts3[2],
+        n_active_overflow=n_active_overflow,
         pair_order=seg[0], seg_lo=seg[1], seg_hi=seg[2],
     )
 
@@ -364,15 +397,17 @@ def ges_rasterize_active(means2d, conics, colors, opacities, bins: ActiveBins,
     C = colors.shape[1]
     P = tile_size * tile_size
     tiles = bins.tiles
+    tsafe = torch.where(tiles < T, tiles, 0)   # the static form pads with T
     ref_tiles = _tile_view(ref_depth[..., None], tile_h, tile_w, tile_size,
-                           height, width, pad_value=1e9)[tiles, 0].contiguous()
-    px, py = _tile_pixels(tiles, tile_w, tile_size)
+                           height, width, pad_value=1e9)[tsafe, 0].contiguous()
+    px, py = _tile_pixels(tsafe, tile_w, tile_size)
     out = GesSplat.apply(means2d, conics, colors, opacities, gauss_depth,
                          bins.gids, ref_tiles, px, py, bins.pair_order,
                          bins.seg_lo, bins.seg_hi, delta_depth)
-    full = out.new_zeros((T, C + 1, P))
+    # padding rows (only null slots: all zeros) land in row T, cut off
+    full = out.new_zeros((T + 1, C + 1, P))
     full[tiles] = out
-    img = full.reshape(tile_h, tile_w, C + 1, tile_size, tile_size) \
+    img = full[:T].reshape(tile_h, tile_w, C + 1, tile_size, tile_size) \
         .permute(0, 3, 1, 4, 2).reshape(tile_h * tile_size, tile_w * tile_size,
                                          C + 1)[:height, :width]
     return img[..., :C], img[..., C]
@@ -389,18 +424,25 @@ def hoist_window_tiles(bins: ActiveBins, ref_clamped, gt_rgb, base_color,
     per-tile reference depth, gt and base rows, pixel coordinates, the
     crop mask of edge tiles (`pxmask`: pixels past the image edge carry no
     loss) and `inactive_sum`.  The JAX package pads A to a multiple of 64
-    for its chunked scan; padding tiles contribute exact zeros, so the
-    port keeps the exact A."""
+    for its chunked scan; the dynamic form keeps the exact A.  Rows of the
+    static form past the active tiles (tile id T) are padded as the JAX
+    `pad_a` pads: they name tile 0's pixels, hold only the null row, a
+    reference depth of 1e9, zero gt and base rows and a zero `pxmask`,
+    so they add nothing to the loss or its gradient."""
     tile_w = -(-width // tile_size)
     tile_h = -(-height // tile_size)
+    T = tile_w * tile_h
     tiles = bins.tiles
+    on = tiles < T
+    tsafe = torch.where(on, tiles, 0)
     view = lambda img, pad=0.0: _tile_view(img, tile_h, tile_w, tile_size,  # noqa: E731
-                                           height, width, pad)[tiles]
-    ref_tiles = view(ref_clamped[..., None], 1e9)[:, 0].contiguous()
-    gt_t = view(gt_rgb)
-    base_t = view(base_color)
-    px, py = _tile_pixels(tiles, tile_w, tile_size)
-    pxmask = ((px < width) & (py < height)).to(torch.float32)
+                                           height, width, pad)[tsafe]
+    ref_tiles = torch.where(on[:, None], view(ref_clamped[..., None], 1e9)[:, 0],
+                            1e9).contiguous()
+    gt_t = torch.where(on[:, None, None], view(gt_rgb), 0.0)
+    base_t = torch.where(on[:, None, None], view(base_color), 0.0)
+    px, py = _tile_pixels(tsafe, tile_w, tile_size)
+    pxmask = (on[:, None] & (px < width) & (py < height)).to(torch.float32)
     full_sum = (base_color - gt_rgb).abs().sum()
     active_base_sum = ((base_t - gt_t).abs() * pxmask[:, None, :]).sum()
     return {

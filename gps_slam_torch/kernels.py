@@ -96,13 +96,14 @@ RAYCAST = Kernel(
 SPLAT_FWD = Kernel(
     "splat_fwd_cuda", "splat_fwd.cu", "splat_fwd",
     [P, P, P, P, P, P, I, I, I, I, F, P],
-    "live rows staged by TMA; 4 pixels per thread")
+    "live rows staged by TMA; 4 pixels per thread; a tile with no live slot "
+    "writes zeros and exits")
 SPLAT_BWD = Kernel(
     "splat_bwd_cuda", "splat_bwd.cu", "splat_bwd",
     [P, P, P, P, P, P, P, I, I, I, I, F, P],
     "live slots compacted, planes and live rows staged by TMA; (slot, pixel "
     "chunk) items balanced over 128 threads, chunk sums in fixed order; "
-    "contraction on",
+    "contraction on; a tile with no live slot writes zeros and exits",
     flags=("-fmad=true",))
 
 ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD)

@@ -1,13 +1,17 @@
-"""SLAM orchestration, eager gt-pose path — the port of
-gps_slam_tpu/slam/pipeline.py (`slam_train_cams` per-frame branch) and of
-the spawn masks of gps_slam_tpu/slam/megastep.py.
+"""SLAM orchestration, gt-pose path — the port of
+gps_slam_tpu/slam/pipeline.py (`slam_train_cams` per-frame branch and its
+window megastep routing).
 
 Per frame: fuse with the gt pose, then local-window / keyframe
 bookkeeping; every `local_opt_interval` frames: raycast the window and
 the sampled keyframes, spawn Gaussians where the render's colour error is
 high, run `local_opt_iters` Adam steps over the window's cameras
-(`window_optimize`), prune.  Emits the reference's `time_log.txt` line
-format (read by run/read_results.py).
+(`window_optimize`), prune.  Unless PIPE.log_pipeline_time asks for
+per-phase times, a window that passes the JAX package's gates
+(`_can_megastep`: past the bootstrap window, no per-window host hook)
+runs as one `slam/megastep.py` window, replayed as a CUDA graph on the
+card.  Emits the reference's `time_log.txt` line format (read by
+run/read_results.py).
 """
 
 from __future__ import annotations
@@ -26,23 +30,7 @@ from ..tsdf import raycast_tiles
 from ..tsdf.engine import TsdfEngine
 from ..utils import io as uio, vis
 from ..utils.camera import Camera
-from ..utils.se3 import compute_normal_map
-
-def _spawn_mask_bootstrap(depth, vertex, color, gt, vis_min, vis_max,
-                          color_thres):
-    """(mask, normal) for the spawn on an empty model."""
-    valid = (depth > vis_min) & (depth < vis_max) & (vertex.abs().sum(-1) > 0)
-    color_error = (color - gt).abs().mean(-1)
-    return (color_error > color_thres) & valid, compute_normal_map(vertex)
-
-
-def _spawn_mask(depth, vertex, rgb_render, alpha, gt, vis_min, vis_max,
-                color_thres, alpha_max):
-    """(mask, normal) for the alpha-gated spawn."""
-    valid = (depth > vis_min) & (depth < vis_max) & (vertex.abs().sum(-1) > 0)
-    color_error = (rgb_render - gt).abs().mean(-1)
-    mask = (color_error > color_thres) & valid & (alpha < alpha_max)
-    return mask, compute_normal_map(vertex)
+from . import megastep as ms
 
 
 def padded_overflow(per_cam, n_padded: int) -> list[int]:
@@ -94,6 +82,12 @@ class SLAMPipeline:
         self._spawn_overflow = 0
         self._bin_overflow = [0, 0, 0]   # tile, span and active caps
         self._last_loss_hist = None
+        # LOG_PIPELINE_TIME (slam_pipeline.cpp:7,54-66): per-phase times,
+        # so every window takes the per-phase path; off by default
+        self.log_pipeline_time = bool(
+            (cfg.raw.get("PIPE", {}) or {}).get("log_pipeline_time", False))
+        self._megastep_ran = False
+        self._window_graphs = ms.WindowGraphs() if self.device.type == "cuda" else None
         self.t_fusion = self.t_local_raycast = self.t_key_raycast = 0.0
         self.t_init_gs = self.t_opt = self.t_remove = 0.0
 
@@ -104,9 +98,13 @@ class SLAMPipeline:
     # ------------------------------------------------------------------ loop
 
     def slam_train_cams(self, model: GaussianModel, cams: list[Camera]) -> None:
-        """SLAMTrainCams (slam_pipeline.cpp:52-173), one frame at a time."""
+        """SLAMTrainCams (slam_pipeline.cpp:52-173), one frame at a time.
+        A window runs as the megastep when `_can_megastep` allows it and
+        per-phase times are not asked for; its whole time lands in the
+        localOptimize column."""
         p = self.pipe
         total = len(cams)
+        sync = self.log_pipeline_time
         t_start = time.monotonic()
         for i, cam in enumerate(cams):
             t0 = time.monotonic()
@@ -123,6 +121,10 @@ class SLAMPipeline:
                 continue
             if i % p.local_opt_interval == 0 and i > 0:
                 t1 = time.monotonic()
+                if not sync and self._can_megastep(model):
+                    self._run_window_megastep(model)
+                    self.t_opt += (time.monotonic() - t1) * 1000
+                    continue
                 self._raycast_opt_set()
                 self._write_window_raycast_artifacts()
                 self._sync()
@@ -246,6 +248,11 @@ class SLAMPipeline:
         self.localframe_raycast_window = rows[:n_local]
         self.opt_raycast_list = rows
 
+    def _debug_artifacts_on(self) -> bool:
+        """The reference writes per-window debug images only when not
+        profiling (#ifndef LOG_PIPELINE_TIME, slam_pipeline.cpp:429,499)."""
+        return self.pipe.log_slam_state and not self.log_pipeline_time
+
     def _write_window_raycast_artifacts(self) -> None:
         """Per-window raycast comparison images (log_slam_state)."""
         if not self.pipe.log_slam_state:
@@ -264,6 +271,130 @@ class SLAMPipeline:
                 vis.depth_comp_img(rays["depth_map"].cpu().numpy(), cam.depth,
                                    0, p.depth_vis_max, 0, p.depth_error_max))
 
+    # -------------------------------------------------------------- megastep
+
+    def _can_megastep(self, model: GaussianModel) -> bool:
+        """The JAX package's gates (gps_slam_tpu/slam/pipeline.py:494-523):
+        the one-dispatch window applies when every per-window host hook is
+        a no-op: no debug artifacts, no exposure or depth loss, no swapping
+        or space shards, a model past its bootstrap window (the empty
+        model's spawn stays eager), the current frame owning the window's
+        last slot and the engine's intrinsics for every camera."""
+        eng = self.engine
+        if getattr(self, "disable_megastep", False):
+            return False
+        if model.statics.use_exposure or self.pipe.depth_weight > 0:
+            return False
+        if self._debug_artifacts_on():
+            return False
+        if eng.swap is not None or eng.space_shards > 1:
+            return False
+        if model.num_gaussians == 0:
+            return False
+        if (not self.localframe_cam_window
+                or self.localframe_cam_window[-1] is not self.curr_cam):
+            return False
+        cams = self.localframe_cam_window + self.keyframe_cam_list
+        return all(cam.width == eng.width and cam.height == eng.height
+                   and np.allclose(np.asarray(cam.K), eng.K) for cam in cams)
+
+    def _megastep_window(self, model: GaussianModel) -> tuple:
+        """A window megastep's (key, inputs, statics) for the current state
+        (gps_slam_tpu/slam/pipeline.py:525-596): the keyframe sample, the
+        spawn priorities and the iteration camera sequence drawn from the
+        eager path's streams in its order, the opt set padded to window
+        length + keyframe_select_max cameras with its last one, and the
+        static caps.  Only static values make the key: the shapes, the
+        intrinsics, the config and the caps."""
+        p = self.pipe
+        eng = self.engine
+        dev = self.device
+        self.opt_cam_list = list(self.localframe_cam_window)
+        n_sel = (min(p.keyframe_select_max, len(self.keyframe_cam_list))
+                 if p.kf_sample_method == "random" else 0)
+        if n_sel > 0:
+            sel = self._rng.permutation(len(self.keyframe_cam_list))[:n_sel]
+            for k in sel:
+                self.opt_cam_list.append(self.keyframe_cam_list[int(k)])
+        n_local = len(self.localframe_cam_window)
+        n_valid = len(self.opt_cam_list)
+        M = p.localframe_cam_window_length + p.keyframe_select_max
+        cams = [self.opt_cam_list[min(i, n_valid - 1)] for i in range(M)]
+        poses = torch.as_tensor(np.stack([self._recorded_pose(c) for c in cams]),
+                                dtype=torch.float32, device=dev)
+        gt_rgb = [self.frame_cache.get(c)[0] for c in cams]
+        # the eager spawn's draw, from the model's stream
+        noise = torch.rand((eng.height * eng.width,), generator=model.next_rng(),
+                           device=dev)
+        idx_seq: list[int] = []
+        while len(idx_seq) < p.local_opt_iters:
+            idx_seq.extend(int(v) for v in self._rng.permutation(n_valid))
+        iter_idx = torch.as_tensor(idx_seq[:p.local_opt_iters], dtype=torch.int64,
+                                   device=dev)
+        m = self.cfg.model
+        tpu = self.cfg.tpu
+        sc = ms.WindowScalars(
+            depth_vis_min=p.depth_vis_min, depth_vis_max=p.depth_vis_max,
+            color_error_thres=p.color_error_thres, alpha_vis_max=p.alpha_vis_max,
+            new_gs_sample_ratio=p.new_gs_sample_ratio,
+            max_new=tpu.max_new_gaussians, default_opacity=m.default_opacities,
+            min_init_scale=m.min_init_scale, max_init_scale=m.max_init_scale,
+            remove_small=p.remove_small_scale_thres,
+            remove_large=p.remove_large_scale_thres,
+            remove_low_opac=p.remove_low_opac_thres,
+            ssim_weight=p.ssim_weight, depth_weight=p.depth_weight,
+            max_iterations=p.max_iterations)
+        vp = eng.vol.params
+        rk = ms.RayKnobs(width=eng.width, height=eng.height, lb=vp.raycast_lb,
+                         samples=vp.raycast_samples, bisect=max(vp.raycast_bisect, 3))
+        # the opt prefix covers the spawn: taken before it, with its bound
+        opt_cap = model.opt_cap(extra=tpu.max_new_gaussians)
+        st = model.statics
+        tw = -(-st.width // st.tile_size)
+        th = -(-st.height // st.tile_size)
+        st_spawn = st._replace(
+            visible_cap=min(st.visible_cap, opt_cap),
+            active_tile_cap=min(tw * th, max(st.active_tile_cap, opt_cap // 8)))
+        prefix = raycast_tiles.pool_prefix(eng.vol.n_blocks, vp.block_capacity)
+        statics = dict(K=np.asarray(eng.K, np.float32), st=st, st_spawn=st_spawn,
+                       sc=sc, rk=rk, mcfg=m, spawn_idx=n_local - 1,
+                       pool_prefix=prefix, opt_cap=opt_cap,
+                       cam_ids=tuple(c.id for c in cams))
+        key = (M, int(iter_idx.shape[0]), eng.height, eng.width,
+               tuple(statics["K"].ravel().tolist()), vp, st, st_spawn, sc, rk, m,
+               n_local - 1, prefix, opt_cap, False)
+        inputs = {"poses": poses, "gt_rgb": gt_rgb, "iter_cam_idx": iter_idx,
+                  "spawn_noise": noise}
+        return key, inputs, statics
+
+    def _run_window_megastep(self, model: GaussianModel) -> None:
+        """Host half of the window megastep (gps_slam_tpu/slam/pipeline.py
+        :525-619): `_megastep_window`, then one window (a CUDA graph
+        capture or replay on the card) and one read of its counts."""
+        p = self.pipe
+        eng = self.engine
+        key, inputs, statics = self._megastep_window(model)
+        if self._window_graphs is None:
+            st = dict(statics)
+            out = ms.window_megastep(eng.vol, model.pool, inputs["poses"], st.pop("K"),
+                                     torch.stack(inputs["gt_rgb"]),
+                                     inputs["iter_cam_idx"], inputs["spawn_noise"], **st)
+        else:
+            out = self._window_graphs.run(key, eng.vol, model.pool, inputs, **statics)
+        n_alive, n_spawn, tile_o, span_o, act_o, n_vis = torch.stack([
+            out["n_alive"], out["n_spawn_overflow"], out["n_tile_overflow"],
+            out["n_span_overflow"], out["n_active_overflow"], out["n_visible"]]).tolist()
+        model.pool.n_alive = n_alive
+        self._spawn_overflow += n_spawn
+        for i, n in enumerate((tile_o, span_o, act_o)):
+            self._bin_overflow[i] += n
+        eng.peak_visible["raycast"] = max(eng.peak_visible["raycast"], n_vis)
+        self._last_loss_hist = out["loss_hist"].clone()
+        self.localframe_raycast_window = []
+        self.opt_raycast_list = []
+        self.curr_iter += p.local_opt_iters
+        self._megastep_ran = True
+
     # ----------------------------------------------------------------- spawn
 
     def init_new_gaussians(self, model: GaussianModel, raycast_maps: dict) -> None:
@@ -275,12 +406,12 @@ class SLAMPipeline:
         color = raycast_maps["color_map"]
         gt, _ = self.frame_cache.get(cam)
         if model.num_gaussians == 0:
-            mask, normal = _spawn_mask_bootstrap(
+            mask, normal = ms.spawn_mask_bootstrap(
                 depth, vertex, color, gt, p.depth_vis_min, p.depth_vis_max,
                 p.color_error_thres)
         else:
             res = model.forward(cam.c2w_slam, cam.K, depth, color)
-            mask, normal = _spawn_mask(
+            mask, normal = ms.spawn_mask(
                 depth, vertex, res["rgb"], res["alpha"], gt, p.depth_vis_min,
                 p.depth_vis_max, p.color_error_thres, p.alpha_vis_max)
             if p.log_slam_state:
@@ -295,7 +426,7 @@ class SLAMPipeline:
             self.cfg.tpu.max_new_gaussians, self.cfg.model.default_opacities,
             (self.cfg.model.min_init_scale, self.cfg.model.max_init_scale),
             model.next_rng())
-        self._spawn_overflow += n_overflow
+        self._spawn_overflow += int(n_overflow)
 
     # -------------------------------------------------------------- optimize
 

@@ -19,11 +19,13 @@ block's max weight + 1).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
 from ..utils.se3 import pose_inv, sobel_normals
+from ..utils.static_shape import nonzero_static
 from . import hash as vhash
 from .volume import BLOCK, TsdfVolume
 
@@ -34,18 +36,34 @@ N_OUT = 6   # march output channels: t*, confidence, r, g, b, found
 COUNTS = ("n_tile_overflow", "n_visible")  # the map dict's host ints
 
 
+def pool_prefix(n_blocks: int, capacity: int) -> int:
+    """The static block prefix that a window megastep's raycasts bin: the
+    smallest power of two from 2^14 that covers the allocated blocks,
+    capped at the pool's capacity (the JAX engine's `_pool_prefix` bucket,
+    on the port's exact block count).  Rows past `n_blocks` hold the
+    initial summary and are never surface blocks."""
+    b = 1 << 14
+    while b < n_blocks and b < capacity:
+        b <<= 1
+    return min(b, capacity)
+
+
 def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
-               vis_cap: int, lb: int, span_cap: int):
+               vis_cap: int, lb: int, span_cap: int, prefix: int | None = None):
     """Per-tile candidate block lists.  Returns (gids int32 [T, LB] with
     -1 for empty slots, n_overflow, n_visible): the surface blocks in
     depth range number n_visible, of which the first vis_cap in pool order
-    are binned."""
+    are binned.  With a static block `prefix` (`pool_prefix`, the window
+    megastep) every shape is fixed and nothing is read back to the host:
+    the first vis_cap surface blocks of the prefix, padded with empty rows,
+    give the same lists, and the counts are device scalars."""
     p = vol.params
     dev = vol.device
     tw = -(-width // TILE)
     th = -(-height // TILE)
     T = tw * th
-    B = vol.n_blocks
+    static = prefix is not None
+    B = prefix if static else vol.n_blocks
     ext = p.voxel_size * BLOCK
     summ = vol.summary[:B]
     surf = (summ[:, 65] > 0) & (summ[:, 64] < 0.99)
@@ -56,14 +74,18 @@ def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
     zc = cc[:, 2]
     radius = 0.87 * ext
     surf = surf & (zc > p.frustum_min - radius) & (zc < p.frustum_max + radius)
-    vis_idx = torch.nonzero(surf)[:, 0][:vis_cap]
-    V = vis_idx.shape[0]
-    gids = torch.full((T, lb), -1, dtype=torch.int32, device=dev)
-    if V == 0:
-        return gids, 0, 0
+    if static:
+        vis_idx = nonzero_static(surf, vis_cap, B)
+        row_ok = vis_idx < B
+        vis_idx = torch.where(row_ok, vis_idx, 0)
+    else:
+        vis_idx = torch.nonzero(surf)[:, 0][:vis_cap]
+        if vis_idx.shape[0] == 0:
+            return torch.full((T, lb), -1, dtype=torch.int32, device=dev), 0, 0
 
-    offs = torch.tensor([[ox, oy, oz] for ox in (0, 1) for oy in (0, 1)
-                         for oz in (0, 1)], dtype=torch.float32, device=dev) * ext
+    # the 8 corner offsets (x, y, z in {0, 1}, x slowest), made on the device
+    c8 = torch.arange(8, device=dev)
+    offs = torch.stack([c8 >> 2, (c8 >> 1) & 1, c8 & 1], -1).to(torch.float32) * ext
     pts = corner[vis_idx][:, None, :] + offs[None]
     pc = pts @ w2c[:3, :3].T + w2c[:3, 3]
     z = pc[..., 2]
@@ -79,6 +101,8 @@ def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
     v1 = torch.floor(v.amax(1) / TILE)
     on_screen = (u1 >= 0) & (u0 <= tw - 1) & (v1 >= 0) & (v0 <= th - 1)
     vmask = on_screen & (z > p.frustum_min).any(1)
+    if static:
+        vmask = vmask & row_ok
     u0 = u0.clamp(0, tw - 1).to(torch.int64)
     u1 = u1.clamp(0, tw - 1).to(torch.int64)
     v0 = v0.clamp(0, th - 1).to(torch.int64)
@@ -104,15 +128,20 @@ def _tile_bins(vol: TsdfVolume, w2c, fx, fy, cx, cy, width, height,
     order = torch.sort(key.reshape(-1), stable=True).indices
     tiles_s = tile_id.reshape(-1)[order]
     gids_s = vis_idx[:, None].expand(-1, slot.shape[0]).reshape(-1)[order]
-    counts = torch.bincount(tiles_s, minlength=T + 1)[:T]
-    start = torch.cumsum(counts, 0) - counts
+    if static:
+        # tiles_s is sorted: each tile's pairs start where it is first found
+        bounds = torch.searchsorted(tiles_s, torch.arange(T + 1, device=dev))
+        start, counts = bounds[:T], bounds[1:] - bounds[:T]
+    else:
+        counts = torch.bincount(tiles_s, minlength=T + 1)[:T]
+        start = torch.cumsum(counts, 0) - counts
     l = torch.arange(lb, device=dev)
     idx = (start[:, None] + l[None]).clamp(max=gids_s.shape[0] - 1)
     gids = torch.where(l[None] < counts[:, None], gids_s[idx],
                        -1).to(torch.int32)
-    n_overflow, n_visible = torch.stack([
-        torch.clamp(counts - lb, min=0).sum() + span_overflow.sum(),
-        surf.sum()]).tolist()
+    counts2 = torch.stack([torch.clamp(counts - lb, min=0).sum() + span_overflow.sum(),
+                           surf.sum()])
+    n_overflow, n_visible = counts2 if static else counts2.tolist()
     return gids.contiguous(), n_overflow, n_visible
 
 
@@ -390,13 +419,15 @@ def _unpack_img(x: torch.Tensor, th: int, tw: int, height: int, width: int):
 
 def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
             s_coarse: int = 4, s_refine: int = 8, k_blocks: int = 2,
-            need_color: bool = True, need_normals: bool = True) -> dict:
+            need_color: bool = True, need_normals: bool = True,
+            prefix: int | None = None) -> dict:
     """Raycast the volume from `c2w`; the same map dict as the JAX
-    `raycast_pallas.raycast`."""
+    `raycast_pallas.raycast`.  A static block `prefix` bins in fixed shapes
+    with device-scalar counts (`_tile_bins`); `K` is read on the host."""
     p = vol.params
     dev = vol.device
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
-    Kl = torch.as_tensor(K).tolist()
+    Kl = K.tolist() if isinstance(K, np.ndarray) else torch.as_tensor(K).tolist()
     fx, fy, cx, cy = (float(Kl[0][0]), float(Kl[1][1]), float(Kl[0][2]),
                       float(Kl[1][2]))
     w2c = pose_inv(c2w)
@@ -404,7 +435,8 @@ def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
     th = -(-height // TILE)
     T = tw * th
     gids, n_overflow, n_visible = _tile_bins(vol, w2c, fx, fy, cx, cy, width, height,
-                                  p.visible_capacity, lb, span_cap=6)
+                                             p.visible_capacity, lb, span_cap=6,
+                                             prefix=prefix)
     cam = {"fx": fx, "fy": fy, "cx": cx, "cy": cy, "R": c2w[:3, :3],
            "t": c2w[:3, 3], "inv_vox": 1.0 / p.voxel_size,
            "ext": p.voxel_size * BLOCK, "fmin": p.frustum_min,
@@ -448,11 +480,14 @@ def hit_normals(vertex_img: torch.Tensor, depth_img: torch.Tensor) -> torch.Tens
 
 def raycast_batch(vol: TsdfVolume, c2ws, K, width: int, height: int,
                   lb: int = 24, s_coarse: int = 4, s_refine: int = 8,
-                  k_blocks: int = 2, need_normals: bool = False) -> dict:
+                  k_blocks: int = 2, need_normals: bool = False,
+                  prefix: int | None = None) -> dict:
     """`raycast` over M poses, stacked [M, ...] (overflow counts summed,
-    the largest visible count kept)."""
+    the largest visible count kept; device scalars with a static
+    `prefix`)."""
     return stack_maps([raycast(vol, c2w, K, width, height, lb, s_coarse,
-                               s_refine, k_blocks, need_normals=need_normals)
+                               s_refine, k_blocks, need_normals=need_normals,
+                               prefix=prefix)
                        for c2w in c2ws])
 
 
@@ -461,6 +496,10 @@ def stack_maps(outs: list[dict]) -> dict:
     the largest visible count kept)."""
     res = {k: torch.stack([o[k] for o in outs]) for k in outs[0]
            if k not in COUNTS}
-    res["n_tile_overflow"] = sum(o["n_tile_overflow"] for o in outs)
-    res["n_visible"] = max(o["n_visible"] for o in outs)
+    if torch.is_tensor(outs[0]["n_visible"]):   # device scalars: no host read
+        res["n_tile_overflow"] = torch.stack([o["n_tile_overflow"] for o in outs]).sum()
+        res["n_visible"] = torch.stack([o["n_visible"] for o in outs]).amax()
+    else:
+        res["n_tile_overflow"] = sum(o["n_tile_overflow"] for o in outs)
+        res["n_visible"] = max(o["n_visible"] for o in outs)
     return res

@@ -23,8 +23,11 @@ def pose_inv(c2w: torch.Tensor) -> torch.Tensor:
     t_inv = -(Rt[..., :, 0:1] * t[..., 0:1, :] + Rt[..., :, 1:2] * t[..., 1:2, :]
               + Rt[..., :, 2:3] * t[..., 2:3, :])
     top = torch.cat([Rt, t_inv], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w.dtype,
-                          device=c2w.device).expand(*top.shape[:-2], 1, 4)
+    # filled on the device (`t[i] = 1.0` copies a host scalar, which a
+    # CUDA graph cannot capture)
+    bottom = c2w.new_zeros(4)
+    bottom[3:].fill_(1.0)
+    bottom = bottom.expand(*top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -141,10 +144,11 @@ def compute_vertex_map(depth: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
 def _sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Replicate-padded Sobel gradients per channel, [H,W,C] -> dx, dy
     (cross-correlation, no normalization)."""
-    wx = torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], dtype=img.dtype,
-                      device=img.device)
-    wy = torch.tensor([[-1, -2, -1], [0, 0, 0], [1, 2, 1]], dtype=img.dtype,
-                      device=img.device)
+    # [-1, 0, 1] and [1, 2, 1] made on the device (no host-to-device copy)
+    d = torch.arange(3, dtype=img.dtype, device=img.device) - 1.0
+    s = 2.0 - d.abs()
+    wx = s[:, None] * d[None, :]    # [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
+    wy = d[:, None] * s[None, :]    # [[-1, -2, -1], [0, 0, 0], [1, 2, 1]]
     x = img.permute(2, 0, 1)[:, None]                       # [C,1,H,W]
     x = F.pad(x, (1, 1, 1, 1), mode="replicate")
     dx = F.conv2d(x, wx[None, None])

@@ -1198,3 +1198,189 @@ def test_lpips_cuda_matches_cpu(cuda_device):
     got = lpips_torch.LpipsTorch(w, cuda_device)(a, b)
     want = lpips_torch.LpipsTorch(w, "cpu")(a, b)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+
+
+ROW_KEYS_CUDA = ("means", "scales", "quats", "features_dc", "features_rest", "opacities")
+
+
+def _megastep_window(cuda_device, fused, tmp_path):
+    """One window megastep's state and inputs on the card: the fixture's
+    volume, a pool spawned on the CPU from three frames' maps, the
+    synthetic config's statics (128 x 96), M = 4 padded poses."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.gs import model as tmodel
+    from gps_slam_torch.slam import megastep as ms
+
+    vol, cams = fused
+    W, H = cams[0].width, cams[0].height
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": 7, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    cfg = Config.from_dict(synthetic.default_config_dict(str(tmp_path), node))
+    model = tmodel.GaussianModel(cfg, W, H, device="cpu")
+    mask = torch.zeros((H, W), dtype=torch.bool)
+    mask[::6, ::6] = True
+    for i, cam in enumerate(cams[:3]):
+        fm = cam.get_frame_maps("cpu")
+        tmodel.add_gaussians(model.pool, fm["vertex_map"], fm["color_map"],
+                             fm["normal_map"], mask, 0.6, 1024, 0.5, (0.001, 0.05),
+                             torch.Generator().manual_seed(i))
+    p, m, tpu = cfg.pipe, cfg.model, cfg.tpu
+    opt_cap = model.opt_cap(extra=tpu.max_new_gaussians)
+    st = model.statics
+    n_tiles = -(-W // st.tile_size) * -(-H // st.tile_size)
+    vp = vol.params
+    statics = dict(
+        K=np.asarray(c0.K, np.float32), st=st, mcfg=m, spawn_idx=1, opt_cap=opt_cap,
+        st_spawn=st._replace(visible_cap=min(st.visible_cap, opt_cap),
+                             active_tile_cap=min(n_tiles, max(st.active_tile_cap,
+                                                              opt_cap // 8))),
+        sc=ms.WindowScalars(
+            p.depth_vis_min, p.depth_vis_max, p.color_error_thres, p.alpha_vis_max,
+            p.new_gs_sample_ratio, tpu.max_new_gaussians, m.default_opacities,
+            m.min_init_scale, m.max_init_scale, p.remove_small_scale_thres,
+            p.remove_large_scale_thres, p.remove_low_opac_thres, p.ssim_weight,
+            p.depth_weight, p.max_iterations),
+        rk=ms.RayKnobs(W, H, 16, 4, 6),
+        pool_prefix=trc.pool_prefix(vol.n_blocks, vp.block_capacity))
+    pool_np = {k: v.numpy() for k, v in model.pool.params.items()}
+    return (_to(vol, cuda_device), pool_np, model.pool.alive.numpy(), cams, statics)
+
+
+def _window_inputs(cams, device, seed):
+    """A window's data: M = 4 poses of 3 cameras (the last repeated), their
+    gt frames, 6 steps over them and the spawn priorities."""
+    rng = np.random.default_rng(seed)
+    sel = list(rng.choice(len(cams), 3, replace=False))
+    sel.append(sel[-1])
+    H, W = cams[0].height, cams[0].width
+    return {"poses": torch.as_tensor(np.stack([cams[i].c2w for i in sel]), device=device),
+            "gt_rgb": [torch.as_tensor(cams[i].image, device=device) for i in sel],
+            "iter_cam_idx": torch.as_tensor(rng.integers(0, 3, 6), device=device),
+            "spawn_noise": torch.as_tensor(rng.random(H * W).astype(np.float32),
+                                           device=device)}
+
+
+def _uncaptured(vol, pool, inp, statics):
+    from gps_slam_torch.slam import megastep as ms
+
+    st = dict(statics)
+    return ms.window_megastep(vol, pool, inp["poses"], st.pop("K"),
+                              torch.stack(inp["gt_rgb"]), inp["iter_cam_idx"],
+                              inp["spawn_noise"], **st)
+
+
+@pytest.mark.cuda
+def test_megastep_graph_replays_equal_uncaptured(cuda_device, fused, tmp_path):
+    """Three windows with other poses, camera sequences and spawn
+    priorities through `WindowGraphs` (one capture, then two replays of the
+    same graph) against the same windows run uncaptured on a copy of the
+    pool: pools, loss histories and counts bit for bit.  The graph's
+    recorded launches: K3 once per pose, K4 once for the spawn render and
+    once per step, K5 once per step."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import megastep as ms
+
+    vol, pool_np, alive, cams, statics = _megastep_window(cuda_device, fused, tmp_path)
+    ref = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    pool = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    graphs = ms.WindowGraphs()
+    key = ("test", statics["opt_cap"], statics["pool_prefix"])
+    for w in range(3):
+        inp = _window_inputs(cams, cuda_device, seed=10 + w)
+        want = _uncaptured(vol, ref, inp, statics)
+        got = graphs.run(key, vol, pool, inp, **statics)
+        torch.cuda.synchronize()
+        assert graphs.last == (key, "capture" if w == 0 else "replay")
+        for k in want:
+            assert torch.equal(got[k], want[k]), (w, k)
+        for k in (*ROW_KEYS_CUDA, "alive"):
+            assert torch.equal(getattr(pool, k), getattr(ref, k)), (w, k)
+        assert int(got["n_alive"]) == int(pool.alive.sum()) > 0
+    assert (graphs.captures, graphs.replays) == (1, 2)
+    (g,) = graphs.graphs.values()
+    assert g.launches[kernels.RAYCAST.name] == 4
+    assert g.launches[kernels.SPLAT_FWD.name] == 1 + 6
+    assert g.launches[kernels.SPLAT_BWD.name] == 6
+    assert graphs.replayed_launches[kernels.SPLAT_BWD.name] == 12
+    assert g.memory_bytes > 0
+
+
+
+@pytest.mark.cuda
+def test_megastep_graphs_drop_on_rebinding(cuda_device, fused, tmp_path):
+    """A pool tensor rebound to new storage drops the captured graphs: the
+    next run captures again (and equals the uncaptured window)."""
+    from gps_slam_torch.slam import megastep as ms
+
+    vol, pool_np, alive, cams, statics = _megastep_window(cuda_device, fused, tmp_path)
+    pool = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    graphs = ms.WindowGraphs()
+    key = ("test",)
+    graphs.run(key, vol, pool, _window_inputs(cams, cuda_device, 1), **statics)
+    graphs.run(key, vol, pool, _window_inputs(cams, cuda_device, 2), **statics)
+    assert (graphs.captures, graphs.replays, graphs.dropped) == (1, 1, 0)
+    pool.means = pool.means.clone()
+    ref = convert.pool_from_numpy({k: v.cpu().numpy() for k, v in pool.params.items()},
+                                  pool.alive.cpu().numpy(), cuda_device)
+    inp = _window_inputs(cams, cuda_device, 3)
+    got = graphs.run(key, vol, pool, inp, **statics)
+    want = _uncaptured(vol, ref, inp, statics)
+    assert (graphs.captures, graphs.dropped, graphs.last[1]) == (2, 1, "capture")
+    assert torch.equal(got["loss_hist"], want["loss_hist"])
+    assert torch.equal(pool.means, ref.means)
+
+
+@pytest.mark.cuda
+def test_megastep_graphs_keep_the_last_keys(cuda_device, fused, tmp_path):
+    """With room for one graph, a window under a second key drops the
+    first key's graph, and a window under the first key captures it
+    again; every window equals its uncaptured run."""
+    from gps_slam_torch.slam import megastep as ms
+
+    vol, pool_np, alive, cams, statics = _megastep_window(cuda_device, fused, tmp_path)
+    ref = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    pool = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    graphs = ms.WindowGraphs(max_graphs=1)
+    events = []
+    for w, key in enumerate(("a", "a", "b", "a")):
+        inp = _window_inputs(cams, cuda_device, seed=20 + w)
+        want = _uncaptured(vol, ref, inp, statics)
+        got = graphs.run((key,), vol, pool, inp, **statics)
+        events.append(graphs.last[1])
+        assert torch.equal(got["loss_hist"], want["loss_hist"]), w
+        assert torch.equal(pool.means, ref.means), w
+        assert list(graphs.graphs) == [(key,)]
+    assert events == ["capture", "replay", "capture", "capture"]
+    assert (graphs.captures, graphs.replays, graphs.dropped) == (3, 1, 2)
+    assert graphs.peak_resident == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ssim_weight", [0.0, 0.2], ids=["tile_loss", "ssim"])
+def test_megastep_reads_nothing_back_on_the_card(cuda_device, fused, tmp_path,
+                                                 ssim_weight):
+    """The whole window, uncaptured, under
+    torch.cuda.set_sync_debug_mode("error"): any call that synchronises
+    with the host (a read-back, a pageable copy) raises.  Its constants
+    are made first, as `WindowGraphs` makes them before a capture.  With
+    PIPE.ssim_weight > 0 the window takes the image-space loss (stacked
+    SSIM moments, the gathered render over padded tile lists)."""
+    from gps_slam_torch.slam import megastep as ms
+
+    vol, pool_np, alive, cams, statics = _megastep_window(cuda_device, fused, tmp_path)
+    statics["sc"] = statics["sc"]._replace(ssim_weight=ssim_weight)
+    pool = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    inp = _window_inputs(cams, cuda_device, 4)
+    ms.hoist_constants(statics["mcfg"], statics["sc"], inp["iter_cam_idx"].shape[0],
+                       cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _uncaptured(vol, pool, inp, statics)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out["loss_hist"]).all() and int(out["n_alive"]) > 0
