@@ -13,7 +13,13 @@ Phases (any failure exits non-zero before the final line):
      the trained path's lower bound;
   3. main path: the same loop with the Adam window (`local_opt_iters` 20
      per window, as bench.py runs it: bench.py's Replica-equivalent
-     config), >= 2 optimization windows, then an eval render; K1, K3, K4
+     config), >= 2 optimization windows, then an eval render; fusion, on
+     every gt-pose path but swap and sharded, in `_fusion_groups` groups
+     of up to TPU.fuse_chunk 8 frames, each frame a replay of the fusion
+     frame's CUDA graph (captured once per frame size), counts read once
+     per group (each path line's `fusion_route`, `fusion_graphs` and
+     `fusion_ms_per_frame`), then `[chunk witness]`: the same frames with
+     fuse_chunk 1, volumes, poses and PSNR bit for bit; K1, K3, K4
      and K5 must launch and K2 must not, each window's loss must fall from
      its first epoch of cameras to its last, and the eval PSNR must clear
      both the 15 dB floor and the forward-only PSNR.  The first window
@@ -38,10 +44,17 @@ Phases (any failure exits non-zero before the final line):
   6. tracked path: tracked `train` mode (PIPE.TSDF.use_gt_pose false,
      make_tracker's ICP, policy ignore) at 1200x680 for 30 frames of an
      inward-looking orbit (look="in", arc 0.05: ~0.6 degrees a frame),
-     frame 0 seeded with its gt pose, 2 windows x 20 Adam steps: K1 and
-     the tracking-prepare K3 (need_color False, k_blocks 1) once per
-     frame; ATE below 3 voxels, the last pose within 2 cm and 2 degrees,
-     GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
+     frame 0 seeded with its gt pose, 2 windows x 20 Adam steps, each
+     frame after the first the tracked megastep (one CUDA graph: ICP,
+     the revert, fusion, the next prepare raycast; one read a frame),
+     then the same frames on the eager route as its witness: K1 and the
+     tracking-prepare K3 (need_color False, k_blocks 1) once per frame;
+     each run: ATE below 3 voxels, the last pose within 2 cm and 2
+     degrees, GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
+     `[tracked routes]` gives both routes' ms per tracked frame over the
+     same scope (engine.process_frame: ICP, revert, fusion, the next
+     prepare raycast; median, mean, least, most, first) and the eager
+     route's split;
   7. swap path: gt-pose `train` at 1200x680 on a full outward turn (40
      frames) with the block pool cut to 16,384 rows and host swapping on
      (check every 2 frames, waters 0.80 / 0.50): blocks spill and reload,
@@ -82,7 +95,12 @@ Phases (any failure exits non-zero before the final line):
      loop at 128x96 (8 frames, look="in") on the card and the CPU in
      lockstep (the card fuses at the CPU's poses): equal quality labels,
      each frame's estimates within 1 voxel and 0.1 degree, all but one
-     within 1 mm; the swap fixture of tests/test_swapping.py (128x96, 24
+     within 1 mm; `[reference chunked]`: the fusion fixtures through the
+     chunk route (a capture and 5 replays on the card) on both devices,
+     with the gates above; `[tracked megastep reference]`: 4 tracked
+     frames at 128x96 through the megastep's graph (a capture, 2
+     replays) and uncaptured, bit for bit; the swap fixture of
+     tests/test_swapping.py (128x96, 24
      frames, 1024-block pool) on both devices: equal counts, key sets and
      store keys at every check, words within fusion's tolerance; and the
      offline raw path at 128x96: one render and its gradients, then 20
@@ -293,6 +311,14 @@ _L2_FLUSH = None
 _HOST_LEAD_CYCLES = 2_000_000
 
 
+def spread_ms(ms: list) -> dict:
+    """Mean, median, least and most of host-clock times (ms), and the
+    first (which holds a capture or a warm-up)."""
+    return {"mean": float(np.mean(ms)), "median": float(np.median(ms)),
+            "min": float(np.min(ms)), "max": float(np.max(ms)), "first": float(ms[0]),
+            "n": len(ms)}
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean CUDA-event time of fn over `reps` launches, each after a write
     of 128 MiB that evicts the 50 MB L2 (the main path reaches each kernel
@@ -379,7 +405,7 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
 
 def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
              shards: int = 1, tpu: dict | None = None, megastep: bool = True,
-             extras: dict | None = None):
+             extras: dict | None = None, fast_track: bool = True):
     """Drive the train loop with `iters` Adam steps per window over `cams`,
     then the eval render, with every kernel count set to 0 just before and
     read just after; check the output and return the numbers of the
@@ -387,7 +413,12 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     kernel of the frame size's route: it must launch once per frame, the
     other one never.  Poses are the gt ones, or with `tracked` (the
     Recorder of the kernel wrappers' calls) the ICP tracker's (frame 0
-    seeded with its gt pose), timed apart from fusion.  `swap` (TPU
+    seeded with its gt pose): each later frame the tracked megastep (a
+    CUDA graph: track, revert, fuse, prepare raycast), or with
+    `fast_track` False the eager route (the tracker timed apart from
+    fusion).  Gt-pose fusion runs in `_fusion_groups` groups (each frame a
+    replay of the fusion frame's graph) unless TPU.fuse_chunk is 1, shards
+    or swapping make it per frame: `fusion_route`.  `swap` (TPU
     settings) turns host swapping on, instrumented by `SwapStats`.  With
     `shards` > 1 the pool splits into that many space shards
     (`TPU.space_shards`): fusion launches once per shard and frame, K3 once
@@ -421,6 +452,8 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     track = swapped = None
     if tracked is not None:
         engine.set_gt_poses([cams[0].c2w])
+        if not fast_track:
+            engine._can_fast_track = lambda: False
         track = TrackedStats(engine, make_tracker(cfg, W, H), tracked)
     else:
         engine.set_gt_poses([c.c2w for c in cams])
@@ -526,8 +559,11 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
             swapped.detach()
     launches = kernels.counts()
     graphs = pipe._window_graphs
-    for name, n in graphs.replayed_launches.items():
-        launches[name] += n   # a replay launches without calling a wrapper
+    # a replay launches without calling a wrapper
+    for g in (graphs, engine._fusion_graphs, engine._track_graphs):
+        for name, n in g.replayed_launches.items():
+            launches[name] += n
+    fg = engine._fusion_graphs
     psnrs = []
     for cs, rgb in renders:
         if tuple(rgb.shape) != (len(cs), H, W, 3) or not bool(torch.isfinite(rgb).all()):
@@ -539,7 +575,11 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
         "frames": N, "width": W, "height": H, "windows": n_windows,
         "local_opt_iters": iters,
         "train_s": train_s, "fps": N / train_s,
+        "fusion_route": ("chunked" if cfg.tpu.fuse_chunk > 1 and engine.can_chunk_fusion()
+                         else "per frame"),
         "fusion_ms_per_frame": pipe.t_fusion / N,
+        "fusion_graphs": {"captures": fg.captures, "replays": fg.replays,
+                          "dropped": fg.dropped, "graph_mb": fg.memory_bytes / 2 ** 20},
         "window_raycast_ms_total": pipe.t_local_raycast,
         "spawn_ms_total": pipe.t_init_gs, "window_opt_ms_total": pipe.t_opt,
         "prune_ms_total": pipe.t_remove,
@@ -568,7 +608,7 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     if track is not None:
         out.update(track.summary(cams))
         out["fusion_ms_per_frame"] = (pipe.t_fusion - track.track_ms
-                                      - track.prepare_ms) / N
+                                      - track.prepare_ms - track.megastep_ms) / N
     if swapped is not None:
         out.update(swapped.summary())
     if shards > 1:
@@ -584,6 +624,12 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     for k in (kernels.RAYCAST, kernels.SPLAT_FWD):
         if launches[k.name] <= 0:
             raise RuntimeError(f"{tag}: kernel {k.name} was not launched")
+    want_route = ("chunked" if tracked is None and swap is None and shards == 1
+                  and cfg.tpu.fuse_chunk > 1 else "per frame")
+    if out["fusion_route"] != want_route or (
+            want_route == "chunked") != (fg.captures + fg.replays == N):
+        raise RuntimeError(f"{tag}: fusion took the route {out['fusion_route']} with "
+                           f"{out['fusion_graphs']}, not {want_route}")
     idle = kernels.INTEGRATE_F32 if fusion is kernels.INTEGRATE else kernels.INTEGRATE
     if launches[fusion.name] != N * shards or launches[idle.name] != 0:
         raise RuntimeError(f"{tag}: {launches[fusion.name]} {fusion.name} launches for "
@@ -631,18 +677,39 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
 
 
 class TrackedStats:
-    """Wraps the tracker and the engine's single-view raycast (in this path
-    only the tracking-prepare raycast) to time them apart from fusion and
-    to count the prepare raycast's K3 launches; keeps the arguments of the
-    last prepare `march` call as `rec.last["tracking prepare"]`."""
+    """Times a tracked run's frames and counts their tracking-prepare K3
+    launches.  On both routes it times each `engine.process_frame` call
+    whole (ICP, revert, fusion, the next prepare raycast: the same scope
+    on both routes); on the eager route it also wraps the tracker and the
+    engine's single-view raycast (in this path only the tracking-prepare
+    raycast) to time them apart from fusion; on the megastep route it
+    wraps the engine's megastep frame (track, revert, fuse, prepare
+    raycast and the one read) and the run of its graph (the copy of the
+    inputs and the replay, synchronised).  Keeps the arguments of the last prepare
+    `march` call as `rec.last["tracking prepare"]` (on the megastep route
+    those of the call recorded at the graph's capture, whose tensors hold
+    the last replay's values)."""
 
     def __init__(self, engine, tracker, rec):
         from gps_slam_torch import kernels
 
-        self.track_ms = self.prepare_ms = 0.0
+        self.track_ms = self.prepare_ms = self.megastep_ms = 0.0
         self.prepare_k3 = 0
-        self.quality, self.iters = [], []
+        self.quality, self.iters, self.frame_ms = [], [], []
+        self.graph_ms = {"capture": [], "replay": []}
         track, run_raycast = tracker.track, engine.run_raycast
+        process = engine.process_frame
+        fast = engine._process_frame_fast_tracked
+        graphs = engine._track_graphs
+        graph_run = graphs.run
+
+        def timed_frame(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            pose = process(*a, **kw)
+            torch.cuda.synchronize()
+            self.frame_ms.append((time.monotonic() - t) * 1e3)
+            return pose
 
         def timed_track(*a, **kw):
             torch.cuda.synchronize()
@@ -664,10 +731,35 @@ class TrackedStats:
             rec.last["tracking prepare"] = rec.last["march"]
             return maps
 
+        def timed_fast(*a, **kw):
+            torch.cuda.synchronize()
+            n0 = kernels.RAYCAST.launches + graphs.replayed_launches[kernels.RAYCAST.name]
+            t = time.monotonic()
+            pose = fast(*a, **kw)   # ends in the read of the frame's results
+            self.megastep_ms += (time.monotonic() - t) * 1e3
+            self.prepare_k3 += (kernels.RAYCAST.launches
+                                + graphs.replayed_launches[kernels.RAYCAST.name] - n0)
+            self.quality.append(engine._tracking_quality)
+            self.iters.append(list(tracker.last_iters))
+            if graphs.last[1] == "capture":
+                rec.last["tracking prepare"] = rec.last["march"]
+            return pose
+
+        def timed_graph(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = graph_run(*a, **kw)
+            torch.cuda.synchronize()
+            self.graph_ms[graphs.last[1]].append((time.monotonic() - t) * 1e3)
+            return out
+
         tracker.track = timed_track
         engine.attach_tracker(tracker)
+        engine.process_frame = timed_frame
         engine.run_raycast = timed_prepare
-        self.engine = engine
+        engine._process_frame_fast_tracked = timed_fast
+        graphs.run = timed_graph
+        self.engine, self.graphs = engine, graphs
 
     def summary(self, cams) -> dict:
         from gps_slam_torch.eval import metrics as M
@@ -676,12 +768,27 @@ class TrackedStats:
         est, gt = self.engine.cam_poses, [c.c2w for c in cams]
         R = est[-1][:3, :3].T @ gt[-1][:3, :3]
         n = len(self.quality)
+        g = self.graphs
+        mega = g.captures + g.replays > 0
         return {
             "tracked_frames": n,
-            "tracking_ms_per_frame": self.track_ms / max(n, 1),
+            "tracking_route": "megastep" if mega else "eager",
+            # the ICP alone: eager route only (inside the graph it is not
+            # timed apart from the frame's fusion and prepare raycast)
+            "tracking_ms_per_frame": None if mega else self.track_ms / max(n, 1),
+            # engine.process_frame of each tracked frame, on either route:
+            # ICP, revert, fusion, the next prepare raycast (megastep: the
+            # first holds the graph's capture)
+            "tracked_frame_ms": spread_ms(self.frame_ms[1:]),
+            "megastep_graphs": {"captures": g.captures, "replays": g.replays,
+                                "dropped": g.dropped, "graph_mb": g.memory_bytes / 2 ** 20,
+                                "capture_ms": self.graph_ms["capture"],
+                                "replay_ms_mean": float(np.mean(self.graph_ms["replay"]))
+                                if self.graph_ms["replay"] else None},
             "tracking_prepare_raycast_ms_total": self.prepare_ms,
             "tracking_prepare_k3_launches": self.prepare_k3,
             "gn_iters_mean_per_level": [float(v) for v in np.mean(self.iters, 0)],
+            "gn_iters_budget_per_level": list(self.engine._tracker.level_iters),
             "quality": {name: sum(q == v for q in self.quality) for name, v in (
                 ("GOOD", TrackerQuality.GOOD), ("POOR", TrackerQuality.POOR),
                 ("FAILED", TrackerQuality.FAILED))},
@@ -694,6 +801,9 @@ class TrackedStats:
     def check(self, tag: str, out: dict) -> None:
         vox_cm = self.engine.params.voxel_size * 100
         n = out["frames"]
+        g = out["megastep_graphs"]
+        if g["captures"] + g["replays"] not in (0, n - 1):
+            raise RuntimeError(f"{tag}: {g} megastep frames for {n - 1} tracked frames")
         if out["tracking_prepare_k3_launches"] != n:
             raise RuntimeError(f"{tag}: {out['tracking_prepare_k3_launches']} tracking-"
                                f"prepare K3 launches for {n} frames")
@@ -812,27 +922,53 @@ def synthetic_cams(n: int, width: int, height: int, look: str = "out",
     return cams
 
 
-def main_path(args) -> dict:
+def main_path(args, rec) -> tuple:
     """The forward-only path (no Adam steps), then the main path with
-    ADAM_STEPS per window over the same frames, at 1200x680 (K1's route);
-    the main path's eval PSNR must be at least the forward-only one's.
-    Also returns the main path's `AllocFrames`."""
+    ADAM_STEPS per window over the same frames, at 1200x680 (K1's route),
+    fusion in `_fusion_groups` groups; the main path's eval PSNR must be
+    at least the forward-only one's.  Then `[chunk witness]`: the main
+    path once more with TPU.fuse_chunk 1 (every frame fused on its own,
+    counts read every frame): the volumes (hash table, block keys, state,
+    colour, summary and last-seen rows), the poses and the eval PSNR bit
+    for bit.  Returns the main path's numbers, engine, model and cameras,
+    its `AllocFrames` (taken on the witness, whose pool rows are the main
+    path's) and the last kernel calls of the chunked run."""
     from gps_slam_torch import kernels
 
     cams = synthetic_cams(N_FRAMES, 1200, 680)
     fwd, _, _ = run_path(args, cams, 0, "forward-only path", kernels.INTEGRATE)
-    alloc = AllocFrames()
-    try:
-        out, engine, model = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
-    finally:
-        alloc.detach()
+    out, engine, model = run_path(args, cams, ADAM_STEPS, "main path", kernels.INTEGRATE)
+    last = dict(rec.last)
     if out["adam_steps"] != ADAM_STEPS * out["windows"]:
         raise RuntimeError(f"main path ran {out['adam_steps']} Adam steps")
     if not out["psnr_mean"] >= fwd["psnr_mean"]:
         raise RuntimeError(f"trained eval PSNR {out['psnr_mean']} below the "
                            f"forward-only {fwd['psnr_mean']}")
     out["forward_only_psnr_mean"] = fwd["psnr_mean"]
-    return out, engine, model, cams, alloc
+    alloc = AllocFrames()
+    try:
+        wit, w_engine, _ = run_path(args, cams, ADAM_STEPS, "main path, per-frame fusion",
+                                    kernels.INTEGRATE, tpu={"fuse_chunk": 1})
+    finally:
+        alloc.detach()
+    alloc.marks[id(engine.vol)] = alloc.marks.pop(id(w_engine.vol))
+    fields = ("table_keys", "table_ptrs", "block_coords", "state", "color", "summary",
+              "last_seen")
+    res = {"fusion_ms_per_frame": {"chunked": out["fusion_ms_per_frame"],
+                                   "per_frame": wit["fusion_ms_per_frame"]},
+           "fusion_graphs": out["fusion_graphs"],
+           "n_blocks": [engine.vol.n_blocks, w_engine.vol.n_blocks],
+           "not_equal": [k for k in fields
+                         if not torch.equal(getattr(engine.vol, k), getattr(w_engine.vol, k))],
+           "poses_equal": bool(np.array_equal(np.stack(engine.cam_poses),
+                                              np.stack(w_engine.cam_poses))),
+           "psnr_mean": [out["psnr_mean"], wit["psnr_mean"]]}
+    log("[chunk witness] " + json.dumps(res))
+    if (res["not_equal"] or not res["poses_equal"] or res["n_blocks"][0] != res["n_blocks"][1]
+            or res["psnr_mean"][0] != res["psnr_mean"][1]):
+        raise RuntimeError(f"chunk witness: chunked fusion differs from per-frame: {res}")
+    out["chunk_witness"] = res
+    return out, engine, model, cams, alloc, last
 
 
 def _pool_rows_apart(a: dict, b: dict, mcfg) -> dict:
@@ -1062,13 +1198,23 @@ def k1_row(tag: str | None, call: tuple, launches: int) -> dict:
     ms = time_ms(lambda: tint.integrate_blocks_packed(depth, rgbp, keys, ptrs, st, co, su, *rest), 50)
     st, co, su = state.clone(), color.clone(), summary.clone()
     plain_ms = time_ms(lambda: tint.integrate_blocks_packed_plain(depth, rgbp, keys, ptrs, st, co, su, *rest), 5, 1)
+    # the same launch on the rows to integrate alone: the padded rows'
+    # cost is the difference, and the pools the same bits
+    live = torch.nonzero(ptrs >= 0)[:, 0]
+    keys_l, ptrs_l = keys[live].contiguous(), ptrs[live].contiguous()
+    st, co, su = state.clone(), color.clone(), summary.clone()
+    tint.integrate_blocks_packed(depth, rgbp, keys_l, ptrs_l, st, co, su, *rest)
+    ok = ok and all(torch.equal(x, y) for x, y in ((st, sk), (co, ck), (su, uk)))
+    st, co, su = state.clone(), color.clone(), summary.clone()
+    ms_live = time_ms(lambda: tint.integrate_blocks_packed(depth, rgbp, keys_l, ptrs_l, st, co, su, *rest), 50)
     V, Vv = keys.shape[0], sel.shape[0]
-    # the tapped pixels' depth and rgb words, every row's key and pool row,
-    # the integrated rows' state and colour read and written, their summary
+    # the tapped pixels' depth and rgb words, the integrated rows' keys and
+    # pool rows, state and colour read and written, and summary rows (a
+    # padded row, pool row -1, is not work the function needs)
     w2c, fx, fy, cx, cy, vs = rest[:6]
     n_px = tap_pixels(keys[ptrs >= 0], w2c, fx, fy, cx, cy, depth.shape[1],
                       depth.shape[0], vs)
-    n_bytes = (n_px * 8 + V * 8
+    n_bytes = (n_px * 8 + Vv * 8
                + Vv * BLOCK_VOL * 4 * 4 + Vv * 128 * 4)
     n_ops = Vv * BLOCK_VOL * 110
     b, by = bound_ms(n_bytes, n_ops)
@@ -1080,14 +1226,15 @@ def k1_row(tag: str | None, call: tuple, launches: int) -> dict:
             "max_abs_err": float(max(sdf_err / 32767.0, col_err / 255.0, sum_err)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": None, "ok": ok,
-            "bytes": n_bytes, "ops": n_ops,
+            "bytes": n_bytes, "ops": n_ops, "ms_live_rows": ms_live,
             "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
                        "pool_rows": state.shape[0], "tap_pixels": n_px},
             "tolerance": "whole pools: rows outside the integration set "
                          "unchanged; weights equal, sdf within 1 quantum, "
                          "colour channels within 1, >= 99.9% of the "
                          "integrated rows' state and colour words equal; "
-                         "summary within 1e-6",
+                         "summary within 1e-6; the launch on the integrated "
+                         "rows alone gives the same bits",
             "word_match": word_match, "color_match": col_match}
 
 
@@ -1110,6 +1257,16 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
                         for x, y in ((fk, fp), (wk, wp), (ck, cp), (wck, wcp)))
     ms = time_ms(lambda: tint.integrate_blocks(*args), 50)
     plain_ms = time_ms(lambda: tint.integrate_blocks_plain(*args), 5, 1)
+    # the same launch on the valid rows alone (the padded rows' cost is the
+    # difference), with the same bits on those rows
+    live = torch.nonzero(valid)[:, 0]
+    args_l = (depth, rgbp, keys[live].contiguous(), valid[live].contiguous(),
+              *(x[live].contiguous() for x in args[4:8]), *args[8:])
+    live_out = tint.integrate_blocks(*args_l)
+    bitwise_equal = bitwise_equal and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(live_out, (fk, wk, ck, wck)))
+    ms_live = time_ms(lambda: tint.integrate_blocks(*args_l), 50)
     V, Vv = keys.shape[0], int(valid.sum().item())
     w2c, fx, fy, cx, cy, W, H, vs = args[8:16]
     n_px = tap_pixels(keys[valid], w2c, fx, fy, cx, cy, W, H, vs)
@@ -1126,9 +1283,11 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
             "launches": launches, "max_abs_err": float(max(f_err, c_err)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": None, "ok": bitwise_equal, "bytes": n_bytes, "ops": n_ops,
+            "ms_live_rows": ms_live,
             "shapes": {"V": V, "valid_rows": Vv, "image": list(depth.shape),
                        "tap_pixels": n_px},
-            "tolerance": "valid rows: bit for bit",
+            "tolerance": "valid rows: bit for bit; the launch on the valid "
+                         "rows alone gives the same bits",
             "sdf_err": f_err, "color_err": c_err, "bitwise_equal": bitwise_equal}
 
 
@@ -1435,17 +1594,52 @@ def reference_phase() -> dict:
 
 
 def tracked_path(args, rec) -> tuple[dict, tuple]:
-    """The tracked path at 1200x680 (phase 6).  Returns its line's numbers
-    and `k3_row`'s arguments for its last tracking-prepare call (launches:
-    the prepare raycasts'; `launches_path`: every K3 launch of the path)."""
+    """The tracked path at 1200x680 (phase 6): the tracked megastep, then
+    the same frames on the eager route as its witness (`_can_fast_track`
+    off on that engine alone); both held to the path's gates.  Returns the
+    megastep run's line numbers and `k3_row`'s arguments for its last
+    tracking-prepare call (launches: the prepare raycasts';
+    `launches_path`: every K3 launch of the path)."""
     from gps_slam_torch import kernels
 
     cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
     out, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
                          tracked=rec)
-    if out["adam_steps"] != ADAM_STEPS * out["windows"]:
-        raise RuntimeError(f"tracked path ran {out['adam_steps']} Adam steps")
     call = rec.last["tracking prepare"]
+    eager, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path, eager witness",
+                           kernels.INTEGRATE, tracked=rec, fast_track=False)
+    for r in (out, eager):
+        if r["adam_steps"] != ADAM_STEPS * r["windows"]:
+            raise RuntimeError(f"tracked path ran {r['adam_steps']} Adam steps")
+    if (out["tracking_route"], eager["tracking_route"]) != ("megastep", "eager"):
+        raise RuntimeError(f"tracked path: routes {out['tracking_route']} and "
+                           f"{eager['tracking_route']}")
+    mega_ms, eager_ms = out["tracked_frame_ms"], eager["tracked_frame_ms"]
+    n_eager = eager["tracked_frames"]
+    log("[tracked routes] " + json.dumps({
+        # the same scope on both routes: engine.process_frame of a tracked
+        # frame (ICP, revert, fusion, the next prepare raycast), ms
+        "tracked_frame_ms": {"megastep": mega_ms, "eager": eager_ms},
+        "megastep_over_eager_median": mega_ms["median"] / eager_ms["median"],
+        "megastep_pays": mega_ms["median"] < eager_ms["median"],
+        "eager_ms_per_tracked_frame": {
+            "track": eager["tracking_ms_per_frame"],
+            "fusion": eager["fusion_ms_per_frame"],
+            "prepare_raycast": eager["tracking_prepare_raycast_ms_total"] / eager["frames"],
+            "frames": n_eager},
+        "megastep_replay_ms_mean": out["megastep_graphs"]["replay_ms_mean"],
+        "megastep_capture_ms": out["megastep_graphs"]["capture_ms"],
+        "megastep_graph_mb": out["megastep_graphs"]["graph_mb"],
+        "gn_iters_mean_per_level": {"megastep": out["gn_iters_mean_per_level"],
+                                    "eager": eager["gn_iters_mean_per_level"]},
+        # a megastep frame runs every level to its budget, masked after
+        # the exit
+        "gn_iters_budget_per_level": out["gn_iters_budget_per_level"],
+        "ate_cm": {"megastep": out["ate_cm"], "eager": eager["ate_cm"]},
+        "last_translation_err_cm": {"megastep": out["last_translation_err_cm"],
+                                    "eager": eager["last_translation_err_cm"]},
+        "psnr_mean": {"megastep": out["psnr_mean"], "eager": eager["psnr_mean"]},
+        "train_s": {"megastep": out["train_s"], "eager": eager["train_s"]}}))
     need_color = call[0][10] if len(call[0]) > 10 else call[1].get("need_color", True)
     if need_color or call[0][9] != 1:
         raise RuntimeError("the tracking-prepare raycast did not run with need_color "
@@ -1701,6 +1895,134 @@ def mesh_phase(engine) -> dict:
     return res
 
 
+def small_config(cams, tracked: bool = False, tsdf: dict | None = None,
+                 tpu: dict | None = None) -> dict:
+    """The synthetic config of the reference phases (`cams` at their size)."""
+    from gps_slam_torch.data import synthetic
+
+    c0 = cams[0]
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": len(cams) - 1, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [c0.width, c0.height],
+            "downscale_factor": 1, "test_split_interval": -1}
+    d = synthetic.default_config_dict("build/smoke_ws", node)
+    d["PIPE"]["TSDF"]["use_gt_pose"] = not tracked
+    d["PIPE"]["TSDF"].update(tsdf or {})
+    d["TPU"].update(tpu or {})
+    return d
+
+
+def reference_chunked() -> dict:
+    """`[reference chunked]`: the reference phase's fixtures (6 frames at
+    128x96 on K1's route and, with `_RESIDENT_BYTES` lowered to 0, on the
+    f32 route; 6 frames at 48x40) through the chunk route
+    (`process_frames_gt`, one group of 6: on the card one capture of the
+    fusion frame and 5 replays) on the card and on the CPU, with the
+    reference phase's volume settings and gates: the same block keys and,
+    by key, every state word's weights equal, sdf within 1 quantum and
+    colour within 1."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.tsdf import integrate as tint
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    def fused(cams, dev):
+        d = small_config(cams, tsdf={"voxel_size": 0.02, "trunc_dist": 0.08},
+                         tpu={"hash_size": 1 << 16, "block_capacity": 1 << 13,
+                              "visible_block_capacity": 1 << 12})
+        e = TsdfEngine(Config.from_dict(d), cams[0].width, cams[0].height, cams[0].K,
+                       device=dev)
+        e.set_gt_poses([c.c2w for c in cams])
+        e.turn_off_tracking()
+        kernels.reset_counts()
+        e.process_frames_gt([(torch.as_tensor(c.image, device=dev),
+                              torch.as_tensor(c.depth[..., 0], device=dev)) for c in cams])
+        return e
+
+    res = {}
+    for tag, (w, h), budget, k in (("K1 route", (128, 96), None, kernels.INTEGRATE),
+                                    ("f32 route", (128, 96), 0, kernels.INTEGRATE_F32),
+                                    ("narrow", (48, 40), None, None)):
+        cams = synthetic.make_cameras(n_frames=6, width=w, height=h)
+        saved = tint._RESIDENT_BYTES
+        if budget is not None:
+            tint._RESIDENT_BYTES = budget
+        try:
+            card = fused(cams, "cuda")
+            launches = kernels.counts()
+            cpu = fused(cams, "cpu")
+        finally:
+            tint._RESIDENT_BYTES = saved
+        g = card._fusion_graphs
+        for name, n in g.replayed_launches.items():
+            launches[name] += n
+        r = {**state_diff(by_key(card.vol), by_key(cpu.vol)), "width": w, "height": h,
+             "captures": g.captures, "replays": g.replays,
+             "integrate_launches": {n: launches[n] for n in (kernels.INTEGRATE.name,
+                                                             kernels.INTEGRATE_F32.name)}}
+        want = {n: (6 if k is not None and n == k.name else 0)
+                for n in r["integrate_launches"]}
+        r["ok"] = (r["ok"] and (g.captures, g.replays) == (1, 5)
+                   and r["integrate_launches"] == want)
+        res[tag] = r
+    log("[reference chunked] " + json.dumps(res))
+    if not all(r["ok"] for r in res.values()):
+        raise RuntimeError("the card's chunked fusion disagrees with the CPU reference")
+    return res
+
+
+def reference_tracked_megastep() -> dict:
+    """`[tracked megastep reference]`: the `[reference tracked]` fixture's
+    first 4 frames (128x96) on two card engines: frame 0 eager, then the
+    tracked megastep, on one as its graph (a capture, then 2 replays), on
+    the other uncaptured: poses, quality labels, iteration counts, the
+    volumes and the last prepare raycast's maps bit for bit."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.slam.tracker import ICPTracker
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    W, H = 128, 96
+    cams = synthetic.make_cameras(n_frames=8, width=W, height=H, look="in", arc=0.0125)[:4]
+    cfg = Config.from_dict(small_config(cams, tracked=True))
+    engines = []
+    for captured in (True, False):
+        e = TsdfEngine(cfg, W, H, cams[0].K, device="cuda")
+        e.set_gt_poses([cams[0].c2w])
+        e.attach_tracker(ICPTracker(cfg, W, H))
+        if not captured:
+            e._track_graphs = None
+        engines.append(e)
+    ms_, labels = {0: [], 1: []}, {0: [], 1: []}
+    for c in cams:
+        for i, e in enumerate(engines):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            e.process_frame(c.image, c.depth)
+            ms_[i].append((time.monotonic() - t) * 1e3)
+            labels[i].append((e._tracking_quality, e._tracker.last_iters))
+    g, ref = engines[0]._track_graphs, engines[1]
+    e = engines[0]
+    fields = ("table_keys", "table_ptrs", "block_coords", "state", "color", "summary")
+    res = {"width": W, "height": H, "frames": len(cams),
+           "captures": g.captures, "replays": g.replays, "graph_mb": g.memory_bytes / 2 ** 20,
+           "graph_frame_ms": ms_[0][1:], "uncaptured_frame_ms": ms_[1][1:],
+           "labels_equal": labels[0] == labels[1], "labels": [q for q, _ in labels[0]],
+           "poses_equal": bool(np.array_equal(np.stack(e.cam_poses), np.stack(ref.cam_poses))),
+           "not_equal": [k for k in fields if not torch.equal(getattr(e.vol, k),
+                                                                getattr(ref.vol, k))]
+           + [k for k in ("vertex_map", "normal_map")
+              if not torch.equal(e._last_raycast_for_tracking[k],
+                                 ref._last_raycast_for_tracking[k])]}
+    log("[tracked megastep reference] " + json.dumps(res))
+    if not ((g.captures, g.replays) == (1, 2) and res["labels_equal"] and res["poses_equal"]
+            and not res["not_equal"]):
+        raise RuntimeError(f"tracked megastep reference: {res}")
+    return res
+
+
 def reference_tracked() -> dict:
     """The tracked loop at 128x96 (8 frames, look="in", ~1.6 cm a frame,
     2 cm voxels) on the card and on the CPU, in lockstep: the card engine
@@ -1718,14 +2040,7 @@ def reference_tracked() -> dict:
     W, H, N = 128, 96, 8
     cams = synthetic.make_cameras(n_frames=N, width=W, height=H, look="in", arc=0.0125)
     c0 = cams[0]
-    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
-            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
-            "start_frame": 0, "end_frame": N - 1, "frame_step": 1,
-            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
-            "downscale_factor": 1, "test_split_interval": -1}
-    d = synthetic.default_config_dict("build/smoke_ws", node)
-    d["PIPE"]["TSDF"]["use_gt_pose"] = False
-    cfg = Config.from_dict(d)
+    cfg = Config.from_dict(small_config(cams, tracked=True))
     cpu = TsdfEngine(cfg, W, H, c0.K, device="cpu")
     card = TsdfEngine(cfg, W, H, c0.K, device="cuda")
     for e in (cpu, card):
@@ -2493,8 +2808,7 @@ def main() -> int:
     log(smi.stdout.strip())
 
     rec = Recorder()
-    mp, main_engine, main_model, main_cams, main_alloc = main_path(args)
-    main_last = dict(rec.last)
+    mp, main_engine, main_model, main_cams, main_alloc, main_last = main_path(args, rec)
     main_mesh = mesh_phase(main_engine)
     offline_ges_phase(args, main_engine, main_model, main_cams)
     _, k1_sharded, k3_sharded = sharded_path(args, rec, mp, main_engine, main_alloc,
@@ -2516,7 +2830,9 @@ def main() -> int:
           k3_tracked, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
     reference_phase()
+    reference_chunked()
     reference_tracked()
+    reference_tracked_megastep()
     reference_swap()
     reference_offline(args)
     print(json.dumps({"kernels": [{k: r[k] for k in (

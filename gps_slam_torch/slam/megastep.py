@@ -168,18 +168,20 @@ def hoist_constants(mcfg, sc: WindowScalars, iters: int, device) -> None:
         optim.window_schedule(float(mcfg.means_lr), gamma, iters, torch.device(device))
 
 
-def _held_tensors(vol: TsdfVolume, pool: GaussianPool) -> tuple:
-    """The volume and pool tensors a captured window reads or writes in
-    place, by address and shape."""
-    ts = (vol.table_keys, vol.table_ptrs, vol.block_coords, vol.state, vol.color,
-          vol.summary, vol.last_seen, *(pool.params[k] for k in pmod.PARAM_KEYS),
-          pool.alive)
+def held_tensors(*ts: torch.Tensor) -> tuple:
+    """The address and shape of each tensor that a captured graph reads
+    or writes in place."""
     return tuple((t.data_ptr(), tuple(t.shape)) for t in ts)
 
 
+def volume_tensors(vol: TsdfVolume) -> tuple:
+    return (vol.table_keys, vol.table_ptrs, vol.block_coords, vol.state, vol.color,
+            vol.summary, vol.last_seen)
+
+
 @dataclass
-class CapturedWindow:
-    """One captured window: its graph, the buffers its inputs are copied
+class Captured:
+    """One captured graph: the graph, the buffers its inputs are copied
     into, its outputs (rewritten by every replay), the kernel launches
     recorded while it was captured, its replays and the device memory its
     capture reserved."""
@@ -192,30 +194,35 @@ class CapturedWindow:
     memory_bytes: int = 0
 
 
-class WindowGraphs:
-    """The window megastep's CUDA graphs, one per static key, at most
-    `max_graphs` of them.
+class GraphCache:
+    """CUDA graphs of one function `fn`, one per static key, at most
+    `max_graphs` of them: the window megastep's (`WindowGraphs`), the
+    chunked gt fusion's frame and the tracked megastep's frame
+    (`tsdf/engine.py`).
 
-    `run` captures `window_megastep` the first time it meets a key and
-    replays it for every later window with that key, after copying the
-    window's inputs (poses, gt frames, camera sequence, spawn priorities)
-    into the graph's buffers.  A key is made of static values only (the
-    shapes, buckets and config), never of a window's data.  The opt prefix
-    and the pool prefix grow through their buckets over a run and rarely
-    come back, so before a capture that would exceed `max_graphs` the
-    graph used least recently is dropped, and with it the memory its
-    capture reserved (up to ~2 GB at 1920x1080).  The graphs read
-    and write the volume and pool tensors at the addresses they had when
-    captured: when any of them has moved (a reallocated pool, a loaded
-    scene or model) every graph is dropped before the next run.  A capture
-    that fails raises; nothing falls back to the eager window.
+    `run` captures `fn(**inputs, **statics)` the first time it meets a key
+    and replays it for every later call with that key, after copying the
+    call's inputs into the graph's buffers (an input given as a list of
+    tensors is stacked).  A key is made of static values only (the
+    shapes, buckets and config), never of the data.  Buckets grow over a
+    run and rarely come back, so before a capture that would exceed
+    `max_graphs` the graph used least recently is dropped, and with it the
+    memory its capture reserved.  The graphs read and write the `held`
+    tensors (the volume, the pool, a device counter) at the addresses they
+    had when captured: when any of them has moved (a reallocated pool, a
+    loaded scene or model) every graph is dropped before the next run.
+    `prepare(buffers, statics)`, when given, runs before each capture and
+    makes what the function needs that a graph cannot capture (a constant
+    copied from the host, a library's first call).  A capture that fails
+    raises; nothing falls back to an eager run.
 
     The kernel wrappers count their launches while a graph is captured,
     and the capture's first execution is its replay right after; a later
     replay launches the same kernels again without calling a wrapper: its
     graph's `launches` are added to `replayed_launches`."""
 
-    def __init__(self, max_graphs: int = 2):
+    def __init__(self, fn, max_graphs: int = 2, prepare=None):
+        self.fn, self.prepare = fn, prepare
         self.graphs: OrderedDict = OrderedDict()   # least recently used first
         self.max_graphs = max_graphs
         self.captures = 0
@@ -227,12 +234,10 @@ class WindowGraphs:
         self.last: tuple | None = None   # (key, "capture" or "replay")
         self._held = None
 
-    def run(self, key: tuple, vol: TsdfVolume, pool: GaussianPool,
-            inputs: dict, **statics) -> dict:
-        """Window `key` on (vol, pool) with `inputs` (poses, gt_rgb as a
-        list of [H, W, 3] frames, iter_cam_idx, spawn_noise); `statics` are
-        the other arguments of `window_megastep`, fixed by the key."""
-        held = _held_tensors(vol, pool)
+    def run(self, key: tuple, held: tuple, inputs: dict, **statics) -> dict:
+        """`fn` at `key` on `inputs`; `held` is `held_tensors` of the
+        tensors it reads or writes in place; `statics` are its other
+        arguments, fixed by the key."""
         if held != self._held:
             self.dropped += len(self.graphs)
             self.graphs.clear()
@@ -242,7 +247,7 @@ class WindowGraphs:
             while len(self.graphs) >= self.max_graphs:
                 self.graphs.popitem(last=False)
                 self.dropped += 1
-            self.graphs[key] = self._capture(vol, pool, inputs, statics)
+            self.graphs[key] = self._capture(inputs, statics)
             self.captures += 1
             self.memory_bytes += self.graphs[key].memory_bytes
             self.peak_resident = max(self.peak_resident, len(self.graphs))
@@ -250,7 +255,7 @@ class WindowGraphs:
             return self.graphs[key].outputs
         self.graphs.move_to_end(key)
         for name, v in inputs.items():
-            if name == "gt_rgb":
+            if isinstance(v, (list, tuple)):
                 torch.stack(v, out=g.inputs[name])
             else:
                 g.inputs[name].copy_(v)
@@ -262,22 +267,48 @@ class WindowGraphs:
         self.last = (key, "replay")
         return g.outputs
 
-    def _capture(self, vol, pool, inputs: dict, statics: dict) -> CapturedWindow:
-        buf = {k: (torch.stack(v) if k == "gt_rgb" else v.clone())
+    def _capture(self, inputs: dict, statics: dict) -> Captured:
+        buf = {k: (torch.stack(v) if isinstance(v, (list, tuple)) else v.clone())
                for k, v in inputs.items()}
-        hoist_constants(statics["mcfg"], statics["sc"], buf["iter_cam_idx"].shape[0],
-                        pool.device)
+        if self.prepare is not None:
+            self.prepare(buf, statics)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_reserved()
         before = kernels.counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            outputs = window_megastep(vol, pool, buf["poses"], statics["K"],
-                                      buf["gt_rgb"], buf["iter_cam_idx"],
-                                      buf["spawn_noise"],
-                                      **{k: v for k, v in statics.items() if k != "K"})
+            outputs = self.fn(**buf, **statics)
         launches = {k: n - before[k] for k, n in kernels.counts().items()}
         graph.replay()
-        return CapturedWindow(graph, buf, outputs, launches,
-                              memory_bytes=torch.cuda.memory_reserved() - mem0)
+        return Captured(graph, buf, outputs, launches,
+                        memory_bytes=torch.cuda.memory_reserved() - mem0)
+
+
+def _window(vol, pool, poses, gt_rgb, iter_cam_idx, spawn_noise, K, **statics):
+    return window_megastep(vol, pool, poses, K, gt_rgb, iter_cam_idx, spawn_noise,
+                           **statics)
+
+
+def _hoist_window_constants(buf: dict, statics: dict) -> None:
+    hoist_constants(statics["mcfg"], statics["sc"], buf["iter_cam_idx"].shape[0],
+                    statics["pool"].device)
+
+
+class WindowGraphs(GraphCache):
+    """The window megastep's CUDA graphs (`GraphCache` of
+    `window_megastep`), on the volume and the pool; the opt prefix and the
+    pool prefix make its keys, and a capture reserves up to ~2 GB at
+    1920x1080."""
+
+    def __init__(self, max_graphs: int = 2):
+        super().__init__(_window, max_graphs, prepare=_hoist_window_constants)
+
+    def run(self, key: tuple, vol: TsdfVolume, pool: GaussianPool,
+            inputs: dict, **statics) -> dict:
+        """Window `key` on (vol, pool) with `inputs` (poses, gt_rgb as a
+        list of [H, W, 3] frames, iter_cam_idx, spawn_noise); `statics` are
+        the other arguments of `window_megastep`, fixed by the key."""
+        held = held_tensors(*volume_tensors(vol),
+                            *(pool.params[k] for k in pmod.PARAM_KEYS), pool.alive)
+        return super().run(key, held, inputs, vol=vol, pool=pool, **statics)

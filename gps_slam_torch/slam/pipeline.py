@@ -2,8 +2,11 @@
 gps_slam_tpu/slam/pipeline.py (`slam_train_cams` per-frame branch and its
 window megastep routing).
 
-Per frame: fuse with the gt pose, then local-window / keyframe
-bookkeeping; every `local_opt_interval` frames: raycast the window and
+Fusion, then local-window / keyframe bookkeeping, per frame or, in
+gt-pose mode, per group of up to `TPU.fuse_chunk` frames
+(`_fusion_groups`: the engine fuses a group with one read of its counts,
+`TsdfEngine.process_frames_gt`, each frame a replayed CUDA graph on the
+card); every `local_opt_interval` frames: raycast the window and
 the sampled keyframes, spawn Gaussians where the render's colour error is
 high, run `local_opt_iters` Adam steps over the window's cameras
 (`window_optimize`), prune.  Unless PIPE.log_pipeline_time asks for
@@ -97,24 +100,57 @@ class SLAMPipeline:
 
     # ------------------------------------------------------------------ loop
 
+    def _fusion_groups(self, total: int, p, can_chunk: bool, chunk_n: int):
+        """Frame indices in fusion groups (gps_slam_tpu/slam/pipeline.py
+        :159-177): one frame a group unless `can_chunk`; else up to
+        `chunk_n` frames, ending at an optimisation frame (i % interval
+        == 0, i > 0), whose window must see exactly the frames fused so
+        far (outside `recon` mode, which runs no window)."""
+        i = 0
+        while i < total:
+            if not can_chunk:
+                yield [i]
+                i += 1
+                continue
+            group = []
+            for j in range(i, min(i + chunk_n, total)):
+                group.append(j)
+                if (self.cfg.work_mode != "recon" and j > 0
+                        and j % p.local_opt_interval == 0):
+                    break
+            yield group
+            i = group[-1] + 1
+
     def slam_train_cams(self, model: GaussianModel, cams: list[Camera]) -> None:
-        """SLAMTrainCams (slam_pipeline.cpp:52-173), one frame at a time.
-        A window runs as the megastep when `_can_megastep` allows it and
-        per-phase times are not asked for; its whole time lands in the
-        localOptimize column."""
+        """SLAMTrainCams (slam_pipeline.cpp:52-173), in fusion groups
+        (`_fusion_groups`): in gt-pose mode, unless per-phase times are
+        asked for, groups of `TPU.fuse_chunk` frames through
+        `process_frames_gt` (the fusion time is taken per group), else one
+        frame at a time through `process_frame`.  A window runs as the
+        megastep when `_can_megastep` allows it and per-phase times are not
+        asked for; its whole time lands in the localOptimize column."""
         p = self.pipe
         total = len(cams)
         sync = self.log_pipeline_time
+        chunk_n = max(int(self.cfg.tpu.fuse_chunk), 1)
+        can_chunk = not sync and chunk_n > 1 and self.engine.can_chunk_fusion()
         t_start = time.monotonic()
-        for i, cam in enumerate(cams):
+        for group in self._fusion_groups(total, p, can_chunk, chunk_n):
             t0 = time.monotonic()
-            rgb, depth = self.frame_cache.get(cam)
-            pose = self.engine.process_frame(rgb, depth)
-            self.curr_frame_id = i
-            cam.c2w_slam = np.asarray(pose)
-            self._pose_idx[cam.id] = len(self.engine.cam_poses) - 1
-            self.curr_cam = cam
-            self.update_frame_list()
+            i = group[-1]
+            if can_chunk:
+                poses = self.engine.process_frames_gt(
+                    [self.frame_cache.get(cams[k]) for k in group])
+            else:
+                poses = [self.engine.process_frame(*self.frame_cache.get(cams[i]))]
+            base = len(self.engine.cam_poses) - len(group)
+            for k, idx in enumerate(group):
+                cam = cams[idx]
+                self.curr_frame_id = idx
+                cam.c2w_slam = np.asarray(poses[k])
+                self._pose_idx[cam.id] = base + k
+                self.curr_cam = cam
+                self.update_frame_list()
             self._sync()
             self.t_fusion += (time.monotonic() - t0) * 1000.0
             if self.cfg.work_mode == "recon":

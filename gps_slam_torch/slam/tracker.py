@@ -9,18 +9,25 @@ composite trackers of the reference's tracker factory.
 
 Each level's loop runs on the tensors' device.  The JAX package runs it as
 one `lax.while_loop` whose exit test (`it < n_iters and step > 1e-10`)
-stays on the device; here the host reads `step` back once per iteration
-(4 bytes, the only synchronising call of an iteration) to take the same
-exit after the same iteration.  The 6x6 solve is `torch.linalg.solve_ex`,
-which neither raises nor synchronises: a singular system gives the same
-zero step as the non-finite solution that the JAX package zeroes.
+stays on the device.  The eager route (`_track_level`, `ICPTracker.track`)
+reads `step` back once per iteration (4 bytes, the only synchronising call
+of an iteration) to take the same exit after the same iteration.  The
+tracked megastep's route (`_track_level_static`, `track_pyramid_static`)
+reads nothing: it unrolls each level to its budget and masks every state
+update after the exit with a device flag, so it returns the same values
+and a CUDA graph can capture it; the masked iterations still run on the
+card.  The 6x6 solve is `torch.linalg.solve_ex`, which neither raises nor
+synchronises (on the card it runs on cuSOLVER, PyTorch's default, and a
+graph captures it): a singular system gives the same zero step as the
+non-finite solution that the JAX package zeroes.
 
 The sums over pixels (the 6x6 system, the gradient, the robust error) are
-accumulated in f64 and rounded to f32: the LM accept/reject compares
-errors that differ in their last bits, so f32 sums taken in another order
-(another device, another thread count) can flip it and send the
-trajectory elsewhere; f64 sums of the f32 terms round to the same f32
-value in any order.
+accumulated in f64 and rounded to f32, on both routes: the LM
+accept/reject compares errors that differ in their last bits, so f32 sums
+taken in another order (another device, another thread count, a graph's
+kernels against eager ones) can flip it and send the trajectory
+elsewhere; f64 sums of the f32 terms round to the same f32 value in any
+order.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..utils.se3 import _sobel, se3_exp
+from ..utils.se3 import _sobel, pose_inv, se3_exp
 
 # per-level Gauss-Newton budgets: numiterC (coarsest) to numiterF (finest),
 # interpolated as the reference's SetupLevels does
@@ -106,9 +113,13 @@ def _bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
 def _rotation_mask(device) -> torch.Tensor:
     """[1, 6] of (0, 0, 0, 1, 1, 1): keeps the rotation columns of J."""
-    m = torch.zeros((1, 6), dtype=torch.float32, device=device)
-    m[:, 3:] = 1.0
-    return m
+    z = torch.zeros((1, 3), dtype=torch.float32, device=device)
+    return torch.cat([z, torch.ones_like(z)], 1)
+
+
+def _vector(vals, device) -> torch.Tensor:
+    """A 1-d f32 tensor of host values made on `device` by fills."""
+    return torch.stack([_scalar(v, device) for v in vals])
 
 
 def _lm_step(T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, first: bool,
@@ -136,6 +147,64 @@ def _lm_step(T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, first: bool,
     return T_new, T_ref, H_ref, g_ref, err_ref, lam_new, (delta * delta).sum()
 
 
+def _level_points(depth: torch.Tensor, cam: torch.Tensor):
+    """A level's camera points [h*w, 3] and their depth mask."""
+    dev = depth.device
+    h, w = depth.shape
+    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
+    i = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    j = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    x = ((i - cx) / fx).expand(h, w)
+    y = ((j - cy) / fy).expand(h, w)
+    pts_cam = (torch.stack([x, y, torch.ones_like(x)], -1)
+               * depth[..., None]).reshape(-1, 3)
+    return pts_cam, depth.reshape(-1) > 0
+
+
+def _gn_system(T, pts_cam, has_depth, ref_vertex, ref_normal, cam, ref_pose_inv,
+               space_thresh, tukey_c, rot_mask, n_pix):
+    """One Gauss-Newton iteration's system at the estimate T: (H [6, 6],
+    g [6], err, inlier share, mean |residual|)."""
+    Hf, Wf = ref_vertex.shape[:2]
+    fx0, fy0, cx0, cy0 = cam[4], cam[5], cam[6], cam[7]
+    # current points -> world; project into the raycast camera
+    p_w = pts_cam @ T[:3, :3].T + T[:3, 3]
+    p_ref = p_w @ ref_pose_inv[:3, :3].T + ref_pose_inv[:3, 3]
+    z = p_ref[:, 2]
+    zs = torch.clamp(z, min=1e-6)
+    u = fx0 * p_ref[:, 0] / zs + cx0
+    v = fy0 * p_ref[:, 1] / zs + cy0
+    in_img = (z > 0) & (u >= 0) & (u <= Wf - 1) & (v >= 0) & (v <= Hf - 1)
+    us = torch.clamp(u, 0.0, Wf - 1.0)
+    vs = torch.clamp(v, 0.0, Hf - 1.0)
+    vt, wv = _bilinear(ref_vertex, us, vs)
+    nt, wn = _bilinear(ref_normal, us, vs)
+    nlen = torch.sqrt((nt * nt).sum(-1, keepdim=True))
+    nt = nt / torch.clamp(nlen, min=1e-6)
+    has_ref = (wv > 0.5) & (wn > 0.5) & (nlen[:, 0] > 0.3)
+    diff = p_w - vt
+    dist2 = (diff * diff).sum(-1)
+    r = (nt * diff).sum(-1)
+    ok = has_depth & in_img & has_ref & (dist2 < space_thresh * space_thresh)
+    # Tukey biweight on the point-to-plane residual
+    t_ = torch.clamp(r / tukey_c, -1.0, 1.0)
+    tw = (1.0 - t_ * t_) ** 2
+    wgt = ok.to(torch.float32) * tw
+    # d r / d xi = [n ; p_w x n] for a left-multiplied twist on T
+    Jt = torch.cat([nt, torch.linalg.cross(p_w, nt, dim=-1)], dim=-1)
+    if rot_mask is not None:
+        Jt = Jt * rot_mask
+    Jw = (Jt * wgt[:, None]).double()
+    Hm = (Jw.T @ Jt.double()).float()
+    g = (Jw * r.double()[:, None]).sum(0).float()
+    n_ok = ok.to(torch.float32).sum()
+    mean_r = ((r.abs() * wgt).double().sum()
+              / torch.clamp(wgt.double().sum(), min=1.0)).float()
+    inlier = n_ok / n_pix
+    err = torch.where(n_ok > 50, mean_r, float("inf"))
+    return Hm, g, err, inlier, mean_r
+
+
 def _track_level(
     T0: torch.Tensor,          # [4,4] current c2w estimate
     depth: torch.Tensor,       # [h, w] this level's depth
@@ -154,17 +223,7 @@ def _track_level(
     and residual those of the last iteration, all on the device."""
     dev = depth.device
     h, w = depth.shape
-    Hf, Wf = ref_vertex.shape[:2]
-    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
-    fx0, fy0, cx0, cy0 = cam[4], cam[5], cam[6], cam[7]
-
-    i = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    j = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    x = ((i - cx) / fx).expand(h, w)
-    y = ((j - cy) / fy).expand(h, w)
-    pts_cam = (torch.stack([x, y, torch.ones_like(x)], -1)
-               * depth[..., None]).reshape(-1, 3)
-    has_depth = depth.reshape(-1) > 0
+    pts_cam, has_depth = _level_points(depth, cam)
     n_pix = _scalar(h * w, dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     rot_mask = _rotation_mask(dev) if rotation_only else None
@@ -176,46 +235,56 @@ def _track_level(
     inlier = mean_r = _scalar(0.0, dev)
     it, step = 0, 1.0
     while it < n_iters and step > _STEP_EXIT:
-        # current points -> world; project into the raycast camera
-        p_w = pts_cam @ T[:3, :3].T + T[:3, 3]
-        p_ref = p_w @ ref_pose_inv[:3, :3].T + ref_pose_inv[:3, 3]
-        z = p_ref[:, 2]
-        zs = torch.clamp(z, min=1e-6)
-        u = fx0 * p_ref[:, 0] / zs + cx0
-        v = fy0 * p_ref[:, 1] / zs + cy0
-        in_img = (z > 0) & (u >= 0) & (u <= Wf - 1) & (v >= 0) & (v <= Hf - 1)
-        us = torch.clamp(u, 0.0, Wf - 1.0)
-        vs = torch.clamp(v, 0.0, Hf - 1.0)
-        vt, wv = _bilinear(ref_vertex, us, vs)
-        nt, wn = _bilinear(ref_normal, us, vs)
-        nlen = torch.sqrt((nt * nt).sum(-1, keepdim=True))
-        nt = nt / torch.clamp(nlen, min=1e-6)
-        has_ref = (wv > 0.5) & (wn > 0.5) & (nlen[:, 0] > 0.3)
-        diff = p_w - vt
-        dist2 = (diff * diff).sum(-1)
-        r = (nt * diff).sum(-1)
-        ok = has_depth & in_img & has_ref & (dist2 < space_thresh * space_thresh)
-        # Tukey biweight on the point-to-plane residual
-        t_ = torch.clamp(r / tukey_c, -1.0, 1.0)
-        tw = (1.0 - t_ * t_) ** 2
-        wgt = ok.to(torch.float32) * tw
-        # d r / d xi = [n ; p_w x n] for a left-multiplied twist on T
-        Jt = torch.cat([nt, torch.linalg.cross(p_w, nt, dim=-1)], dim=-1)
-        if rotation_only:
-            Jt = Jt * rot_mask
-        Jw = (Jt * wgt[:, None]).double()
-        Hm = (Jw.T @ Jt.double()).float()
-        g = (Jw * r.double()[:, None]).sum(0).float()
-        n_ok = ok.to(torch.float32).sum()
-        mean_r = ((r.abs() * wgt).double().sum()
-                  / torch.clamp(wgt.double().sum(), min=1.0)).float()
-        inlier = n_ok / n_pix
-        err = torch.where(n_ok > 50, mean_r, float("inf"))
+        Hm, g, err, inlier, mean_r = _gn_system(
+            T, pts_cam, has_depth, ref_vertex, ref_normal, cam, ref_pose_inv,
+            space_thresh, tukey_c, rot_mask, n_pix)
         T, T_acc, H_acc, g_acc, err_acc, lam, step_t = _lm_step(
             T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, it == 0, eye6, 1e-6)
         it += 1
         step = float(step_t)  # the one read-back of the iteration
     return T_acc, inlier, mean_r, it
+
+
+def _track_level_static(T0, depth, ref_vertex, ref_normal, cam, n_iters: int,
+                        rotation_only: bool, ref_pose_inv, space_thresh, tukey_c):
+    """`_track_level` with a fixed cap and no read-back: the loop is
+    unrolled over `n_iters`, iteration 0 always runs (its step starts at
+    1, above the exit) and a later one updates the state only while the
+    device flag `active` (every step so far above the exit) holds.  The
+    same values bit for bit, with the iteration count a 0-d int64 device
+    tensor; the iterations past the exit are computed and dropped."""
+    dev = depth.device
+    h, w = depth.shape
+    pts_cam, has_depth = _level_points(depth, cam)
+    n_pix = _scalar(h * w, dev)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    rot_mask = _rotation_mask(dev) if rotation_only else None
+
+    T, T_acc = T0, T0
+    H_acc, g_acc = eye6, torch.zeros(6, dtype=torch.float32, device=dev)
+    err_acc = _scalar(float("inf"), dev)
+    lam = _scalar(1e-3, dev)
+    inlier = mean_r = step = _scalar(0.0, dev)
+    n_run = torch.zeros((), dtype=torch.int64, device=dev)
+    for it in range(n_iters):
+        Hm, g, err, inl, mr = _gn_system(
+            T, pts_cam, has_depth, ref_vertex, ref_normal, cam, ref_pose_inv,
+            space_thresh, tukey_c, rot_mask, n_pix)
+        new = _lm_step(T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, it == 0,
+                       eye6, 1e-6)
+        if it == 0:
+            T, T_acc, H_acc, g_acc, err_acc, lam, step = new
+            inlier, mean_r = inl, mr
+            n_run = n_run + 1
+            continue
+        active = step > _STEP_EXIT
+        T, T_acc, H_acc, g_acc, err_acc, lam, step = (
+            torch.where(active, a, b) for a, b in zip(
+                new, (T, T_acc, H_acc, g_acc, err_acc, lam, step)))
+        inlier = torch.where(active, inl, inlier)
+        mean_r = torch.where(active, mr, mean_r)
+        n_run = n_run + active.to(torch.int64)
+    return T_acc, inlier, mean_r, n_run
 
 
 class TrackerQuality:
@@ -262,6 +331,35 @@ def track_pyramid(T0: torch.Tensor, depth: torch.Tensor, ref_vertex, ref_normal,
             lvl >= ROTATION_ONLY_FROM_LEVEL, ref_pose_inv,
             _scalar(space_thresh[li], dev), _scalar(tukey_c[li], dev))
     return T, inl, mr, iters
+
+
+def track_pyramid_static(T0: torch.Tensor, depth: torch.Tensor, ref_vertex,
+                         ref_normal, K: np.ndarray, level_iters: tuple,
+                         space_thresh: tuple = SPACE_THRESH,
+                         tukey_c: tuple = TUKEY_C, n_levels: int = 4):
+    """The rrbb pyramid of the tracked megastep, reading nothing back to
+    the host (the JAX `track_pyramid`): each level is
+    `_track_level_static`, the raycast camera's w2c is `pose_inv(T0)` on
+    the device (the eager `ICPTracker.track` inverts it on the host) and
+    the level constants are made by fills.  Returns (T, inlier, mean_r,
+    iterations run per level finest-first [n_levels] int64), all on the
+    device."""
+    dev = depth.device
+    pyramid = [depth]
+    for _ in range(n_levels - 1):
+        pyramid.append(_subsample_depth(pyramid[-1]))
+    ref_pose_inv = pose_inv(T0)
+    T = T0
+    inl = mr = None
+    iters = [None] * n_levels
+    for lvl in range(n_levels - 1, -1, -1):
+        li = min(lvl, len(level_iters) - 1)
+        T, inl, mr, iters[lvl] = _track_level_static(
+            T, pyramid[lvl], ref_vertex, ref_normal,
+            _vector(_level_cam(K, lvl, True), dev), level_iters[li],
+            lvl >= ROTATION_ONLY_FROM_LEVEL, ref_pose_inv,
+            _scalar(space_thresh[li], dev), _scalar(tukey_c[li], dev))
+    return T, inl, mr, torch.stack(iters)
 
 
 def _tracker_node(cfg: Config) -> dict:
@@ -489,6 +587,9 @@ class ICPTracker:
     """Depth-only rrbb ICP against the previous tracking-prepare raycast."""
 
     needs_color = False  # vertex and normal maps suffice
+    # the pyramid has a form that reads nothing back (`track_pyramid_static`):
+    # the engine's tracked megastep may run it
+    device_pure = True
 
     def __init__(self, cfg: Config, width: int, height: int, n_levels: int = 4):
         self.cfg = cfg

@@ -1,5 +1,4 @@
-"""TSDF engine facade — the port of gps_slam_tpu/tsdf/engine.py (eager
-per-frame path).
+"""TSDF engine facade — the port of gps_slam_tpu/tsdf/engine.py.
 
 Per frame: optional bilateral depth filter -> the pose (the ground truth
 in gt-pose mode; in tracked mode the attached tracker's estimate against
@@ -18,11 +17,30 @@ splits S ways by key-hash ownership (`parallel/spatial.py`) into S volumes
 at capacity / S each, every frame fuses into each shard and every raycast
 merges the shards' maps by nearest hit; swapping and sharding exclude each
 other.  `shards` is the list of volumes (one without sharding) and `vol`
-the one volume of an unsharded engine.  Counts (allocated blocks, candidates)
-are read exactly every frame; the JAX package's asynchronous count caches,
-prefix buckets and one-dispatch tracked megastep exist only for its slow
-host link and are left out (the megastep's in-graph pose revert is the
-rule `ICPTracker.track` applies).
+the one volume of an unsharded engine.
+
+Two routes run a frame in fixed shapes, with no read-back inside it, as
+the JAX package's jitted programs do (`integrate.fuse_frame_static`):
+
+  * chunked gt fusion (`process_frames_gt`, when `can_chunk_fusion`):
+    the pipeline hands over a group of frames whose poses are known; each
+    frame is one fixed-shape fusion and the host reads the counts once
+    per group;
+  * the tracked megastep (`_process_frame_fast_tracked`, when
+    `_can_fast_track`): ICP (`tracker.track_pyramid_static`), the pose
+    revert on a failed track, fusion at the chosen pose and the next
+    frame's tracking-prepare raycast as one function; the host reads
+    (pose, inlier, residual, counts) once per frame and labels the
+    quality.
+
+On the CPU they run eagerly; on the card each is captured as a CUDA graph
+once per static key (`slam/megastep.GraphCache`) and replayed.
+Everything else (the gt-pose frame of `log_pipeline_time`, the colour
+and composite trackers, the other failure policies, swapping, sharding)
+runs per frame with its counts read exactly every frame.  The JAX
+package's visible-list bucket (`_vis_cap`) is not ported: the fixed-shape
+frame integrates `visible_capacity` rows, whose rows past the frame's
+candidates the kernels skip at once.
 """
 
 from __future__ import annotations
@@ -36,7 +54,8 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..parallel import spatial
-from . import raycast_tiles
+from ..utils.se3 import bilateral_filter_depth
+from . import integrate, raycast_tiles
 from .volume import TsdfParams, TsdfVolume
 
 
@@ -50,6 +69,53 @@ class TrackingResult:
 
 def _tsdf_node(cfg: Config) -> dict:
     return cfg.raw.get("PIPE", {}).get("TSDF", {}) or {}
+
+
+def track_fuse_step(vol: TsdfVolume, n_blocks: torch.Tensor, T_prev, depth, rgb,
+                    ref_vertex, ref_normal, *, K, level_iters: tuple,
+                    space_thresh: tuple, tukey_c: tuple, bilateral: bool,
+                    ray: tuple, prefix: int) -> dict:
+    """One tracked frame in fixed shapes, reading nothing back to the host:
+    the tracked megastep's body (the JAX `_track_fuse_step` and the
+    raycast that follows it).  Tracks `depth` against the previous
+    prepare raycast's maps from `T_prev` (`track_pyramid_static`), keeps
+    `T_prev` where the track failed (not finite, inlier share below
+    FAIL_MIN_INLIER or mean residual above FAIL_MAX_RESIDUAL: the eager
+    policy's revert), fuses the frame at the chosen pose
+    (`integrate.fuse_frame_static`, `n_blocks` updated in place) and
+    raycasts the next frame's maps from it (K3 at k_blocks 1, normals, no
+    colour; `ray` = (width, height, lb, samples, bisect)) over the static
+    block `prefix`, which must cover the blocks this frame may allocate.
+    Returns device tensors."""
+    from ..slam import tracker as trk
+
+    if bilateral:
+        depth = bilateral_filter_depth(depth)
+    T, inl, mr, iters = trk.track_pyramid_static(
+        T_prev, depth, ref_vertex, ref_normal, K, level_iters, space_thresh,
+        tukey_c)
+    bad = ((~torch.isfinite(T).all()) | (inl < trk.FAIL_MIN_INLIER)
+           | (mr > trk.FAIL_MAX_RESIDUAL))
+    pose = torch.where(bad, T_prev, T)
+    n_vis = integrate.fuse_frame_static(vol, depth, rgb, pose, K, n_blocks)
+    width, height, lb, samples, bisect = ray
+    maps = raycast_tiles.raycast(vol, pose, K, width, height, lb, samples, bisect, 1,
+                                 need_color=False, need_normals=True, prefix=prefix)
+    return {"pose": pose, "inlier": inl, "residual": mr, "iters": iters,
+            "n_visible": n_vis, "raycast_visible": maps["n_visible"],
+            "vertex_map": maps["vertex_map"], "normal_map": maps["normal_map"]}
+
+
+def _fuse_gt_frame(vol, n_blocks, depth, rgb, c2w, *, K, bilateral) -> dict:
+    return {"n_visible": integrate.fuse_frame_static(vol, depth, rgb, c2w, K,
+                                                     n_blocks, bilateral)}
+
+
+def _warm_solver(buf: dict, statics: dict) -> None:
+    """The solver's first call sets up its library handle, which a graph
+    cannot capture: make it before the tracked frame's capture."""
+    dev = buf["depth"].device
+    torch.linalg.solve_ex(torch.eye(6, device=dev), torch.ones(6, device=dev))
 
 
 class TsdfEngine:
@@ -104,6 +170,17 @@ class TsdfEngine:
         # the raycasts' surface blocks in depth range, both before the
         # visible_capacity cap
         self.peak_visible = {"fusion": 0, "raycast": 0}
+        # the fixed-shape routes: the allocated count on the device, the
+        # last pose on the device, and the CUDA graphs of the chunk's
+        # fusion frame and of the tracked frame on the card
+        self._n_blocks_dev = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._last_pose_dev = None
+        self._fusion_graphs = self._track_graphs = None
+        if self.device.type == "cuda":
+            from ..slam.megastep import GraphCache
+
+            self._fusion_graphs = GraphCache(_fuse_gt_frame)
+            self._track_graphs = GraphCache(track_fuse_step, prepare=_warm_solver)
         self.swap = None
         self.swap_check_interval = int(tpu.swap_check_interval)
         if tpu.enable_swapping:
@@ -139,12 +216,14 @@ class TsdfEngine:
         the c2w pose.  `rgb` [H, W, 3] / `depth` [H, W(, 1)] may be numpy
         arrays or tensors."""
         i = self.current_frame
+        if (i > 0 and self._tracker is not None
+                and self._last_raycast_for_tracking is not None
+                and self._last_pose_dev is not None and self._can_fast_track()):
+            return self._process_frame_fast_tracked(rgb, depth)
         d = torch.as_tensor(depth, dtype=torch.float32, device=self.device)
         if d.ndim == 3:
             d = d[..., 0]
         if self.use_bilateral_filter:
-            from ..utils.se3 import bilateral_filter_depth
-
             d = bilateral_filter_depth(d)
         c = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
         skip_fusion = False
@@ -186,10 +265,8 @@ class TsdfEngine:
             if self.swap is not None and i % self.swap_check_interval == 0:
                 self.swap.maybe_reload(self.vol)
                 self.swap.maybe_spill(self.vol)
-        self._last_pose = np.asarray(pose, dtype=np.float32)
-        self.cam_poses.append(self._last_pose.copy())
-        self.cam_intrinsics.append(self.K.copy())
-        self.current_frame += 1
+        self._record(np.asarray(pose, dtype=np.float32))
+        self._last_pose_dev = torch.as_tensor(self._last_pose, device=self.device)
 
         if self.tracking_active and self._tracker is not None:
             # the next frame's tracking-prepare raycast: one candidate block
@@ -198,6 +275,140 @@ class TsdfEngine:
             self._last_raycast_for_tracking = self.run_raycast(
                 self._last_pose, quality=False, need_color=need_rgb)
         return self._last_pose
+
+    # -- the fixed-shape routes ---------------------------------------------------
+
+    def _can_fast_track(self) -> bool:
+        """The JAX package's gates (gps_slam_tpu/tsdf/engine.py:273-285):
+        the tracked megastep applies when every per-frame host hook is a
+        no-op: a tracker with a read-back-free form (`device_pure`: ICP),
+        the default `ignore` failure policy (whose only action, the pose
+        revert on FAILED, the megastep takes on the device), no swapping,
+        no space shards."""
+        return (self.tracking_active
+                and getattr(self._tracker, "device_pure", False)
+                and self.failure_policy == "ignore"
+                and self.swap is None
+                and self.space_shards == 1)
+
+    def _frame_tensors(self, rgb, depth):
+        d = torch.as_tensor(depth, dtype=torch.float32, device=self.device)
+        if d.ndim == 3:
+            d = d[..., 0]
+        return torch.as_tensor(rgb, dtype=torch.float32, device=self.device), d
+
+    def _record(self, pose: np.ndarray) -> None:
+        self._last_pose = pose
+        self.cam_poses.append(pose.copy())
+        self.cam_intrinsics.append(self.K.copy())
+        self.current_frame += 1
+
+    def _process_frame_fast_tracked(self, rgb, depth) -> np.ndarray:
+        """One tracked frame as the megastep (`track_fuse_step`; on the
+        card a replay of its graph), then one read of (pose, inlier,
+        residual, counts, iterations per level) and the quality label on
+        the host with the thresholds of the JAX engine (:319-324)."""
+        from ..slam import tracker as trk
+        from ..slam.megastep import held_tensors, volume_tensors
+
+        vol, p, tr = self.vol, self.params, self._tracker
+        c, d = self._frame_tensors(rgb, depth)
+        nb = self._n_blocks_dev
+        nb.fill_(vol.n_blocks)
+        # no frame allocates more than alloc_candidate_cap blocks: the
+        # prefix covers the pool after this frame's fusion
+        prefix = raycast_tiles.pool_prefix(vol.n_blocks + p.alloc_candidate_cap,
+                                           p.block_capacity)
+        ref = self._last_raycast_for_tracking
+        inputs = {"T_prev": self._last_pose_dev, "depth": d, "rgb": c,
+                  "ref_vertex": ref["vertex_map"], "ref_normal": ref["normal_map"]}
+        statics = dict(K=self.K, level_iters=tuple(tr.level_iters),
+                       space_thresh=tuple(tr.space_thresh), tukey_c=tuple(tr.tukey_c),
+                       bilateral=self.use_bilateral_filter,
+                       ray=(self.width, self.height, p.raycast_lb, p.raycast_samples,
+                            max(p.raycast_bisect, 3)),
+                       prefix=prefix)
+        if self._track_graphs is None:
+            out = track_fuse_step(vol, nb, **inputs, **statics)
+        else:
+            key = (self.height, self.width, tuple(self.K.ravel().tolist()), p,
+                   statics["level_iters"], statics["space_thresh"], statics["tukey_c"],
+                   integrate.integrate_route(self.width, self.height),
+                   integrate.static_rows(p, self.height, self.width), prefix,
+                   self.use_bilateral_filter)
+            out = self._track_graphs.run(key, held_tensors(*volume_tensors(vol), nb),
+                                         inputs, vol=vol, n_blocks=nb, **statics)
+        vals = torch.cat([out["pose"].reshape(-1).double(), torch.stack([
+            out["inlier"].double(), out["residual"].double(), nb.double(),
+            out["n_visible"].double(), out["raycast_visible"].double()]),
+            out["iters"].double()]).tolist()
+        T = np.asarray(vals[:16], np.float32).reshape(4, 4)
+        inlier, mean_r = vals[16], vals[17]
+        vol.n_blocks, vol.n_visible = int(vals[18]), int(vals[19])
+        self.peak_visible["fusion"] = max(self.peak_visible["fusion"], vol.n_visible)
+        self.peak_visible["raycast"] = max(self.peak_visible["raycast"], int(vals[20]))
+        tr.last_inlier, tr.last_residual = inlier, mean_r
+        tr.last_iters = [int(v) for v in vals[21:]]
+        if (not np.all(np.isfinite(T)) or inlier < trk.FAIL_MIN_INLIER
+                or mean_r > trk.FAIL_MAX_RESIDUAL):
+            self._tracking_quality = trk.TrackerQuality.FAILED
+        elif inlier > trk.GOOD_MIN_INLIER and mean_r < trk.GOOD_MAX_RESIDUAL:
+            self._tracking_quality = trk.TrackerQuality.GOOD
+        else:
+            self._tracking_quality = trk.TrackerQuality.POOR
+        self._last_pose_dev = out["pose"]
+        self._last_raycast_for_tracking = {"vertex_map": out["vertex_map"],
+                                           "normal_map": out["normal_map"]}
+        self._record(T)
+        return T
+
+    def can_chunk_fusion(self) -> bool:
+        """The JAX package's gate (gps_slam_tpu/tsdf/engine.py:432-445):
+        fusion may take a group of frames at once when every pose is known
+        up front (gt poses, no tracking) and no per-frame host hook fires
+        (no swapping, no space shards); the bilateral filter runs inside."""
+        return (not self.tracking_active and bool(self.gt_c2w_poses)
+                and self.swap is None and self.space_shards == 1)
+
+    def process_frames_gt(self, frames: list) -> list[np.ndarray]:
+        """Fuse a group of consecutive frames at their gt poses
+        (`can_chunk_fusion`): `frames` = [(rgb [H, W, 3], depth [H, W] or
+        [H, W, 1])] in order.  Each frame is `integrate.fuse_frame_static`
+        (on the card a replay of its graph, captured once per frame size,
+        route and row count); the host reads the allocated and candidate
+        counts once, after the group.  Returns the poses and records them
+        as `process_frame` does."""
+        from ..slam.megastep import held_tensors, volume_tensors
+
+        i0, vol, p = self.current_frame, self.vol, self.params
+        poses = [np.asarray(self.gt_c2w_poses[min(i0 + k, len(self.gt_c2w_poses) - 1)],
+                            dtype=np.float32) for k in range(len(frames))]
+        poses_dev = torch.as_tensor(np.stack(poses), device=self.device)
+        nb = self._n_blocks_dev
+        nb.fill_(vol.n_blocks)
+        peak = torch.zeros((), dtype=torch.int64, device=self.device)
+        held = held_tensors(*volume_tensors(vol), nb)
+        for k, frame in enumerate(frames):
+            c, d = self._frame_tensors(*frame)
+            if self._fusion_graphs is None:
+                out = _fuse_gt_frame(vol, nb, d, c, poses_dev[k], K=self.K,
+                                     bilateral=self.use_bilateral_filter)
+            else:
+                H, W = d.shape
+                key = (H, W, tuple(self.K.ravel().tolist()), p,
+                       integrate.integrate_route(W, H), integrate.static_rows(p, H, W),
+                       self.use_bilateral_filter)
+                out = self._fusion_graphs.run(
+                    key, held, {"depth": d, "rgb": c, "c2w": poses_dev[k]}, vol=vol,
+                    n_blocks=nb, K=self.K, bilateral=self.use_bilateral_filter)
+            peak = torch.maximum(peak, out["n_visible"])
+        n_blocks, n_visible, peak_h = torch.stack([nb, out["n_visible"], peak]).tolist()
+        vol.n_blocks, vol.n_visible = n_blocks, n_visible
+        self.peak_visible["fusion"] = max(self.peak_visible["fusion"], peak_h)
+        for pose in poses:
+            self._record(pose)
+        self._last_pose_dev = poses_dev[-1]
+        return poses
 
     # -- raycast service -------------------------------------------------------
 

@@ -85,15 +85,35 @@ def dedup_candidates(packed: torch.Tensor, cap: int) -> torch.Tensor:
 
 def insert(table_keys: torch.Tensor, table_ptrs: torch.Tensor, n_blocks: int,
            block_coords: torch.Tensor, packed: torch.Tensor, max_probes: int,
-           block_capacity: int, claim_rounds: int | None = None,
-           return_ptrs: bool = False):
+           block_capacity: int, claim_rounds: int | None = None):
+    """`insert_static` with the allocated count on the host: returns
+    (n_blocks, ptrs), reading the new count back once."""
+    nb, ptrs = insert_static(
+        table_keys, table_ptrs,
+        torch.full((), n_blocks, dtype=torch.int64, device=packed.device),
+        block_coords, packed, max_probes, block_capacity, claim_rounds)
+    return int(nb), ptrs
+
+
+def insert_static(table_keys: torch.Tensor, table_ptrs: torch.Tensor,
+                  n_blocks: torch.Tensor, block_coords: torch.Tensor,
+                  packed: torch.Tensor, max_probes: int, block_capacity: int,
+                  claim_rounds: int | None = None):
     """Insert UNIQUE candidate keys (EMPTY = skip) and allocate pool rows
-    for the new ones in claim order.  Same rounds and race discipline as
-    the JAX `insert`: each round writes unresolved candidates into their
-    bucket's first EMPTY slot, the next round's re-read decides the winner
-    and losers retry.  Updates the table tensors and `block_coords` in
-    place and returns (n_blocks, ptrs or None); `ptrs` is the per-candidate
-    pool index (-1 for EMPTY and dropped candidates)."""
+    for the new ones in claim order, reading nothing back to the host (a
+    CUDA graph can capture it).  Same rounds and race discipline as the JAX
+    `insert`: each round writes unresolved candidates into their bucket's
+    first EMPTY slot, the next round's re-read decides the winner and
+    losers retry.  Updates the table tensors and `block_coords` in place.
+    `n_blocks` is a 0-d int64 device count; returns (the new count, the
+    per-candidate pool rows: -1 for EMPTY and dropped candidates).
+
+    Every write takes every candidate.  A masked candidate (a loser, one
+    with no claim, a key that did not get a row) adds 0 to an element
+    instead of writing: the writes are `scatter_add_`s of the difference
+    between the new and the present value, which each live target has
+    exactly once, so duplicate targets land the same in any order (the
+    JAX package's `mode="drop"` writes)."""
     R, W = table_keys.shape
     assert W % max_probes == 0, (table_keys.shape, max_probes)
     mp = max_probes
@@ -103,6 +123,8 @@ def insert(table_keys: torch.Tensor, table_ptrs: torch.Tensor, n_blocks: int,
     my_col = torch.full_like(packed, W, dtype=torch.int64)
     rounds = min(mp, mp if claim_rounds is None else claim_rounds)
     flat_keys = table_keys.view(-1)
+    none = R * W   # the claim target of a candidate that makes no claim
+    zero = torch.zeros_like(packed)
     ptrs_row = None
     for r in range(rounds + 1):
         keys = table_keys[row]                                  # [M, W]
@@ -116,31 +138,34 @@ def insert(table_keys: torch.Tensor, table_ptrs: torch.Tensor, n_blocks: int,
         emptyl = (keys == EMPTY) & gmask
         e_col = emptyl.to(torch.int8).argmax(-1)
         want = (~resolved) & emptyl.any(-1)
-        idx = row[want] * W + e_col[want]
+        idx = torch.where(want, row * W + e_col, none)
         # candidates racing for one slot: the last one writes, as a
-        # sequential scatter does; on CUDA duplicate-index writes land in
-        # no fixed order, so the winners are picked explicitly
+        # sequential scatter does (on CUDA duplicate-index writes land in
+        # no fixed order); the claims sort first, in candidate order, the
+        # non-claims after them
         order = torch.argsort(idx, stable=True)
         s = idx[order]
         last = torch.ones_like(s, dtype=torch.bool)
         last[:-1] = s[1:] != s[:-1]
-        win = order[last]
-        flat_keys[idx[win]] = packed[want][win]
+        win = torch.empty_like(last).scatter_(0, order, last & (s < none))
+        # a won slot is EMPTY until this write: it becomes the key
+        flat_keys.scatter_add_(0, torch.where(win, idx, 0),
+                               torch.where(win, packed - EMPTY, zero))
 
     col_safe = my_col.clamp(max=W - 1)
     my_ptr = ptrs_row.gather(1, col_safe[:, None])[:, 0]
     is_new = resolved & valid & (my_ptr < 0)
-    order = torch.cumsum(is_new.to(torch.int64), 0) - 1
-    new_ptr = n_blocks + order
+    new_ptr = n_blocks + torch.cumsum(is_new.to(torch.int64), 0) - 1
     fits = is_new & (new_ptr < block_capacity)
     slot = row * W + col_safe
-    table_ptrs.view(-1)[slot[fits]] = new_ptr[fits].to(torch.int32)
+    # a new key's slot holds pointer -1 and the key itself
+    table_ptrs.view(-1).scatter_add_(
+        0, slot, torch.where(fits, new_ptr.to(torch.int32) + 1, zero))
     # overflow: un-insert keys that could not get a block this frame
-    flat_keys[slot[is_new & ~fits]] = EMPTY
-    n_alloc = int(fits.sum())
-    block_coords[new_ptr[fits]] = packed[fits]
-    ptrs = None
-    if return_ptrs:
-        p = torch.where(fits, new_ptr, my_ptr.to(torch.int64))
-        ptrs = torch.where(resolved & valid & (p >= 0), p, -1).to(torch.int32)
-    return n_blocks + n_alloc, ptrs
+    flat_keys.scatter_add_(0, slot, torch.where(is_new & ~fits, EMPTY - packed, zero))
+    crow = torch.where(fits, new_ptr, 0)
+    block_coords.scatter_add_(
+        0, crow, torch.where(fits, packed - block_coords[crow], zero))
+    p = torch.where(fits, new_ptr, my_ptr.to(torch.int64))
+    ptrs = torch.where(resolved & valid & (p >= 0), p, -1).to(torch.int32)
+    return n_blocks + fits.sum(), ptrs

@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..utils.se3 import pose_inv
+from ..utils.se3 import bilateral_filter_depth, pose_inv
+from ..utils.static_shape import set_rows
 from . import hash as vhash
 from .volume import (BLOCK, BLOCK_VOL, TsdfVolume, pack_state,
                      state_sdf_f32, state_w_color, state_w_depth, unpack_rgb)
@@ -75,8 +76,9 @@ def alloc_candidates(depth, c2w, fx, fy, cx, cy, voxel_size, mu, frustum_min,
     inv = 1.0 / max(n_steps - 1, 1)
     # device-tensor divisors: torch on CUDA divides by a host scalar as a
     # multiplication by its reciprocal, and `scalar / tensor` is that
-    # multiplication on every device; the JAX package divides
-    fx_d, fy_d, mu_d = (torch.tensor(v, dtype=torch.float32, device=dev)
+    # multiplication on every device; the JAX package divides.  Made by
+    # fills: no host-to-device copy
+    fx_d, fy_d, mu_d = (torch.full((), v, dtype=torch.float32, device=dev)
                         for v in (fx, fy, mu))
 
     def band_keys(z):
@@ -197,13 +199,13 @@ def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
     rgb tap inside the block's 64x64 window (`_voxel_taps`), run the
     running-average TSDF/colour update in 0..255 colour units and write
     state, colour and the summary row back at pool row ptrs[i].  f32
-    throughout; the mip is the f32 mean of the unquantized new sdf."""
+    throughout; the mip is the f32 mean of the unquantized new sdf.  Every
+    row is computed, in fixed shapes; the rows with ptrs < 0 are not
+    written."""
     H, W = depth.shape
     sel = ptrs >= 0
-    if not bool(sel.any()):
-        return
-    rows = ptrs[sel].to(torch.int64)
-    zc, seen, pix, inside = _voxel_taps(keys[sel], w2c, fx, fy, cx, cy, W, H,
+    rows = torch.where(sel, ptrs, 0).to(torch.int64)
+    zc, seen, pix, inside = _voxel_taps(keys, w2c, fx, fy, cx, cy, W, H,
                                         voxel_size)
     d_meas = torch.where(inside, depth.reshape(-1)[pix], 0.0)
     c_meas = torch.where(inside[..., None],
@@ -230,9 +232,9 @@ def integrate_blocks_packed_plain(depth, rgb_packed, keys, ptrs, state, color,
     q = torch.clamp(nc + 0.5, 0.0, 255.0).to(torch.int32)
     new_wc = torch.where(cu, torch.clamp(wc_den, max=float(max_w)), old_wc)
 
-    state[rows] = pack_state(new_f, new_w, new_wc)
-    color[rows] = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
-    summary[rows] = _summary_rows(new_f, new_w)
+    set_rows(state, rows, pack_state(new_f, new_w, new_wc), sel)
+    set_rows(color, rows, q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16), sel)
+    set_rows(summary, rows, _summary_rows(new_f, new_w), sel)
 
 
 def integrate_blocks_packed(depth, rgb_packed, keys, ptrs, state, color,
@@ -295,8 +297,8 @@ def integrate_blocks_plain(depth, rgb_packed, keys, valid, old_sdf, old_w,
     old colour is its byte divided by 255, a new tap its byte times
     f32(1/255), as the TPU kernels compute them.  `valid`, `width` and
     `height` keep the JAX function's signature, against which the tests
-    hold this one; the fusion route (`_integrate_f32_route`) passes only
-    its gathered rows, all valid, and the depth image's own size.  Rows
+    hold this one; the fusion route (`_integrate_f32_route`) passes every
+    row with its integration rows valid, and the depth image's own size.  Rows
     with valid False are computed all the same (the kernel leaves them
     unwritten): callers drop them."""
     zc, seen, pix, inside = _voxel_taps(keys, w2c, fx, fy, cx, cy, width,
@@ -307,7 +309,7 @@ def integrate_blocks_plain(depth, rgb_packed, keys, valid, old_sdf, old_w,
                          0.0)
     # device-tensor divisors: on CUDA torch multiplies by the reciprocal of
     # a host scalar, where the JAX package and the kernel divide
-    mu_d, c255 = (torch.tensor(x, dtype=torch.float32, device=depth.device)
+    mu_d, c255 = (torch.full((), x, dtype=torch.float32, device=depth.device)
                   for x in (mu, 255.0))
     eta = d_meas - zc
     update = seen & (d_meas > 0) & (eta >= -mu)
@@ -378,25 +380,23 @@ def _integrate_f32_route(depth, rgb_packed, keys, ptrs, state, color,
                          summary, w2c, fx, fy, cx, cy, voxel_size, mu,
                          max_w) -> None:
     """The JAX package's route for frames above the packed budget
-    (`integrate_blocks_packed`, integrate_pallas.py:427-451): unpack the
-    integration rows (ptrs >= 0) to f32 planes, run `integrate_blocks`,
-    repack (sdf round(clip(f) * 32767), colour clip(c * 255 + 0.5)),
-    build the summary rows and write all three back into the pool in
-    place."""
+    (`integrate_blocks_packed`, integrate_pallas.py:427-451): unpack every
+    row to f32 planes, run `integrate_blocks` with the integration rows
+    (ptrs >= 0) valid, repack (sdf round(clip(f) * 32767), colour
+    clip(c * 255 + 0.5)), build the summary rows and write the integration
+    rows' three back into the pool in place, in fixed shapes."""
     H, W = depth.shape
     sel = ptrs >= 0
-    rows = ptrs[sel].to(torch.int64)
-    if rows.numel() == 0:
-        return
+    rows = torch.where(sel, ptrs, 0).to(torch.int64)
     st = state[rows]
     new_f, new_w, new_c, new_wc = integrate_blocks(
-        depth, rgb_packed, keys[sel], torch.ones_like(rows, dtype=torch.bool),
-        state_sdf_f32(st), state_w_depth(st).to(torch.float32), color[rows],
+        depth, rgb_packed, keys, sel, state_sdf_f32(st),
+        state_w_depth(st).to(torch.float32), color[rows],
         state_w_color(st).to(torch.float32), w2c, fx, fy, cx, cy, W, H,
         voxel_size, mu, max_w)
-    state[rows] = pack_state(new_f, new_w, new_wc)
-    color[rows] = pack_rgb(new_c)
-    summary[rows] = _summary_rows(new_f, new_w)
+    set_rows(state, rows, pack_state(new_f, new_w, new_wc), sel)
+    set_rows(color, rows, pack_rgb(new_c), sel)
+    set_rows(summary, rows, _summary_rows(new_f, new_w), sel)
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +414,9 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
     p = vol.params
     H, W = depth.shape
     sel = ptrs >= 0
-    if not bool(sel.any()):
-        return
-    rows = ptrs[sel].to(torch.int64)
+    rows = torch.where(sel, ptrs, 0).to(torch.int64)
     dev = depth.device
-    bx, by, bz = (c.to(torch.float32) * BLOCK for c in vhash.unpack(keys[sel]))
+    bx, by, bz = (c.to(torch.float32) * BLOCK for c in vhash.unpack(keys))
     lin = torch.arange(BLOCK_VOL, device=dev)
     px = (bx[:, None] + (lin % BLOCK).to(torch.float32)) * p.voxel_size
     py = (by[:, None] + ((lin // BLOCK) % BLOCK).to(torch.float32)) * p.voxel_size
@@ -429,7 +427,7 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
     v = fy * (R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]) / z + cy
     # device-tensor divisors: on CUDA torch multiplies by the reciprocal of
     # a host scalar, where the JAX package divides
-    mu_d, c255 = (torch.tensor(x, dtype=torch.float32, device=dev)
+    mu_d, c255 = (torch.full((), x, dtype=torch.float32, device=dev)
                   for x in (p.mu, 255.0))
     in_img = (z > 0) & (u >= 1) & (u <= W - 2) & (v >= 1) & (v <= H - 2)
     uc = u.nan_to_num(0).clamp(-1e7, 1e7)
@@ -464,9 +462,9 @@ def _integrate_small_frame(vol, depth, rgb_packed, keys, ptrs, w2c, fx, fy,
     new_c = torch.where(cu[..., None], (old_c * old_wc[..., None] + c_meas)
                         / (old_wc[..., None] + 1.0), old_c)
     new_wc = torch.where(cu, torch.clamp(old_wc + 1.0, max=float(p.max_w)), old_wc)
-    vol.state[rows] = pack_state(new_f, new_w, new_wc)
-    vol.color[rows] = pack_rgb(new_c)
-    vol.summary[rows] = _summary_rows(new_f, new_w)
+    set_rows(vol.state, rows, pack_state(new_f, new_w, new_wc), sel)
+    set_rows(vol.color, rows, pack_rgb(new_c), sel)
+    set_rows(vol.summary, rows, _summary_rows(new_f, new_w), sel)
 
 
 def _intrinsics(K) -> tuple[float, float, float, float]:
@@ -508,8 +506,6 @@ def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
     frame's `frame_candidates` when the caller has them already (the
     sharded fusion computes them once for every shard)."""
     p = vol.params
-    fx, fy, cx, cy = _intrinsics(K)
-    H, W = depth.shape
     if cand is None:
         cand = frame_candidates(p, depth, c2w, K)
     if shard_n > 1:
@@ -518,14 +514,25 @@ def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
     cand = vhash.dedup_candidates(cand, p.alloc_candidate_cap)
     vol.n_blocks, cand_ptrs = vhash.insert(
         vol.table_keys, vol.table_ptrs, vol.n_blocks, vol.block_coords, cand,
-        p.max_probes, p.block_capacity, claim_rounds=2, return_ptrs=True)
+        p.max_probes, p.block_capacity, claim_rounds=2)
     # the valid candidates are a prefix (dedup parks EMPTY keys last); the
     # integration set is that prefix, capped at the visible capacity
     n_cand = int((cand != vhash.EMPTY).sum())
     vol.n_visible = n_cand
     V = min(p.visible_capacity, p.alloc_candidate_cap, n_cand)
-    keys = cand[:V].contiguous()
     ptrs = cand_ptrs[:V].contiguous()
+    _integrate_set(vol, depth, rgb, c2w, K, cand[:V].contiguous(), ptrs)
+    if frame_idx is not None:
+        vol.last_seen[ptrs[ptrs >= 0].to(torch.int64)] = frame_idx
+    return vol
+
+
+def _integrate_set(vol: TsdfVolume, depth, rgb, c2w, K, keys, ptrs) -> None:
+    """The per-block update of the integration set (`keys`, their pool rows
+    `ptrs`, -1 for a row not to integrate) by the frame's route."""
+    p = vol.params
+    fx, fy, cx, cy = _intrinsics(K)
+    H, W = depth.shape
     w2c = pose_inv(c2w)
     rgb_packed = pack_rgb(rgb)
     if W < WIN or H < WIN:
@@ -535,6 +542,42 @@ def fuse_frame(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
         integrate_blocks_packed(depth.contiguous(), rgb_packed.contiguous(),
                                 keys, ptrs, vol.state, vol.color, vol.summary,
                                 w2c, fx, fy, cx, cy, p.voxel_size, p.mu, p.max_w)
-    if frame_idx is not None:
-        vol.last_seen[ptrs[ptrs >= 0].to(torch.int64)] = frame_idx
-    return vol
+
+
+def static_rows(params, height: int, width: int) -> int:
+    """The integration rows of `fuse_frame_static` for a height x width
+    frame: the visible capacity, or the frame's whole deduplicated
+    candidate list when that is shorter."""
+    p = params
+    n_stream = (height // p.alloc_stride) * (width // p.alloc_stride) * 2 * p.alloc_steps
+    return min(p.visible_capacity, p.alloc_candidate_cap, n_stream)
+
+
+def fuse_frame_static(vol: TsdfVolume, depth: torch.Tensor, rgb: torch.Tensor,
+                      c2w: torch.Tensor, K, n_blocks: torch.Tensor,
+                      bilateral: bool = False) -> torch.Tensor:
+    """`fuse_frame` in fixed shapes, reading nothing back to the host: the
+    body of the chunked gt fusion and of the tracked megastep, which a CUDA
+    graph captures.  `n_blocks` is the volume's allocated count as a 0-d
+    int64 device tensor, updated in place (`vol.n_blocks` is left to the
+    caller, which reads the count once per chunk); `K` stays host numpy.
+    With `bilateral` the depth is filtered first.
+
+    The integration set has `static_rows` rows whatever the frame's count:
+    the rows past the frame's candidates hold EMPTY with pool row -1, which
+    the integrate kernels return on at once and the plain versions compute
+    and do not write, so the volume is `fuse_frame`'s bit for bit.
+    Returns the frame's candidate count (`vol.n_visible`) on the device."""
+    p = vol.params
+    if bilateral:
+        depth = bilateral_filter_depth(depth)
+    cand = vhash.dedup_candidates(frame_candidates(p, depth, c2w, K),
+                                  p.alloc_candidate_cap)
+    nb, cand_ptrs = vhash.insert_static(
+        vol.table_keys, vol.table_ptrs, n_blocks, vol.block_coords, cand,
+        p.max_probes, p.block_capacity, claim_rounds=2)
+    n_blocks.copy_(nb)
+    V = static_rows(p, *depth.shape)
+    _integrate_set(vol, depth, rgb, c2w, K, cand[:V].contiguous(),
+                   cand_ptrs[:V].contiguous())
+    return (cand != vhash.EMPTY).sum()

@@ -114,8 +114,7 @@ class HostSwapEngine:
         tk = torch.full_like(vol.table_keys, vhash.EMPTY)
         tp = torch.full_like(vol.table_ptrs, -1)
         bc = torch.full_like(vol.block_coords, vhash.EMPTY)
-        nb, ptrs = vhash.insert(tk, tp, 0, bc, keep_keys, p.max_probes, B,
-                                return_ptrs=True)
+        nb, ptrs = vhash.insert(tk, tp, 0, bc, keep_keys, p.max_probes, B)
         if nb != keep_n or not torch.equal(
                 ptrs, torch.arange(keep_n, dtype=torch.int32, device=dev)):
             raise RuntimeError(

@@ -111,8 +111,8 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
                     eye + ((1.0 - cos_t) / th) * K + ((th - sin_t) / th) * KK)
     t = V @ rho[..., None]
     top = torch.cat([R, t], dim=-1)
-    bottom = torch.zeros((*top.shape[:-2], 1, 4), dtype=xi.dtype, device=xi.device)
-    bottom[..., 3] = 1.0
+    z = torch.zeros((*top.shape[:-2], 1, 3), dtype=xi.dtype, device=xi.device)
+    bottom = torch.cat([z, torch.ones_like(z[..., :1])], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

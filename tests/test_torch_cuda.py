@@ -1384,3 +1384,157 @@ def test_megastep_reads_nothing_back_on_the_card(cuda_device, fused, tmp_path,
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out["loss_hist"]).all() and int(out["n_alive"]) > 0
+
+
+# ------------------------------------- chunked gt fusion, tracked megastep
+
+VOL_FIELDS = ("table_keys", "table_ptrs", "block_coords", "state", "color", "summary",
+              "last_seen")
+
+
+def _gt_engine(device, cams, route="packed"):
+    """A gt-pose engine (2 cm voxels) over `cams`, fusion on `route`
+    ("f32": the budget of the packed route lowered to 0 by the caller)."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    c0 = cams[0]
+    W, H = c0.width, c0.height
+    node = {"input_dir": "mem", "image_path": "c", "pose_path": "c", "depth_path": "d",
+            "pcd_name": "n", "depth_scale": 6553.5, "scene_scale": 1.0,
+            "start_frame": 0, "end_frame": len(cams) - 1, "frame_step": 1,
+            "intrinsics": [c0.fx, c0.fy, c0.cx, c0.cy], "image_shape": [W, H],
+            "downscale_factor": 1, "test_split_interval": -1}
+    d = synthetic.default_config_dict("build/test_ws", node)
+    e = TsdfEngine(Config.from_dict(d), W, H, c0.K, device=device)
+    e.set_gt_poses([c.c2w for c in cams])
+    e.turn_off_tracking()
+    return e
+
+
+def _frames_on(cams, device):
+    return [(torch.as_tensor(c.image, device=device),
+             torch.as_tensor(c.depth[..., 0], device=device)) for c in cams]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["packed", "f32"])
+def test_fusion_frame_graph_replays_equal_uncaptured(cuda_device, route, monkeypatch):
+    """A group of 4 frames through `process_frames_gt` (the frame body
+    captured once, then replayed 3 times) against the same frames through
+    the uncaptured body on another card volume: every volume tensor and
+    the counts bit for bit; the graph recorded one integrate launch."""
+    from gps_slam_torch import kernels
+
+    if route == "f32":
+        monkeypatch.setattr(tint, "_RESIDENT_BYTES", 0)
+    cams = synthetic.make_cameras(n_frames=4, width=128, height=96)
+    frames = _frames_on(cams, cuda_device)
+    e = _gt_engine(cuda_device, cams)
+    ref = _gt_engine(cuda_device, cams)
+    ref._fusion_graphs = None
+    for eng in (e, ref):
+        eng.process_frames_gt(frames)
+    torch.cuda.synchronize()
+    g = e._fusion_graphs
+    assert (g.captures, g.replays) == (1, 3)
+    for k in VOL_FIELDS:
+        assert torch.equal(getattr(e.vol, k), getattr(ref.vol, k)), k
+    assert (e.vol.n_blocks, e.vol.n_visible, e.peak_visible) == (
+        ref.vol.n_blocks, ref.vol.n_visible, ref.peak_visible)
+    assert e.vol.n_blocks > 100
+    k = kernels.INTEGRATE if route == "packed" else kernels.INTEGRATE_F32
+    (cap,) = g.graphs.values()
+    assert cap.launches[k.name] == 1 and g.replayed_launches[k.name] == 3
+
+
+@pytest.mark.cuda
+def test_fusion_graphs_drop_on_rebinding(cuda_device):
+    """A volume tensor rebound to new storage drops the fusion graph: the
+    next group captures again, and the volume still equals the uncaptured
+    one's."""
+    cams = synthetic.make_cameras(n_frames=4, width=128, height=96)
+    frames = _frames_on(cams, cuda_device)
+    e = _gt_engine(cuda_device, cams)
+    ref = _gt_engine(cuda_device, cams)
+    ref._fusion_graphs = None
+    for eng in (e, ref):
+        eng.process_frames_gt(frames[:2])
+    e.vol.state = e.vol.state.clone()
+    for eng in (e, ref):
+        eng.process_frames_gt(frames[2:])
+    g = e._fusion_graphs
+    assert (g.captures, g.replays, g.dropped) == (2, 2, 1)
+    for k in VOL_FIELDS:
+        assert torch.equal(getattr(e.vol, k), getattr(ref.vol, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["packed", "f32", "tracked"])
+def test_fixed_shape_bodies_never_synchronise(cuda_device, route, monkeypatch):
+    """The chunk's frame body (K1's and K2's route) and the tracked
+    megastep's frame, uncaptured on the card, under
+    torch.cuda.set_sync_debug_mode("error"): any call that synchronises
+    with the host (a read-back, a pageable copy) raises."""
+    from gps_slam_torch.tsdf import engine as teng
+
+    if route == "f32":
+        monkeypatch.setattr(tint, "_RESIDENT_BYTES", 0)
+    if route == "tracked":
+        cams, (_, e) = _tracking_engines(cuda_device)
+        e.process_frame(cams[0].image, cams[0].depth)
+        tr, p, c = e._tracker, e.params, cams[1]
+        maps = e._last_raycast_for_tracking
+        args = (e.vol, e._n_blocks_dev, e._last_pose_dev,
+                torch.as_tensor(c.depth[..., 0], device=cuda_device),
+                torch.as_tensor(c.image, device=cuda_device),
+                maps["vertex_map"], maps["normal_map"])
+        kw = dict(K=e.K, level_iters=tuple(tr.level_iters), space_thresh=tr.space_thresh,
+                  tukey_c=tr.tukey_c, bilateral=True,
+                  ray=(c.width, c.height, p.raycast_lb, p.raycast_samples,
+                       max(p.raycast_bisect, 3)), prefix=p.block_capacity)
+        e._n_blocks_dev.fill_(e.vol.n_blocks)
+        torch.linalg.solve_ex(torch.eye(6, device=cuda_device),
+                              torch.ones(6, device=cuda_device))
+        run = lambda: teng.track_fuse_step(*args, **kw)["pose"]
+    else:
+        cams = synthetic.make_cameras(n_frames=2, width=128, height=96)
+        e = _gt_engine(cuda_device, cams)
+        (rgb0, d0), (rgb1, d1) = _frames_on(cams, cuda_device)
+        nb = e._n_blocks_dev
+        poses = torch.as_tensor(np.stack([c.c2w for c in cams]), device=cuda_device)
+        tint.fuse_frame_static(e.vol, d0, rgb0, poses[0], e.K, nb)
+        run = lambda: tint.fuse_frame_static(e.vol, d1, rgb1, poses[1], e.K, nb,
+                                             bilateral=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.cuda
+def test_tracked_graph_replays_equal_uncaptured(cuda_device):
+    """Five frames of the tracked loop on two card engines: frame 0 eager,
+    then the megastep, on one as its graph (captured once, replayed 3
+    times), on the other uncaptured: the poses, quality labels, iteration
+    counts, volumes and the last prepare raycast's maps bit for bit."""
+    cams, (_, e) = _tracking_engines(cuda_device)
+    _, (_, ref) = _tracking_engines(cuda_device)
+    ref._track_graphs = None
+    labels = {id(e): [], id(ref): []}
+    for c in cams[:5]:
+        for eng in (e, ref):
+            eng.process_frame(c.image, c.depth)
+            labels[id(eng)].append((eng._tracking_quality, eng._tracker.last_iters))
+    g = e._track_graphs
+    assert (g.captures, g.replays) == (1, 3)
+    assert labels[id(e)] == labels[id(ref)]
+    np.testing.assert_array_equal(np.stack(e.cam_poses), np.stack(ref.cam_poses))
+    for k in VOL_FIELDS:
+        assert torch.equal(getattr(e.vol, k), getattr(ref.vol, k)), k
+    for k in ("vertex_map", "normal_map"):
+        assert torch.equal(e._last_raycast_for_tracking[k],
+                           ref._last_raycast_for_tracking[k]), k

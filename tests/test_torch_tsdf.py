@@ -76,8 +76,7 @@ def test_hash_insert_lookup_key_for_key(P):
     tk = torch.full((H // W, W), thash.EMPTY, dtype=torch.int32)
     tptr = torch.full((H // W, W), -1, dtype=torch.int32)
     tbc = torch.full((B,), thash.EMPTY, dtype=torch.int32)
-    tnb, tret = thash.insert(tk, tptr, 0, tbc, tc, P, B, claim_rounds=2,
-                             return_ptrs=True)
+    tnb, tret = thash.insert(tk, tptr, 0, tbc, tc, P, B, claim_rounds=2)
     assert tnb == int(jnb)
     np.testing.assert_array_equal(np.asarray(jret), tret.numpy())
     np.testing.assert_array_equal(np.asarray(jk), _u32(tk))

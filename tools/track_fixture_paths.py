@@ -8,7 +8,9 @@ package and through the port, on the CPU:
 JAX paths: the XLA raycast or the TPU kernels' branch (Pallas in interpret
 mode, as tests/test_torch_slice.py runs it), each on the one-dispatch
 tracked megastep (which inverts the reference pose analytically) and on
-the eager per-frame path (ICPTracker.track, np.linalg.inv).  Prints, per
+the eager per-frame path (ICPTracker.track, np.linalg.inv); the port
+(the TPU kernels' semantics) on its tracked megastep (the reference pose
+inverted on the device) and on its eager route.  Prints, per
 path, the ATE (cm), the last pose's translation (cm) and rotation (deg)
 errors and the GOOD count.  About four minutes, most of it the kernel
 branch in interpret mode.
@@ -83,13 +85,15 @@ def run_jax(cams, d, kernel_branch: bool, megastep: bool):
     return e.cam_poses, q
 
 
-def run_port(cams, d):
+def run_port(cams, d, megastep: bool):
     from gps_slam_torch.config import Config
     from gps_slam_torch.slam.tracker import ICPTracker
     from gps_slam_torch.tsdf.engine import TsdfEngine
 
     cfg = Config.from_dict(d)
     e = TsdfEngine(cfg, W, H, cams[0].K, device="cpu")
+    if not megastep:
+        e._can_fast_track = lambda: False
     e.set_gt_poses([cams[0].c2w])
     e.attach_tracker(ICPTracker(cfg, W, H))
     q = []
@@ -111,7 +115,8 @@ def main() -> int:
                 ("jax xla, eager", lambda: run_jax(cams, d, False, False)),
                 ("jax kernels, megastep", lambda: run_jax(cams, d, True, True)),
                 ("jax kernels, eager", lambda: run_jax(cams, d, True, False)),
-                ("port (eager, kernels' semantics)", lambda: run_port(cams, d))):
+                ("port, megastep", lambda: run_port(cams, d, True)),
+                ("port, eager", lambda: run_port(cams, d, False))):
             t0 = time.monotonic()
             poses, q = fn()
             report(name, poses, q, cams, time.monotonic() - t0)
