@@ -48,13 +48,17 @@ Phases (any failure exits non-zero before the final line):
      frame after the first the tracked megastep (one CUDA graph: ICP,
      the revert, fusion, the next prepare raycast; one read a frame),
      then the same frames on the eager route as its witness: K1 and the
-     tracking-prepare K3 (need_color False, k_blocks 1) once per frame;
+     tracking-prepare K3 (its tracking mode: the JAX XLA march's
+     semantics, k_blocks 2, need_color False) once per frame;
      each run: ATE below 3 voxels, the last pose within 2 cm and 2
      degrees, GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
      `[tracked routes]` gives both routes' ms per tracked frame over the
      same scope (engine.process_frame: ICP, revert, fusion, the next
      prepare raycast; median, mean, least, most, first) and the eager
-     route's split;
+     route's split; then `[tracking fixture]`: tests/test_tracking.py's
+     three tracking fixtures at 160x120 (its fixture, the same at half
+     the arc, its noisy stress fixture) on both routes, with that file's
+     gates;
   7. swap path: gt-pose `train` at 1200x680 on a full outward turn (40
      frames) with the block pool cut to 16,384 rows and host swapping on
      (check every 2 frames, waters 0.80 / 0.50): blocks spill and reload,
@@ -74,8 +78,11 @@ Phases (any failure exits non-zero before the final line):
  10. kernels: each kernel against its plain PyTorch version on the inputs
      of its last call on its path (K1 on the main and the sharded path, K2
      once per route, K3 on the main path, on the 1920x1080 path, on the
-     tracked path's last tracking-prepare call and on the sharded path's
-     last shard raycast), with CUDA-event timings, the least time the card
+     tracked path's last tracking-prepare call (its tracking mode, and
+     beside it the same inputs at k_blocks 1 on the TPU kernel's
+     semantics: a [kernel] line left out of the JSON line, not a launch
+     of the path) and on the sharded path's last shard raycast), with
+     CUDA-event timings, the least time the card
      could take for the same work and the kernel's design; K4 and K5 also
      on the tiles of their lists with a live slot alone (the same bits,
      and its time), and their bounds count only those tiles' pixels and
@@ -184,6 +191,17 @@ ATE_MAX_VOXELS = 3.0
 LAST_MAX_M = 0.02
 LAST_MAX_DEG = 2.0
 GOOD_MIN_SHARE = 0.7
+# tests/test_tracking.py's own fixtures at 160x120 with 2 cm voxels (name,
+# frames, arc, noisy depth): its tracked fixture, the same at half the arc,
+# and its stress fixture (depth noise of 5 mm sigma and 10% dropout drawn
+# frame by frame from default_rng(7)), each with that file's gates in
+# voxels: ATE, the last pose and GOOD as above on the first two; ATE below
+# 6 voxels and FAILED on <= 20% of the tracked frames on the stress one
+TRACK_FIXTURES = (("arc 0.025", 16, 0.025, False), ("arc 0.0125", 16, 0.0125, False),
+                  ("stress", 32, 0.05, True))
+LAST_MAX_VOXELS = 4.0
+STRESS_ATE_MAX_VOXELS = 6.0
+STRESS_FAILED_MAX_SHARE = 0.2
 # the swap path: bench.py's configuration on a full outward turn (40
 # frames, 9 degrees a frame as on the main path) with the block pool cut
 # below the turn's ~28k blocks and the waters and check interval of
@@ -265,13 +283,14 @@ def tap_pixels(keys, w2c, fx, fy, cx, cy, W, H, voxel_size) -> int:
     return torch.unique(pix[seen]).numel()
 
 
-def march_work(margs, chunk: int = 128) -> dict:
+def march_work(margs, track: bool = False, chunk: int = 128) -> dict:
     """What a `march` call's data asks of it, from the plain version's own
-    coarse pass (`raycast_tiles._coarse`) and pick rule: the (quad, block)
+    coarse pass (`raycast_tiles._coarse`) and pick rule: the (ray, block)
     pairs whose slab test hits (only they take the coarse mip samples), the
-    picks the quads make (min(k_blocks, their keys < inf): only they are
-    refined, at each of the quad's 4 pixels), and the distinct blocks that
-    any quad picks (only their state rows are read)."""
+    picks the rays make (min(k_blocks, their keys < inf): only they are
+    refined, at each of the ray's pixels), and the distinct blocks that
+    any ray picks (only their state rows are read).  A ray is a 2x2 quad,
+    or in the tracking mode (`track`) a pixel."""
     from gps_slam_torch.tsdf import raycast_tiles as trc
 
     gids, _, _, summary, bc, cam, tw, s_c, _, k_b = margs[:10]
@@ -282,19 +301,28 @@ def march_work(margs, chunk: int = 128) -> dict:
     for a in range(0, T, chunk):
         g = gids[a:a + chunk]
         tiles = torch.arange(a, a + g.shape[0], device=gids.device)
-        _, gsafe, _, hit, key, _, _, _ = trc._coarse(tiles, g, summary, bc, cam, tw, s_c)
+        _, gsafe, _, hit, key, _, _, _ = trc._coarse(tiles, g, summary, bc, cam, tw, s_c,
+                                                     per_pixel=track)
         hit_pairs += int(hit.sum().item())
         picked = torch.zeros(g.shape, dtype=torch.bool, device=g.device)
         for _ in range(k_b):
-            kmin = key.amin(1)                                       # [n, 64]
+            kmin = key.amin(1)                                       # [n, R]
             slot = torch.where(torch.isfinite(kmin), key.argmin(1), LB)
-            mark = slots == slot[:, None, :]                         # [n, LB, 64]
+            mark = slots == slot[:, None, :]                         # [n, LB, R]
             picked |= mark.any(2)
             key = torch.where(mark, torch.inf, key)
             picks += int((slot < LB).sum().item())
         picked_rows.append(gsafe[picked])
-    return {"hit_pairs": hit_pairs, "picks": picks,
+    return {"hit_pairs": hit_pairs, "picks": picks, "rays": key.shape[2],
             "picked_rows": torch.unique(torch.cat(picked_rows)).numel()}
+
+
+def plain_march(*a, track: bool = False, **kw):
+    """`raycast_tiles.march` on its plain version whatever the tensors'
+    device (the tracking mode: `march_plain` with raycast_tiles.TRACK)."""
+    from gps_slam_torch.tsdf import raycast_tiles as trc
+
+    return trc.march_plain(*a, xla=trc.TRACK if track else frozenset(), **kw)
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1294,31 +1322,36 @@ def k2_row(tag: str, replaces: str, args: tuple, launches: int) -> dict:
 def k3_row(tag: str | None, call: tuple, launches: int, extra: dict | None = None,
            exact: bool = False) -> dict:
     """K3 (`raycast_cuda`) against `march_plain` on the arguments of one
-    `march` call (`call`: args, kwargs); `tag` names the path when it is
-    not the main path; `extra` is added to the row.  With `exact` the hit
-    pixels' words must equal the plain version's bit for bit."""
+    `march` call (`call`: args, kwargs), in the call's mode (the tracking
+    mode against the plain version with raycast_tiles.TRACK); `tag` names
+    the path when it is not the main path; `extra` is added to the row.
+    With `exact` the hit pixels' words must equal the plain version's bit
+    for bit."""
     from gps_slam_torch import kernels
     from gps_slam_torch.tsdf import raycast_tiles as trc
 
     a, kw = call
     gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b = a[:10]
     need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
+    track = bool(a[11] if len(a) > 11 else kw.get("track", False))
     margs = (gids, state, color, summary, bc, cam, tw, s_c, s_r, k_b, need_color)
-    ok_out = trc.march(*margs)
-    pl_out = trc.march_plain(*margs)
+    ok_out = trc.march(*margs, track=track)
+    pl_out = plain_march(*margs, track=track)
     torch.cuda.synchronize()
     hk, hp = ok_out[:, 5] > 0, pl_out[:, 5] > 0
     hit_flips = int((hk != hp).sum().item())
     px_err = (ok_out[:, :5] - pl_out[:, :5]).abs().amax(1)[hk & hp]
     max_err = px_err.max().item() if px_err.numel() else 0.0
     ok3 = hit_flips == 0 and (max_err == 0.0 if exact else max_err < 1e-4)
-    ms = time_ms(lambda: trc.march(*margs), 20)
-    plain_ms = time_ms(lambda: trc.march_plain(*margs), 2, 1)
+    ms = time_ms(lambda: trc.march(*margs, track=track), 20)
+    plain_ms = time_ms(lambda: plain_march(*margs, track=track), 2, 1)
     T, LB = gids.shape
     valid = gids[gids >= 0]
     n_rows = torch.unique(valid).numel()
     n_slots = valid.numel()
-    work = march_work(margs)
+    work = march_work(margs, track)
+    rays, px_per_ray = work["rays"], 256 // work["rays"]
+    stages = 2 if track else 1
     n_hit = int(hp.sum().item())
     # colour words: the hit pixels' 8 corner words, at most each picked
     # block's whole row
@@ -1327,13 +1360,15 @@ def k3_row(tag: str | None, call: tuple, launches: int, extra: dict | None = Non
     # key, the picked blocks' state rows, the colour words, the output
     n_bytes = (gids.numel() * 4 + n_rows * (64 + 1 + 1) * 4
                + work["picked_rows"] * 512 * 4 + col_words * 4 + ok_out.numel() * 4)
-    n_ops = (n_slots * 64 * 20                        # quad slab test, every listed pair
+    n_ops = (n_slots * rays * 20                      # ray slab test, every listed pair
              + work["hit_pairs"] * s_c * 60           # coarse mip samples, pairs that hit
-             + work["picks"] * 4 * (20 + s_r * 60)    # refine, the picked quads' pixels
+             # refine, the picked rays' pixels, one or two bracket stages
+             + work["picks"] * px_per_ray * (20 + stages * s_r * 60)
              + (n_hit * 3 * 60 if need_color else 0))  # colour read, pixels that hit
     b, by = bound_ms(n_bytes, n_ops)
     return {"name": "raycast_cuda" + (f" ({tag})" if tag else ""), "tpu": "K3",
-            "design": kernels.RAYCAST.design, "route": "cuda",
+            "design": kernels.RAYCAST_TRACK_DESIGN if track else kernels.RAYCAST.design,
+            "route": "cuda", "track": track,
             "source": "gps_slam_torch/csrc/raycast.cu",
             "replaces": "gps_slam_tpu/tsdf/raycast_pallas.py:51",
             "launches": launches, "max_abs_err": max_err,
@@ -1343,7 +1378,7 @@ def k3_row(tag: str | None, call: tuple, launches: int, extra: dict | None = Non
             "shapes": {"T": T, "LB": LB, "valid_slots": n_slots,
                        "distinct_blocks": n_rows, "hit_pairs": work["hit_pairs"],
                        "picks": work["picks"], "picked_rows": work["picked_rows"],
-                       "hit_pixels": n_hit, "k_blocks": k_b,
+                       "hit_pixels": n_hit, "k_blocks": k_b, "rays_per_tile": rays,
                        "s_coarse": s_c, "s_refine": s_r, "need_color": bool(need_color)},
             "tolerance": "hit masks equal; t*, confidence, colour "
                          + ("bit for bit" if exact else "within 1e-4") + " wherever both hit",
@@ -1640,12 +1675,100 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
                                     "eager": eager["last_translation_err_cm"]},
         "psnr_mean": {"megastep": out["psnr_mean"], "eager": eager["psnr_mean"]},
         "train_s": {"megastep": out["train_s"], "eager": eager["train_s"]}}))
-    need_color = call[0][10] if len(call[0]) > 10 else call[1].get("need_color", True)
-    if need_color or call[0][9] != 1:
-        raise RuntimeError("the tracking-prepare raycast did not run with need_color "
-                           "False and k_blocks 1")
-    return out, ("tracking prepare, 1200x680", call, out["tracking_prepare_k3_launches"],
-                 {"launches_path": out["launches"][kernels.RAYCAST.name]})
+    from gps_slam_torch.tsdf import raycast_tiles as trc
+
+    a, kw = call
+    need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
+    track = a[11] if len(a) > 11 else kw.get("track", False)
+    if need_color or not track or a[9] != trc.TRACK_K_BLOCKS:
+        raise RuntimeError("the tracking-prepare raycast did not run in the tracking "
+                           f"mode at k_blocks {trc.TRACK_K_BLOCKS} without colour")
+    # the same call as the tracking prepare ran it before the tracking mode
+    # (the TPU kernel's semantics, k_blocks 1), timed beside it; printed as
+    # a [kernel] line, not a launch of the path
+    parent = ((*a[:9], 1, False), {})
+    return out, [("tracking prepare, 1200x680", call, out["tracking_prepare_k3_launches"],
+                  {"launches_path": out["launches"][kernels.RAYCAST.name]}),
+                 ("tracking prepare, 1200x680, the TPU kernel's semantics at k_blocks 1",
+                  parent, 0, {"comparison": "the prepare call before the tracking mode, "
+                                            "on the same inputs; not launched on the path"})]
+
+
+def tracking_fixture_phase() -> dict:
+    """tests/test_tracking.py's three tracking fixtures (TRACK_FIXTURES) on
+    the card, on both tracked routes (the megastep: a graph captured once
+    and replayed each frame; the eager route), each held to that file's
+    gates: the port's tracking-prepare raycast on the JAX XLA march's
+    semantics meets them where the TPU kernel's semantics ended 8.5-17 cm
+    off the last pose."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.eval import metrics
+    from gps_slam_torch.slam import tracker as trk
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    W, H = 160, 120
+    res, bad = {}, []
+    for name, n, arc, noisy in TRACK_FIXTURES:
+        cams = synthetic.make_cameras(n_frames=n, width=W, height=H, look="in", arc=arc)
+        depths = [c.depth for c in cams]
+        if noisy:
+            rng = np.random.default_rng(7)
+            depths = []
+            for c in cams:
+                d = np.asarray(c.depth).copy()
+                d += rng.normal(0.0, 0.005, d.shape).astype(np.float32)
+                d[rng.random(d.shape) < 0.10] = 0.0
+                depths.append(np.maximum(d, 0.0))
+        cfg = Config.from_dict(small_config(cams, tracked=True))
+        vox = cfg.pipe.tsdf.voxel_size
+        for route in ("megastep", "eager"):
+            e = TsdfEngine(cfg, W, H, cams[0].K, device="cuda")
+            if route == "eager":
+                e._can_fast_track = lambda: False
+            e.set_gt_poses([cams[0].c2w])
+            e.attach_tracker(trk.ICPTracker(cfg, W, H))
+            q = []
+            t = time.monotonic()
+            for c, d in zip(cams, depths):
+                e.process_frame(c.image, d)
+                q.append(e._tracking_quality)
+            ms = (time.monotonic() - t) * 1e3 / n
+            gt = [c.c2w for c in cams]
+            est = e.cam_poses
+            R = est[-1][:3, :3].T @ gt[-1][:3, :3]
+            r = {"ate_cm": metrics.ate_rmse_cm(est, gt),
+                 "last_translation_err_cm": float(np.linalg.norm(
+                     est[-1][:3, 3] - gt[-1][:3, 3]) * 100),
+                 "last_rotation_err_deg": float(np.degrees(np.arccos(
+                     np.clip((np.trace(R) - 1) / 2, -1, 1)))),
+                 "good": sum(x == trk.TrackerQuality.GOOD for x in q[1:]),
+                 "failed": sum(x == trk.TrackerQuality.FAILED for x in q[1:]),
+                 "tracked_frames": n - 1, "ms_per_frame": ms,
+                 "graphs": (None if e._track_graphs is None else
+                            {"captures": e._track_graphs.captures,
+                             "replays": e._track_graphs.replays})}
+            if noisy:
+                ok = (r["ate_cm"] < STRESS_ATE_MAX_VOXELS * vox * 100
+                      and r["failed"] <= STRESS_FAILED_MAX_SHARE * (n - 1))
+            else:
+                ok = (r["ate_cm"] < ATE_MAX_VOXELS * vox * 100
+                      and r["last_translation_err_cm"] < LAST_MAX_VOXELS * vox * 100
+                      and r["last_rotation_err_deg"] < LAST_MAX_DEG
+                      and r["good"] >= GOOD_MIN_SHARE * (n - 1))
+            r["ok"] = ok
+            res[f"{name}, {route}"] = r
+            if not ok:
+                bad.append(f"{name}, {route}")
+    res["gates"] = {
+        "plain": f"ATE < {ATE_MAX_VOXELS} voxels, last pose < {LAST_MAX_VOXELS} voxels "
+                 f"and {LAST_MAX_DEG} deg, GOOD >= {GOOD_MIN_SHARE} of tracked frames",
+        "stress": f"ATE < {STRESS_ATE_MAX_VOXELS} voxels, FAILED <= "
+                  f"{STRESS_FAILED_MAX_SHARE} of tracked frames", "voxel_cm": vox * 100}
+    log("[tracking fixture] " + json.dumps(res))
+    if bad:
+        raise RuntimeError(f"tracking fixtures outside tests/test_tracking.py's gates: {bad}")
+    return res
 
 
 def raycast_vs_gt(engine, cam) -> tuple[float, float]:
@@ -2375,7 +2498,7 @@ def sharded_path(args, rec: Recorder, main: dict, main_engine, main_alloc: Alloc
     wide = dataclasses.replace(main_engine.vol, params=dataclasses.replace(
         p, visible_capacity=SHARDS * p.visible_capacity))
     march = raycast_tiles.march
-    raycast_tiles.march = raycast_tiles.march_plain
+    raycast_tiles.march = plain_march
     try:
         d1 = raycast_tiles.raycast(wide, cam.c2w, cam.K, cam.width, cam.height,
                                    SHARDS * p.raycast_lb, p.raycast_samples,
@@ -2411,7 +2534,7 @@ def sharded_path(args, rec: Recorder, main: dict, main_engine, main_alloc: Alloc
     from gps_slam_torch.eval import metrics as M
 
     march = raycast_tiles.march
-    raycast_tiles.march = raycast_tiles.march_plain
+    raycast_tiles.march = plain_march
     try:
         picks = [raycast_tiles.raycast(wide, c.c2w, c.K, c.width, c.height,
                                        SHARDS * p.raycast_lb, p.raycast_samples,
@@ -2821,13 +2944,14 @@ def main() -> int:
     megastep_path(args)
     k2, k3_large = large_frame_paths(args, rec)
     _, k3_tracked = tracked_path(args, rec)
+    tracking_fixture_phase()
     swap_path(args)
     offline_raw_phase(args, main_cams)
     del main_cams
     k1 = [(None, main_last["integrate_blocks_packed"], mp["launches"][kernels.INTEGRATE.name]),
           k1_sharded]
     k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
-          k3_tracked, k3_sharded]
+          *k3_tracked, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
     reference_phase()
     reference_chunked()
@@ -2837,7 +2961,8 @@ def main() -> int:
     reference_offline(args)
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in rows]}))
+        "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in rows
+        if "comparison" not in r]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

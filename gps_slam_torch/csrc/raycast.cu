@@ -50,6 +50,18 @@
 // decode and the sample fractions left the samples, which then took the
 // eval raycast from 0.170 to 0.151 ms and from 0.369 to 0.320 ms).
 //
+// The tracking mode (`track`, the tracking-prepare raycast of both tracked
+// routes) takes the JAX XLA march's semantics (gps_slam_tpu/tsdf/
+// raycast_tiles.py `raycast`), under which the JAX package meets its own
+// tracking gates: steps 1-2 run per pixel, not per quad (each thread's own
+// coarse pass over the non-empty blocks, in slot order, keeping its k_blocks
+// <= MAX_TRACK_K smallest keys in registers, so that its hit needs no flag of
+// its own: a finite key dipped below NEAR; the picked blocks are ORed into
+// the tile's mask a warp at a time), and step 4
+// brackets in two stages (the mip bracket widened by 1.25 / 0.25 coarse
+// spacings, then the sample pair the first stage found).  It is the simple
+// form of that mode: the per-pixel pass runs 4x the quad pass's work.
+//
 // Every f32 expression keeps the order of the plain version
 // (`raycast_tiles._march_chunk`): trilinear reads sum the two non-zero hat
 // taps per axis, x first, then y, then z.  Dynamic shared memory is LB x
@@ -68,6 +80,7 @@ constexpr int TILE = 16;
 constexpr int NPIX = TILE * TILE;
 constexpr int NQ = NPIX / 4;  // 2x2 pixel quads per tile
 constexpr int MAX_LB = 32;
+constexpr int MAX_TRACK_K = 4;  // picks a pixel holds in the tracking mode
 constexpr int ROW = 512;      // voxels of a block row
 constexpr float NEAR = 0.9f;
 // dynamic shared memory per candidate slot: one staged state row, its mip
@@ -192,12 +205,58 @@ __device__ __forceinline__ float tri_sum(const Taps& t, const float c[2][2][2]) 
   return acc_z;
 }
 
+// one bracket stage against a staged, decoded row: samples at the fractions
+// s_fr of [lo, hi], after a virtual entry sample (lo, 1e-3) if `entry` (a
+// block entered with sdf already below 0 hides a crossing in the seam before
+// it); returns whether a crossing was found, with t and sdf on its two sides
+__device__ __forceinline__ bool bracket(const int* row, float bx, float by,
+                                        float bz, float dx, float dy, float dz,
+                                        float inv_vox, float lo, float hi,
+                                        const float* s_fr, int s_refine,
+                                        bool entry, float& tlo, float& thi,
+                                        float& vlo, float& vhi) {
+  float t_prev = lo, v_prev = 1e-3f;
+  bool fk = false;
+  tlo = thi = vlo = vhi = 0.0f;
+  for (int qq = 0; qq < s_refine; ++qq) {
+    const float tq = lo + (hi - lo) * s_fr[qq];
+    const float lx = fminf(fmaxf((dx * tq - bx) * inv_vox, 0.0f), 7.0f);
+    const float ly = fminf(fmaxf((dy * tq - by) * inv_vox, 0.0f), 7.0f);
+    const float lz = fminf(fmaxf((dz * tq - bz) * inv_vox, 0.0f), 7.0f);
+    const Taps t = row_taps(lx, ly, lz);
+    float cv[2][2][2];
+#pragma unroll
+    for (int z = 0; z < 2; ++z)
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) cv[z][y][x] = __int_as_float(row[t.idx[z][y][x]]);
+    const float v = tri_sum(t, cv);
+    if (!fk && (entry || qq > 0) && v_prev >= 0.0f && v_prev < 1e9f && v < 0.0f) {
+      tlo = t_prev;
+      thi = tq;
+      vlo = v_prev;
+      vhi = v;
+      fk = true;
+    }
+    t_prev = tq;
+    v_prev = v;
+  }
+  return fk;
+}
+
+// element k of a pick array held in registers (selects, no local memory)
+static_assert(MAX_TRACK_K == 4, "pick_at selects among 4 picks");
+__device__ __forceinline__ int pick_at(const int (&a)[MAX_TRACK_K], int k) {
+  return k == 0 ? a[0] : k == 1 ? a[1] : k == 2 ? a[2] : a[3];
+}
+
 __global__ void __launch_bounds__(NPIX)
 march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
              const int* __restrict__ color, const float* __restrict__ summary,
              const int* __restrict__ block_coords, float* __restrict__ out,
              const float* __restrict__ pose, int LB, int tw, int s_coarse,
-             int s_refine, int k_blocks, int need_color, Intr in) {
+             int s_refine, int k_blocks, int need_color, int track, Intr in) {
   // c2w rows [R | t], 3 x 4, read from the device (no host read-back)
   const Cam c{in.fx, in.fy, in.cx, in.cy, pose[0], pose[1], pose[2],
               pose[4], pose[5], pose[6], pose[8], pose[9], pose[10],
@@ -262,7 +321,7 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
     s_cs[s] = (float)(((double)s + 0.5) / (double)s_coarse);
   for (int s = p; s < s_refine; s += NPIX)
     s_fr[s] = (float)((double)s / (double)(s_refine - 1));
-  if (p < NQ) {
+  if (!track && p < NQ) {  // the tracking mode ranks per pixel
     const int p0 = (p / 8) * 2 * TILE + (p % 8) * 2;
     float qd[4][3];
     pixel_dir(c, tx0, ty0, p0, qd[0][0], qd[0][1], qd[0][2]);
@@ -275,69 +334,132 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
   }
   __syncthreads();
 
-  // ---- 1. coarse pass, once per (quad, non-empty block) pair ----
-  // an empty slot never hits (its origin is 1e9): key INF, no flags
-  for (int i = p; i < LB * NQ; i += NPIX) {
-    if (s_gid[i / NQ] < 0) {
-      s_key[i] = INFINITY;
-      s_info[i] = 0;
-    }
-  }
-  const float half = c.inv_vox * 0.5f;
-  for (int j = p; j < s_nlive * NQ; j += NPIX) {
-    const int l = s_live[j / NQ], q = j % NQ, i = l * NQ + q;
-    const float dq[3] = {s_dq[0][q], s_dq[1][q], s_dq[2][q]};
-    const float bo[3] = {s_borg[0][l], s_borg[1][l], s_borg[2][l]};
-    float t0, t1;
-    slab(bo[0], bo[1], bo[2], dq[0], dq[1], dq[2], c.ext, c.fmin, c.fmax, t0, t1);
-    const bool hit = t1 > t0;
-    float minval = INFINITY;
-    int sf = 0;
-    bool neg_any = false, cand = false;
-    for (int s = 0; s < s_coarse; ++s) {
-      const float ts = t0 + (t1 - t0) * s_cs[s];
-      float lq[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        lq[a] = fminf(fmaxf((dq[a] * ts - bo[a]) * half - 0.5f, 0.0f), 3.0f);
-      const float v = tri_mip(s_mip + l * 64, lq[0], lq[1], lq[2]);
-      const bool neg = (v < 0.0f) && hit;
-      if (neg && !neg_any) sf = s;
-      if (hit) minval = fminf(minval, v);
-      neg_any = neg_any || neg;
-      cand = cand || ((v < NEAR) && hit);
-    }
-    s_key[i] = neg_any ? t0 - 1e4f : (minval < NEAR ? minval : INFINITY);
-    s_info[i] = (sf << 2) | ((int)neg_any << 1) | (int)cand;
-  }
-  __syncthreads();
-
-  // ---- 2. each quad picks its k_blocks slots ----
   const int kb = k_blocks < LB ? k_blocks : LB;  // later picks find none
-  if (p < NQ) {
-    bool qcand = false;
-    for (int l = 0; l < LB; ++l) qcand = qcand || (s_info[l * NQ + p] & 1);
-    s_qcand[p] = qcand;
-    unsigned picked = 0u;
-    for (int k = 0; k < kb; ++k) {
-      float kmin = INFINITY;
-      for (int l = 0; l < LB; ++l) kmin = fminf(kmin, s_key[l * NQ + p]);
-      int slot = LB;
-      if (kmin < INFINITY) {
-        for (int l = 0; l < LB; ++l) {
-          if (s_key[l * NQ + p] <= kmin) {
-            slot = l;
-            break;
-          }
-        }
-        s_key[slot * NQ + p] = INFINITY;
-        picked |= 1u << slot;
-      }
-      s_pick[k][p] = (unsigned char)slot;
+  const float half = c.inv_vox * 0.5f;
+  float dx, dy, dz;
+  // the tracking mode's picks of this pixel: slot (LB: none) and (first
+  // negative sample << 2 | has a negative sample << 1)
+  int ps[MAX_TRACK_K], pi[MAX_TRACK_K];
+  if (track) {
+    // ---- 1-2 (tracking mode). each pixel's own coarse pass over the
+    // non-empty blocks, in slot order, keeping its kb smallest keys (the
+    // first slot on a tie) ----
+    pixel_dir(c, tx0, ty0, p, dx, dy, dz);
+    float pk[MAX_TRACK_K];
+#pragma unroll
+    for (int k = 0; k < MAX_TRACK_K; ++k) {
+      pk[k] = INFINITY;
+      ps[k] = LB;
+      pi[k] = 0;
     }
-    if (picked) atomicOr(&s_mask, picked);
+    const float dp[3] = {dx, dy, dz};
+    for (int j = 0; j < s_nlive; ++j) {
+      const int l = s_live[j];
+      const float bo[3] = {s_borg[0][l], s_borg[1][l], s_borg[2][l]};
+      float t0, t1;
+      slab(bo[0], bo[1], bo[2], dx, dy, dz, c.ext, c.fmin, c.fmax, t0, t1);
+      const bool hit = t1 > t0;
+      float minval = INFINITY;
+      int sf = 0;
+      bool neg_any = false;
+      for (int s = 0; s < s_coarse; ++s) {
+        const float ts = t0 + (t1 - t0) * s_cs[s];
+        float lq[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          lq[a] = fminf(fmaxf((dp[a] * ts - bo[a]) * half - 0.5f, 0.0f), 3.0f);
+        const float v = tri_mip(s_mip + l * 64, lq[0], lq[1], lq[2]);
+        const bool neg = (v < 0.0f) && hit;
+        if (neg && !neg_any) sf = s;
+        if (hit) minval = fminf(minval, v);
+        neg_any = neg_any || neg;
+      }
+      float key = neg_any ? t0 - 1e4f : (minval < NEAR ? minval : INFINITY);
+      int slot = l, info = (sf << 2) | ((int)neg_any << 1);
+#pragma unroll
+      for (int k = 0; k < MAX_TRACK_K; ++k) {  // sorted insert; a tie stays
+        if (k < kb && key < pk[k]) {
+          const float fk = pk[k];
+          const int sk = ps[k], ik = pi[k];
+          pk[k] = key;
+          ps[k] = slot;
+          pi[k] = info;
+          key = fk;
+          slot = sk;
+          info = ik;
+        }
+      }
+    }
+    unsigned picked = 0u;
+#pragma unroll
+    for (int k = 0; k < MAX_TRACK_K; ++k)
+      if (k < kb && ps[k] < LB) picked |= 1u << ps[k];
+    picked = __reduce_or_sync(0xffffffffu, picked);
+    if ((p & 31) == 0 && picked) atomicOr(&s_mask, picked);
+    __syncthreads();
+  } else {
+    // ---- 1. coarse pass, once per (quad, non-empty block) pair ----
+    // an empty slot never hits (its origin is 1e9): key INF, no flags
+    for (int i = p; i < LB * NQ; i += NPIX) {
+      if (s_gid[i / NQ] < 0) {
+        s_key[i] = INFINITY;
+        s_info[i] = 0;
+      }
+    }
+    for (int j = p; j < s_nlive * NQ; j += NPIX) {
+      const int l = s_live[j / NQ], q = j % NQ, i = l * NQ + q;
+      const float dq[3] = {s_dq[0][q], s_dq[1][q], s_dq[2][q]};
+      const float bo[3] = {s_borg[0][l], s_borg[1][l], s_borg[2][l]};
+      float t0, t1;
+      slab(bo[0], bo[1], bo[2], dq[0], dq[1], dq[2], c.ext, c.fmin, c.fmax, t0, t1);
+      const bool hit = t1 > t0;
+      float minval = INFINITY;
+      int sf = 0;
+      bool neg_any = false, cand = false;
+      for (int s = 0; s < s_coarse; ++s) {
+        const float ts = t0 + (t1 - t0) * s_cs[s];
+        float lq[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          lq[a] = fminf(fmaxf((dq[a] * ts - bo[a]) * half - 0.5f, 0.0f), 3.0f);
+        const float v = tri_mip(s_mip + l * 64, lq[0], lq[1], lq[2]);
+        const bool neg = (v < 0.0f) && hit;
+        if (neg && !neg_any) sf = s;
+        if (hit) minval = fminf(minval, v);
+        neg_any = neg_any || neg;
+        cand = cand || ((v < NEAR) && hit);
+      }
+      s_key[i] = neg_any ? t0 - 1e4f : (minval < NEAR ? minval : INFINITY);
+      s_info[i] = (sf << 2) | ((int)neg_any << 1) | (int)cand;
+    }
+    __syncthreads();
+
+    // ---- 2. each quad picks its k_blocks slots ----
+    if (p < NQ) {
+      bool qcand = false;
+      for (int l = 0; l < LB; ++l) qcand = qcand || (s_info[l * NQ + p] & 1);
+      s_qcand[p] = qcand;
+      unsigned picked = 0u;
+      for (int k = 0; k < kb; ++k) {
+        float kmin = INFINITY;
+        for (int l = 0; l < LB; ++l) kmin = fminf(kmin, s_key[l * NQ + p]);
+        int slot = LB;
+        if (kmin < INFINITY) {
+          for (int l = 0; l < LB; ++l) {
+            if (s_key[l * NQ + p] <= kmin) {
+              slot = l;
+              break;
+            }
+          }
+          s_key[slot * NQ + p] = INFINITY;
+          picked |= 1u << slot;
+        }
+        s_pick[k][p] = (unsigned char)slot;
+      }
+      if (picked) atomicOr(&s_mask, picked);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ---- 3. stage the picked blocks' state rows (TMA bulk copies) ----
   if (p == 0) {
@@ -349,8 +471,7 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
       tma::bulk_copy(s_rows + r * ROW, state + (size_t)s_gid[l] * ROW, ROW * 4, bar);
     }
   }
-  float dx, dy, dz;
-  pixel_dir(c, tx0, ty0, p, dx, dy, dz);
+  if (!track) pixel_dir(c, tx0, ty0, p, dx, dy, dz);
   const int q = ((p / TILE) / 2) * 8 + (p % TILE) / 2;
   __syncthreads();  // s_row
   tma::mbar_wait(bar, 0);
@@ -365,47 +486,35 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
   float t_star = 0.0f;
   int win = -1;
   for (int k = 0; k < kb; ++k) {
-    const int slot = s_pick[k][q];
+    const int slot = track ? pick_at(ps, k) : s_pick[k][q];
     if (slot >= LB) continue;
     const float bx = s_borg[0][slot], by = s_borg[1][slot], bz = s_borg[2][slot];
     float t0s, t1s;
     slab(bx, by, bz, dx, dy, dz, c.ext, c.fmin, c.fmax, t0s, t1s);
     t1s = fmaxf(t1s, t0s);
-    const int info = s_info[slot * NQ + q];
+    const int info = track ? pick_at(pi, k) : s_info[slot * NQ + q];
     const bool an = (info >> 1) & 1;
     const float dt = (t1s - t0s) / (float)s_coarse;
     const float ts_neg = t0s + ((float)(info >> 2) + 0.5f) * dt;
-    const float lo = an ? fmaxf(ts_neg - 1.5f * dt, t0s) : t0s;
-    const float hi = an ? fminf(ts_neg + 0.5f * dt, t1s) : t1s;
     const int* row = s_rows + s_row[slot] * ROW;
-    // virtual entry (lo, 1e-3) then s_refine samples over [lo, hi]
-    float t_prev = lo, v_prev = 1e-3f;
-    bool fk = false;
-    float tlo = 0.0f, thi = 0.0f, vlo = 0.0f, vhi = 0.0f;
-    for (int qq = 0; qq < s_refine; ++qq) {
-      const float tq = lo + (hi - lo) * s_fr[qq];
-      const float lx = fminf(fmaxf((dx * tq - bx) * c.inv_vox, 0.0f), 7.0f);
-      const float ly = fminf(fmaxf((dy * tq - by) * c.inv_vox, 0.0f), 7.0f);
-      const float lz = fminf(fmaxf((dz * tq - bz) * c.inv_vox, 0.0f), 7.0f);
-      const Taps t = row_taps(lx, ly, lz);
-      float cv[2][2][2];
-#pragma unroll
-      for (int z = 0; z < 2; ++z)
-#pragma unroll
-        for (int y = 0; y < 2; ++y)
-#pragma unroll
-          for (int x = 0; x < 2; ++x) cv[z][y][x] = __int_as_float(row[t.idx[z][y][x]]);
-      const float v = tri_sum(t, cv);
-      if (!fk && v_prev >= 0.0f && v_prev < 1e9f && v < 0.0f) {
-        tlo = t_prev;
-        thi = tq;
-        vlo = v_prev;
-        vhi = v;
-        fk = true;
-      }
-      t_prev = tq;
-      v_prev = v;
+    float lo, hi, tlo, thi, vlo, vhi;
+    if (track) {
+      // the XLA march's two stages: the mip bracket widened by 1.25 / 0.25
+      // coarse spacings (no negative sample: the whole segment), then the
+      // sample pair it found (none: the whole segment again)
+      lo = an ? fmaxf(ts_neg - 1.25f * dt, t0s) : t0s;
+      hi = an ? ts_neg + 0.25f * dt : t1s;
+      const bool f1 = bracket(row, bx, by, bz, dx, dy, dz, c.inv_vox, lo, hi,
+                              s_fr, s_refine, false, tlo, thi, vlo, vhi);
+      lo = f1 ? tlo : t0s;
+      hi = f1 ? thi : t1s;
+    } else {
+      lo = an ? fmaxf(ts_neg - 1.5f * dt, t0s) : t0s;
+      hi = an ? fminf(ts_neg + 0.5f * dt, t1s) : t1s;
     }
+    // virtual entry (lo, 1e-3) then s_refine samples over [lo, hi]
+    const bool fk = bracket(row, bx, by, bz, dx, dy, dz, c.inv_vox, lo, hi,
+                            s_fr, s_refine, true, tlo, thi, vlo, vhi);
     const float denom = vlo - vhi;
     const float alpha =
         fminf(fmaxf(vlo / (fabsf(denom) < 1e-9f ? 1e-9f : denom), 0.0f), 1.0f);
@@ -417,8 +526,10 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
     found = found || fk;
   }
 
-  // the quad's candidate flag: any of its blocks dipped below NEAR
-  found = found && s_qcand[q];
+  // the quad's candidate flag: any of its blocks dipped below NEAR (in the
+  // tracking mode a pixel picks only blocks whose key is finite, which
+  // dipped below NEAR along its own ray: its own flag is always set)
+  found = found && (track || s_qcand[q]);
   const float fm = found ? 1.0f : 0.0f;
   const float conf = win >= 0 ? s_maxw[win] : 0.0f;
   float* o = out + (size_t)tile * 6 * NPIX + p;
@@ -463,10 +574,11 @@ march_kernel(const int* __restrict__ gids, const int* __restrict__ state,
 extern "C" int raycast_march(
     const int* gids, const int* state, const int* color, const float* summary,
     const int* block_coords, const float* pose, float* out, int T, int LB,
-    int tw, int s_coarse, int s_refine, int k_blocks, int need_color,
+    int tw, int s_coarse, int s_refine, int k_blocks, int need_color, int track,
     float fx, float fy, float cx, float cy, float inv_vox, float ext,
     float fmin, float fmax, cudaStream_t stream) {
-  if (LB > MAX_LB || LB < 1) return (int)cudaErrorInvalidValue;
+  if (LB > MAX_LB || LB < 1 || (track && k_blocks > MAX_TRACK_K))
+    return (int)cudaErrorInvalidValue;
   const int smem = LB * SLOT_BYTES + (s_coarse + s_refine) * 4;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -477,7 +589,7 @@ extern "C" int raycast_march(
   if (T > 0) {
     march_kernel<<<T, NPIX, smem, stream>>>(
         gids, state, color, summary, block_coords, out, pose, LB, tw,
-        s_coarse, s_refine, k_blocks, need_color, in);
+        s_coarse, s_refine, k_blocks, need_color, track, in);
   }
   return (int)cudaGetLastError();
 }

@@ -90,9 +90,14 @@ INTEGRATE_F32 = Kernel(
     "8-byte words loaded next; anchor by shuffles, no barrier; streaming stores")
 RAYCAST = Kernel(
     "raycast_cuda", "raycast.cu", "raycast_march",
-    [P] * 7 + [I] * 7 + [F] * 8 + [P],
+    [P] * 7 + [I] * 8 + [F] * 8 + [P],
     "coarse once per (quad, block) pair; picked rows staged by TMA, "
     "sdf decoded once")
+# the design of raycast_cuda's tracking mode (`track`), printed beside its
+# measurements
+RAYCAST_TRACK_DESIGN = ("tracking mode: coarse once per (pixel, block) pair, "
+                        "k picks a pixel kept in registers; picked rows staged "
+                        "by TMA, sdf decoded once; two bracket stages")
 SPLAT_FWD = Kernel(
     "splat_fwd_cuda", "splat_fwd.cu", "splat_fwd",
     [P, P, P, P, P, P, I, I, I, I, F, P],

@@ -60,20 +60,20 @@ def fuse_frame_sharded(shards: list[TsdfVolume], depth: torch.Tensor,
 def raycast_sharded(shards: list[TsdfVolume], c2w, K, width: int, height: int,
                     lb: int = 24, s_coarse: int = 4, s_refine: int = 8,
                     k_blocks: int = 2, need_color: bool = True,
-                    need_normals: bool = True) -> dict:
+                    need_normals: bool = True, track: bool = False) -> dict:
     """Per-shard raycast (one K3 launch each) + nearest-hit merge, on the
     first shard's device.  Returns `raycast_tiles.raycast`'s map dict with
     the counts summed over the shards; the normals are recomputed from the
     merged vertex map (a shard's own normals are wrong along its
     silhouettes), by the single-volume raycast's rule.  One shard is the
-    single-volume raycast."""
+    single-volume raycast; `track` runs the march's tracking mode."""
     if len(shards) == 1:
         return raycast_tiles.raycast(shards[0], c2w, K, width, height, lb, s_coarse,
                                      s_refine, k_blocks, need_color=need_color,
-                                     need_normals=need_normals)
+                                     need_normals=need_normals, track=track)
     maps = [raycast_tiles.raycast(v, c2w, K, width, height, lb, s_coarse,
                                   s_refine, k_blocks, need_color=need_color,
-                                  need_normals=False) for v in shards]
+                                  need_normals=False, track=track) for v in shards]
     dev = shards[0].device
 
     def stacked(key):

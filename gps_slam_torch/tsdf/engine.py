@@ -83,9 +83,10 @@ def track_fuse_step(vol: TsdfVolume, n_blocks: torch.Tensor, T_prev, depth, rgb,
     FAIL_MIN_INLIER or mean residual above FAIL_MAX_RESIDUAL: the eager
     policy's revert), fuses the frame at the chosen pose
     (`integrate.fuse_frame_static`, `n_blocks` updated in place) and
-    raycasts the next frame's maps from it (K3 at k_blocks 1, normals, no
-    colour; `ray` = (width, height, lb, samples, bisect)) over the static
-    block `prefix`, which must cover the blocks this frame may allocate.
+    raycasts the next frame's maps from it (K3's tracking mode, normals,
+    no colour; `ray` = (width, height, lb, samples, bisect)) over the
+    static block `prefix`, which must cover the blocks this frame may
+    allocate.
     Returns device tensors."""
     from ..slam import tracker as trk
 
@@ -99,8 +100,9 @@ def track_fuse_step(vol: TsdfVolume, n_blocks: torch.Tensor, T_prev, depth, rgb,
     pose = torch.where(bad, T_prev, T)
     n_vis = integrate.fuse_frame_static(vol, depth, rgb, pose, K, n_blocks)
     width, height, lb, samples, bisect = ray
-    maps = raycast_tiles.raycast(vol, pose, K, width, height, lb, samples, bisect, 1,
-                                 need_color=False, need_normals=True, prefix=prefix)
+    maps = raycast_tiles.raycast(vol, pose, K, width, height, lb, samples, bisect,
+                                 raycast_tiles.TRACK_K_BLOCKS, need_color=False,
+                                 need_normals=True, prefix=prefix, track=True)
     return {"pose": pose, "inlier": inl, "residual": mr, "iters": iters,
             "n_visible": n_vis, "raycast_visible": maps["n_visible"],
             "vertex_map": maps["vertex_map"], "normal_map": maps["normal_map"]}
@@ -269,11 +271,12 @@ class TsdfEngine:
         self._last_pose_dev = torch.as_tensor(self._last_pose, device=self.device)
 
         if self.tracking_active and self._tracker is not None:
-            # the next frame's tracking-prepare raycast: one candidate block
-            # per pixel, normals on, colour only for a tracker that reads it
+            # the next frame's tracking-prepare raycast: the march's
+            # tracking mode, normals on, colour only for a tracker that
+            # reads it
             need_rgb = bool(getattr(self._tracker, "needs_color", False))
             self._last_raycast_for_tracking = self.run_raycast(
-                self._last_pose, quality=False, need_color=need_rgb)
+                self._last_pose, need_color=need_rgb, track=True)
         return self._last_pose
 
     # -- the fixed-shape routes ---------------------------------------------------
@@ -414,11 +417,14 @@ class TsdfEngine:
 
     def run_raycast(self, c2w, K=None, width: int | None = None,
                     height: int | None = None, quality: bool = True,
-                    need_color: bool = True, need_normals: bool = True) -> dict:
+                    need_color: bool = True, need_normals: bool = True,
+                    track: bool = False) -> dict:
         """Raycast from an arbitrary pose; `quality` refines k_blocks=2
-        candidates per pixel, otherwise 1 (window raycasts).  With swapping
-        on, the stored blocks in view come back into the pool first; a
-        sharded volume raycasts each shard and merges by nearest hit."""
+        candidates per pixel, otherwise 1 (window raycasts); `track` runs
+        the march's tracking mode (the tracking-prepare raycast,
+        `raycast_tiles.TRACK`) at its own pick count.  With swapping on,
+        the stored blocks in view come back into the pool first; a sharded
+        volume raycasts each shard and merges by nearest hit."""
         p = self.params
         c2w = np.asarray(c2w, np.float32)
         K = self.K if K is None else np.asarray(K, np.float32)
@@ -427,8 +433,9 @@ class TsdfEngine:
             self.swap.reload_visible(self.vol, c2w, K, width, height)
         maps = spatial.raycast_sharded(
             self.shards, c2w, K, width, height, p.raycast_lb, p.raycast_samples,
-            max(p.raycast_bisect, 3), 2 if quality else 1, need_color=need_color,
-            need_normals=need_normals)
+            max(p.raycast_bisect, 3),
+            raycast_tiles.TRACK_K_BLOCKS if track else 2 if quality else 1,
+            need_color=need_color, need_normals=need_normals, track=track)
         self.peak_visible["raycast"] = max(self.peak_visible["raycast"],
                                            maps["n_visible"])
         return maps

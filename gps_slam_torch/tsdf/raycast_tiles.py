@@ -14,7 +14,9 @@ Semantics are those of the TPU kernel `raycast_pallas._kernel`: ranking at
 ray-entry depth, then dips below NEAR by their minimum), refinement of the
 best `k_blocks` candidates with `s_refine` trilinear samples + a virtual
 entry crossing + a secant step, and block-level confidence (the winning
-block's max weight + 1).
+block's max weight + 1).  The tracking-prepare raycast runs the march's
+tracking mode (`TRACK`), which ranks per pixel and brackets in two stages
+as the JAX XLA march does.
 """
 
 from __future__ import annotations
@@ -34,6 +36,20 @@ P = TILE * TILE
 NEAR = 0.9
 N_OUT = 6   # march output channels: t*, confidence, r, g, b, found
 COUNTS = ("n_tile_overflow", "n_visible")  # the map dict's host ints
+# The tracking mode of the march: the tracking-prepare raycast of both
+# tracked routes.  It takes the JAX XLA march's semantics
+# (gps_slam_tpu/tsdf/raycast_tiles.py `raycast`, the march under which the
+# JAX package meets its own tracking gates) on the points where the TPU
+# kernel departs from it: blocks ranked and picked per pixel, not per 2x2
+# quad ("pixel_rank"); a pixel's hit kept where any of its own blocks
+# dipped below NEAR, not its quad's ("pixel_cand": with per-pixel picks,
+# each of which dipped below NEAR, it never masks a hit); two stages
+# (a first over the mip bracket widened by 1.25 / 0.25 coarse spacings,
+# then one over the sample pair it found) in place of one widened by
+# 1.5 / 0.5 ("two_stage").  It refines TRACK_K_BLOCKS picks, the XLA
+# march's default.
+TRACK = frozenset({"pixel_rank", "pixel_cand", "two_stage"})
+TRACK_K_BLOCKS = 2
 
 
 def pool_prefix(n_blocks: int, capacity: int) -> int:
@@ -209,14 +225,17 @@ def _slab(bmins, dirs, ext, fmin, fmax):
     return t0, t1
 
 
-def _coarse(tiles, gids, summary, block_coords, cam, tw, s_coarse):
-    """The quad-resolution pass of the march over `tiles` (lists `gids`
-    [n, LB]).  Returns the pixel directions (3 x [n, P]), the clamped
-    block ids [n, LB], the block origins relative to the camera (3 x
-    [n, LB], 1e9 for an empty slot), and per (slot, quad) [n, LB, 64] the
-    slab hit, the ranking key (inf where the block is no candidate), the
-    first negative coarse sample and whether there is one, and per quad
-    [n, 64] whether any block dipped below NEAR."""
+def _coarse(tiles, gids, summary, block_coords, cam, tw, s_coarse,
+            per_pixel: bool = False):
+    """The coarse pass of the march over `tiles` (lists `gids` [n, LB]),
+    at 2x2-pixel-quad resolution (R = 64 rays a tile, each the mean of
+    its quad's four pixel directions), or per pixel (R = 256).  Returns
+    the pixel directions (3 x [n, P]), the clamped block ids [n, LB], the
+    block origins relative to the camera (3 x [n, LB], 1e9 for an empty
+    slot), and per (slot, ray) [n, LB, R] the slab hit, the ranking key
+    (inf where the block is no candidate), the first negative coarse
+    sample and whether there is one, and per ray [n, R] whether any block
+    dipped below NEAR."""
     dev = gids.device
     n, LB = gids.shape
     ext, inv_vox = cam["ext"], cam["inv_vox"]
@@ -230,20 +249,24 @@ def _coarse(tiles, gids, summary, block_coords, cam, tw, s_coarse):
             for a, c in enumerate((bxi, byi, bzi))]                 # [n, LB]
     mip = summary[gsafe, :64]                                       # [n, LB, 64]
 
-    # quad-resolution directions: mean of each 2x2 pixel quad
-    q = torch.arange(64, device=dev)
-    p0 = (q // 8) * 2 * TILE + (q % 8) * 2
-    dq = [(((d[:, p0] + d[:, p0 + 1]) + d[:, p0 + TILE]) + d[:, p0 + TILE + 1]) * 0.25
-          for d in (dxp, dyp, dzp)]                                 # [n, 64]
+    if per_pixel:
+        dq = [dxp, dyp, dzp]
+    else:
+        # quad-resolution directions: mean of each 2x2 pixel quad
+        q = torch.arange(64, device=dev)
+        p0 = (q // 8) * 2 * TILE + (q % 8) * 2
+        dq = [(((d[:, p0] + d[:, p0 + 1]) + d[:, p0 + TILE]) + d[:, p0 + TILE + 1]) * 0.25
+              for d in (dxp, dyp, dzp)]                             # [n, 64]
+    R = dq[0].shape[1]
     t0, t1 = _slab([b[:, :, None] for b in borg], [d[:, None, :] for d in dq],
-                   ext, fmin, fmax)                                  # [n, LB, 64]
+                   ext, fmin, fmax)                                  # [n, LB, R]
     hit = t1 > t0
     minval = torch.full_like(t0, torch.inf)
     has_neg = torch.zeros_like(t0, dtype=torch.bool)
-    cand_q = torch.zeros((n, 64), dtype=torch.bool, device=dev)
+    cand = torch.zeros((n, R), dtype=torch.bool, device=dev)
     s_first = torch.zeros_like(t0)
     half = inv_vox * 0.5
-    mip_b = mip[:, :, None, :].expand(n, LB, 64, 64)
+    mip_b = mip[:, :, None, :].expand(n, LB, R, 64)
     for s in range(s_coarse):
         cs = (s + 0.5) / s_coarse
         ts = t0 + (t1 - t0) * cs
@@ -254,66 +277,97 @@ def _coarse(tiles, gids, summary, block_coords, cam, tw, s_coarse):
         s_first = torch.where(neg & ~has_neg, float(s), s_first)
         minval = torch.minimum(minval, torch.where(hit, v, torch.inf))
         has_neg = has_neg | neg
-        cand_q = cand_q | ((v < NEAR) & hit).any(1)
+        cand = cand | ((v < NEAR) & hit).any(1)
     key = torch.where(has_neg, t0 - 1e4,
-                      torch.where(minval < NEAR, minval, torch.inf))  # [n, LB, 64]
-    return (dxp, dyp, dzp), gsafe, borg, hit, key, s_first, has_neg, cand_q
+                      torch.where(minval < NEAR, minval, torch.inf))  # [n, LB, R]
+    return (dxp, dyp, dzp), gsafe, borg, hit, key, s_first, has_neg, cand
+
+
+def _bracket(cube, dirs, bsel, lo, hi, fr, inv_vox, entry: bool):
+    """Samples of the selected cube at the fractions `fr` of [lo, hi],
+    after a virtual entry sample (lo, 1e-3) if `entry` (a block entered
+    with sdf already below 0 hides a crossing in the seam before it):
+    (found, t and sdf on both sides of the first crossing)."""
+    ts_l = [lo + (hi - lo) * f for f in fr]
+    vs_l = []
+    for tq in ts_l:
+        ls = [torch.clamp((d * tq - b) * inv_vox, 0.0, BLOCK - 1.0)
+              for d, b in zip(dirs, bsel)]
+        vs_l.append(_trilinear(cube, *(l_[..., None] for l_ in ls), BLOCK)[..., 0])
+    if entry:
+        ts_l = [lo] + ts_l
+        vs_l = [torch.full_like(lo, 1e-3)] + vs_l
+    fk = torch.zeros_like(lo, dtype=torch.bool)
+    tlo = thi = vlo = vhi = torch.zeros_like(lo)
+    for i in range(len(vs_l) - 1):
+        cr = (~fk) & (vs_l[i] >= 0) & (vs_l[i] < 1e9) & (vs_l[i + 1] < 0)
+        tlo = torch.where(cr, ts_l[i], tlo)
+        thi = torch.where(cr, ts_l[i + 1], thi)
+        vlo = torch.where(cr, vs_l[i], vlo)
+        vhi = torch.where(cr, vs_l[i + 1], vhi)
+        fk = fk | cr
+    return fk, tlo, thi, vlo, vhi
 
 
 def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
-                 s_coarse, s_refine, k_blocks, need_color):
+                 s_coarse, s_refine, k_blocks, need_color, xla=frozenset()):
     dev = gids.device
     n, LB = gids.shape
     ext, inv_vox = cam["ext"], cam["inv_vox"]
     fmin, fmax = cam["fmin"], cam["fmax"]
-    (dxp, dyp, dzp), gsafe, borg, _, key, s_first, has_neg, cand_q = _coarse(
-        tiles, gids, summary, block_coords, cam, tw, s_coarse)
+    rank_px, cand_px = "pixel_rank" in xla, "pixel_cand" in xla
+    passes = {px: _coarse(tiles, gids, summary, block_coords, cam, tw, s_coarse,
+                          per_pixel=px) for px in {rank_px, cand_px}}
+    (dxp, dyp, dzp), gsafe, borg, _, key, s_first, has_neg, _ = passes[rank_px]
+    cand = passes[cand_px][7]
     maxw = torch.where(gids >= 0, summary[gsafe, 65], 0.0)
 
     quad_of_p = ((torch.arange(P, device=dev) // TILE) // 2) * 8 \
         + (torch.arange(P, device=dev) % TILE) // 2
+
+    def to_px(x, px):   # [n, R] per quad or per pixel -> [n, P]
+        return x if px else x[:, quad_of_p]
+
     found = torch.zeros((n, P), dtype=torch.bool, device=dev)
     t_star = torch.zeros((n, P), device=dev)
     win = torch.full((n, P), -1, dtype=torch.int64, device=dev)
     rows = torch.arange(n, device=dev)[:, None]
     fr = [(qq / (s_refine - 1)) for qq in range(s_refine)]
+    dirs = (dxp, dyp, dzp)
     for _ in range(k_blocks):
-        kmin = key.amin(1)                                           # [n, 64]
-        slot_q = torch.where(torch.isfinite(kmin), key.argmin(1), LB)
+        kmin = key.amin(1)                                           # [n, R]
+        slot_r = torch.where(torch.isfinite(kmin), key.argmin(1), LB)
         key = torch.where(torch.arange(LB, device=dev)[None, :, None]
-                          == slot_q[:, None, :], torch.inf, key)
-        slot = slot_q[:, quad_of_p]                                  # [n, P]
+                          == slot_r[:, None, :], torch.inf, key)
+        slot = to_px(slot_r, rank_px)                                # [n, P]
         has = slot < LB
         sl = slot.clamp(max=LB - 1)
         bsel = [torch.gather(b, 1, sl) for b in borg]                # [n, P]
-        t0s, t1s = _slab(bsel, (dxp, dyp, dzp), ext, fmin, fmax)
+        t0s, t1s = _slab(bsel, dirs, ext, fmin, fmax)
         t1s = torch.maximum(t1s, t0s)
-        sq = slot_q.clamp(max=LB - 1)                                # [n, 64]
-        sf = torch.gather(s_first, 1, sq[:, None, :])[:, 0][:, quad_of_p]
-        an = torch.gather(has_neg, 1, sq[:, None, :])[:, 0][:, quad_of_p] & has
+        sr = slot_r.clamp(max=LB - 1)                                # [n, R]
+        sf = to_px(torch.gather(s_first, 1, sr[:, None, :])[:, 0], rank_px)
+        an = to_px(torch.gather(has_neg, 1, sr[:, None, :])[:, 0], rank_px) & has
         dt = (t1s - t0s) / s_coarse
         ts_neg = t0s + (sf + 0.5) * dt
-        lo = torch.where(an, torch.maximum(ts_neg - 1.5 * dt, t0s), t0s)
-        hi = torch.where(an, torch.minimum(ts_neg + 0.5 * dt, t1s), t1s)
         gsel = gsafe[rows, sl]                                       # [n, P]
         su = state[gsel] & 0xFFFF
         cube = torch.where(su >= 32768, su - 65536, su).to(torch.float32) \
             * (1.0 / 32767.0)                                        # [n, P, 512]
-        ts_l = [lo] + [lo + (hi - lo) * f for f in fr]
-        vs_l = [torch.full_like(lo, 1e-3)]
-        for tq in ts_l[1:]:
-            ls = [torch.clamp((d * tq - b) * inv_vox, 0.0, BLOCK - 1.0)
-                  for d, b in zip((dxp, dyp, dzp), bsel)]
-            vs_l.append(_trilinear(cube, *(l_[..., None] for l_ in ls), BLOCK)[..., 0])
-        fk = torch.zeros_like(found)
-        tlo = thi = vlo = vhi = torch.zeros_like(lo)
-        for i in range(len(vs_l) - 1):
-            cr = (~fk) & (vs_l[i] >= 0) & (vs_l[i] < 1e9) & (vs_l[i + 1] < 0)
-            tlo = torch.where(cr, ts_l[i], tlo)
-            thi = torch.where(cr, ts_l[i + 1], thi)
-            vlo = torch.where(cr, vs_l[i], vlo)
-            vhi = torch.where(cr, vs_l[i + 1], vhi)
-            fk = fk | cr
+        if "two_stage" in xla:
+            # the XLA march: a first stage over the mip bracket widened by
+            # 1.25 / 0.25 coarse spacings (the whole segment without a
+            # negative sample), then a second over the sample pair it found
+            # (the whole segment if it found none)
+            lo = torch.where(an, torch.maximum(ts_neg - 1.25 * dt, t0s), t0s)
+            hi = torch.where(an, ts_neg + 0.25 * dt, t1s)
+            f1, lo1, hi1, _, _ = _bracket(cube, dirs, bsel, lo, hi, fr, inv_vox, False)
+            lo = torch.where(f1, lo1, t0s)
+            hi = torch.where(f1, hi1, t1s)
+        else:
+            lo = torch.where(an, torch.maximum(ts_neg - 1.5 * dt, t0s), t0s)
+            hi = torch.where(an, torch.minimum(ts_neg + 0.5 * dt, t1s), t1s)
+        fk, tlo, thi, vlo, vhi = _bracket(cube, dirs, bsel, lo, hi, fr, inv_vox, True)
         denom = vlo - vhi
         alpha = torch.clamp(vlo / torch.where(denom.abs() < 1e-9, 1e-9, denom), 0.0, 1.0)
         tk = tlo + alpha * (thi - tlo)
@@ -322,7 +376,7 @@ def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
         t_star = torch.where(better, tk, t_star)
         win = torch.where(better, sl, win)
         found = found | fk
-    found = found & cand_q[:, quad_of_p]
+    found = found & to_px(cand, cand_px)
 
     fm = found.to(torch.float32)
     out = torch.zeros((n, N_OUT, P), device=dev)
@@ -346,11 +400,15 @@ def _march_chunk(tiles, gids, state, color, summary, block_coords, cam, tw,
 
 def march_plain(gids, state, color, summary, block_coords, cam: dict, tw: int,
                 s_coarse: int, s_refine: int, k_blocks: int,
-                need_color: bool = True, tile_chunk: int = 128) -> torch.Tensor:
+                need_color: bool = True, tile_chunk: int = 128,
+                xla=frozenset()) -> torch.Tensor:
     """Plain PyTorch version of `raycast_cuda`: gids [T, LB] (-1 = empty
     slot) -> out f32 [T, 6, P] = (t*, confidence, r, g, b, found), each
     masked by found.  `cam` holds fx, fy, cx, cy (floats), R (c2w rotation
-    [3, 3]) and t (camera origin [3]) tensors, inv_vox, ext, fmin, fmax."""
+    [3, 3]) and t (camera origin [3]) tensors, inv_vox, ext, fmin, fmax.
+    `xla` names the points on which the march takes the JAX XLA march's
+    semantics in place of the TPU kernel's (`TRACK`, the tracking mode,
+    names them all)."""
     T = gids.shape[0]
     out = torch.empty((T, N_OUT, P), device=gids.device)
     for a in range(0, T, tile_chunk):
@@ -358,27 +416,32 @@ def march_plain(gids, state, color, summary, block_coords, cam: dict, tw: int,
         tiles = torch.arange(a, b, device=gids.device)
         out[a:b] = _march_chunk(tiles, gids[a:b], state, color, summary,
                                 block_coords, cam, tw, s_coarse, s_refine,
-                                k_blocks, need_color)
+                                k_blocks, need_color, xla)
     return out
 
 
 MAX_LB = 32
 MAX_REFINE = 16
+MAX_TRACK_K = 4
 
 
 def march(gids, state, color, summary, block_coords, cam: dict, tw: int,
           s_coarse: int, s_refine: int, k_blocks: int,
-          need_color: bool = True) -> torch.Tensor:
-    """The per-tile march (see `march_plain`).  CPU tensors take the plain
-    version; CUDA tensors launch `raycast_cuda` or raise."""
+          need_color: bool = True, track: bool = False) -> torch.Tensor:
+    """The per-tile march (see `march_plain`), in the tracking mode if
+    `track`.  CPU tensors take the plain version; CUDA tensors launch
+    `raycast_cuda` or raise."""
     if gids.device.type != "cuda":
         return march_plain(gids, state, color, summary, block_coords, cam, tw,
-                           s_coarse, s_refine, k_blocks, need_color)
+                           s_coarse, s_refine, k_blocks, need_color,
+                           xla=TRACK if track else frozenset())
     T, LB = gids.shape
     B = state.shape[0]
-    if not (1 <= LB <= MAX_LB and 2 <= s_refine <= MAX_REFINE and s_coarse >= 1):
+    if not (1 <= LB <= MAX_LB and 2 <= s_refine <= MAX_REFINE and s_coarse >= 1
+            and (not track or k_blocks <= MAX_TRACK_K)):
         raise ValueError(f"raycast_cuda: LB={LB} s_refine={s_refine} "
-                         f"s_coarse={s_coarse} out of the kernel's range")
+                         f"s_coarse={s_coarse} k_blocks={k_blocks} track={track} "
+                         "out of the kernel's range")
     k = kernels.RAYCAST
     pose = kernels.pose_rows(torch.cat((cam["R"], cam["t"][:, None]), 1))
     for name, t, dtype, shape in (
@@ -397,7 +460,7 @@ def march(gids, state, color, summary, block_coords, cam: dict, tw: int,
     err = k.fn(gids.data_ptr(), state.data_ptr(), color.data_ptr(),
                summary.data_ptr(), block_coords.data_ptr(), pose.data_ptr(),
                out.data_ptr(), T, LB, tw, s_coarse, s_refine, k_blocks,
-               int(need_color), float(cam["fx"]), float(cam["fy"]),
+               int(need_color), int(track), float(cam["fx"]), float(cam["fy"]),
                float(cam["cx"]), float(cam["cy"]), float(cam["inv_vox"]),
                float(cam["ext"]), float(cam["fmin"]), float(cam["fmax"]),
                kernels.stream_ptr())
@@ -420,10 +483,11 @@ def _unpack_img(x: torch.Tensor, th: int, tw: int, height: int, width: int):
 def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
             s_coarse: int = 4, s_refine: int = 8, k_blocks: int = 2,
             need_color: bool = True, need_normals: bool = True,
-            prefix: int | None = None) -> dict:
+            prefix: int | None = None, track: bool = False) -> dict:
     """Raycast the volume from `c2w`; the same map dict as the JAX
-    `raycast_pallas.raycast`.  A static block `prefix` bins in fixed shapes
-    with device-scalar counts (`_tile_bins`); `K` is read on the host."""
+    `raycast_pallas.raycast` (with `track`, the march's tracking mode:
+    see `TRACK`).  A static block `prefix` bins in fixed shapes with
+    device-scalar counts (`_tile_bins`); `K` is read on the host."""
     p = vol.params
     dev = vol.device
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
@@ -442,7 +506,7 @@ def raycast(vol: TsdfVolume, c2w, K, width: int, height: int, lb: int = 24,
            "ext": p.voxel_size * BLOCK, "fmin": p.frustum_min,
            "fmax": p.frustum_max}
     out = march(gids, vol.state, vol.color, vol.summary, vol.block_coords, cam,
-                tw, s_coarse, s_refine, k_blocks, need_color)
+                tw, s_coarse, s_refine, k_blocks, need_color, track=track)
     t_star, conf, found = out[:, 0], out[:, 1], out[:, 5]
     dirs = torch.stack(_pixel_dirs(torch.arange(T, device=dev), tw, cam), -1)
     depth = t_star * found

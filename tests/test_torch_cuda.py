@@ -438,8 +438,40 @@ def test_raycast_cuda_matches_plain(cuda_device, fused, lb, s_refine, k_blocks,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lb,s_refine,k_blocks,need_color", [
+    pytest.param(lb, sr, kb, lb == 32, id=f"lb{lb}-sr{sr}-k{kb}")
+    for lb in (1, 16, 32) for sr in (2, 6) for kb in (1, 2, 4)])
+def test_raycast_cuda_tracking_mode_matches_plain(cuda_device, fused, lb, s_refine,
+                                                  k_blocks, need_color):
+    """raycast_cuda's tracking mode (per-pixel ranking and picks, two
+    bracket stages) against its plain version (`march_plain` with
+    raycast_tiles.TRACK) over LB 1 to 32, s_refine 2 and 6 and 1 to 4
+    picks: the same f32 expressions in the same order, so hit masks are
+    equal and t*, confidence and colour agree within 1e-4 wherever both
+    hit; a second launch gives the same bits."""
+    vol, cams = fused
+    vol = _to(vol, cuda_device)
+    args = _march_args(vol, cams[2], lb, s_refine, k_blocks, need_color, cuda_device)
+    ok = trc.march(*args, track=True)
+    again = trc.march(*args, track=True)
+    op = trc.march_plain(*args, xla=trc.TRACK)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, again)
+    hk, hp = ok[:, 5] > 0, op[:, 5] > 0
+    if lb >= 16:
+        assert hk.float().mean() > 0.5
+    assert torch.equal(hk, hp)
+    err = (ok[:, :5] - op[:, :5]).abs().amax(1)[hk & hp]
+    assert err.numel() == 0 or err.max() < 1e-4
+    miss = ~(hk & hp)[:, None].expand(-1, 5, -1)
+    assert torch.equal(ok[:, :5][miss], op[:, :5][miss])
+    with pytest.raises(ValueError):
+        trc.march(*args[:9], trc.MAX_TRACK_K + 1, need_color, track=True)
+
+
+@pytest.mark.cuda
 def test_wrappers_never_read_back(cuda_device, fused):
-    """The K1, K2 and K3 wrappers launch under
+    """The K1, K2 and K3 wrappers (K3 also in its tracking mode) launch under
     torch.cuda.set_sync_debug_mode("error"): none of them copies a CUDA
     tensor to the host or otherwise waits on the card (the pose goes to
     the kernels as a device pointer)."""
@@ -465,11 +497,12 @@ def test_wrappers_never_read_back(cuda_device, fused):
         tint.integrate_blocks(d, rgbp, keys, valid, *f32, w2c, fx, fy, cx, cy,
                               d.shape[1], d.shape[0], vs, mu, max_w)
         trc.march(*margs)
+        trc.march(*margs, track=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
-                                "raycast_cuda": 1, "splat_fwd_cuda": 0,
+                                "raycast_cuda": 2, "splat_fwd_cuda": 0,
                                 "splat_bwd_cuda": 0}
 
 

@@ -6,8 +6,8 @@ by `TsdfEngine._can_fast_track`) on the CPU.
 JAX `track_pyramid`.  (c) The megastep frame under the guard that fails
 on every host read.  (d) A failed frame keeps its previous pose.  (e)
 `_can_fast_track` gate by gate against the JAX engine's.  (f) 8 frames at
-160x120 in lockstep with the JAX engine's tracked megastep on its kernel
-branch (Pallas in interpret mode)."""
+160x120 in lockstep with the JAX engine's tracked megastep (its packed
+integrate kernel in interpret mode, its raycasts on the XLA march)."""
 
 import os
 
@@ -219,21 +219,26 @@ def test_can_fast_track_gates(tmp_path, gate):
 def test_megastep_lockstep_with_jax(tmp_path, monkeypatch):
     """8 frames of tests/test_tracking.py's fixture (160x120, look="in",
     arc 0.025) through the JAX engine's tracked megastep on its kernel
-    branch and through the port's, in lockstep: the port's pyramid tracks
-    each frame from the JAX pose of the frame before and hands the JAX
-    estimate on, so the port fuses and raycasts at the JAX engine's poses
-    and both track every frame against maps of the same history.  Every
-    frame is GOOD in both packages here (at 96x72 every frame after the
-    first is FAILED, and a pose gate would compare the JAX pose with
-    itself).  Gates: equal labels, all GOOD, each frame's estimate within
-    1 voxel and 0.1 degree of the JAX one, and at least half of them
-    within 1 mm.  Deviation from test_tracked_sequence_matches_jax's "all
-    but one within 1 mm": the estimates lie 0.15-5.5 mm from the JAX ones
-    (3 of 7 frames past 1 mm), the ICP's answer to the bf16 (JAX) and f32
-    (port) maps and to the JAX megastep compiled as one program, which
-    rounds its level chain differently from the same levels run one by
-    one (ROADMAP section 3)."""
+    branch (the packed integrate kernel in interpret mode) with its
+    raycasts on the XLA march, whose semantics the port's tracking-prepare
+    raycast takes, and through the port's, in lockstep: the port's pyramid
+    tracks each frame from the JAX pose of the frame before and hands the
+    JAX estimate on, so the port fuses and raycasts at the JAX engine's
+    poses and both track every frame against maps of the same history.
+    The JAX megastep splits this way: its prepare raycast is a call of its
+    own after the fused step.  Every frame is GOOD in both packages here
+    (at 96x72 every frame after the first is FAILED, and a pose gate would
+    compare the JAX pose with itself).  Gates: equal labels, all GOOD,
+    each frame's estimate within 1 voxel and 0.1 degree of the JAX one,
+    and at least half of them within 1 mm.  Deviation from
+    test_tracked_sequence_matches_jax's "all but one within 1 mm": the ICP
+    answers the bf16 (JAX) and f32 (port) maps, and the JAX megastep
+    compiled as one program rounds its level chain differently from the
+    same levels run one by one (ROADMAP section 3); on the XLA march the
+    estimates lie 0.005-0.6 mm from the JAX ones (on the TPU kernel's
+    semantics 0.15-5.5 mm)."""
     from test_torch_slice import _jax_on_kernel_branch
+    from test_torch_tracking import _jax_on_xla_raycast
 
     W, H, N = 160, 120, 8
     cams = synthetic.make_cameras(n_frames=16, width=W, height=H, look="in",
@@ -241,6 +246,7 @@ def test_megastep_lockstep_with_jax(tmp_path, monkeypatch):
     d = _config_dict(tmp_path, cams)
     jc, tc = JConfig.from_dict(d), TConfig.from_dict(d)
     _jax_on_kernel_branch(monkeypatch)
+    _jax_on_xla_raycast(monkeypatch)
     je = JEngine(jc, W, H, cams[0].K)
     te = TEngine(tc, W, H, cams[0].K, device="cpu")
     for e, mod, cfg in ((je, jtrk, jc), (te, ttrk, tc)):
