@@ -46,8 +46,10 @@ Phases (any failure exits non-zero before the final line):
      inward-looking orbit (look="in", arc 0.05: ~0.6 degrees a frame),
      frame 0 seeded with its gt pose, 2 windows x 20 Adam steps, each
      frame after the first the tracked megastep (one CUDA graph: ICP,
-     the revert, fusion, the next prepare raycast; one read a frame),
-     then the same frames on the eager route as its witness: K1 and the
+     the revert, fusion, the next prepare raycast; one read a frame; each
+     pyramid level's Gauss-Newton loop a conditional WHILE node, whose
+     exit the card tests after each iteration: graph_while_cuda), then
+     the same frames on the eager route as its witness: K1 and the
      tracking-prepare K3 (its tracking mode: the JAX XLA march's
      semantics, k_blocks 2, need_color False) once per frame;
      each run: ATE below 3 voxels, the last pose within 2 cm and 2
@@ -55,7 +57,9 @@ Phases (any failure exits non-zero before the final line):
      `[tracked routes]` gives both routes' ms per tracked frame over the
      same scope (engine.process_frame: ICP, revert, fusion, the next
      prepare raycast; median, mean, least, most, first) and the eager
-     route's split; then `[tracking fixture]`: tests/test_tracking.py's
+     route's split, the replay ms, the iterations per level of both
+     routes, each capture's nodes and WHILE nodes (one a level) and the
+     CUDA versions; then `[tracking fixture]`: tests/test_tracking.py's
      three tracking fixtures at 160x120 (its fixture, the same at half
      the arc, its noisy stress fixture) on both routes, with that file's
      gates;
@@ -87,7 +91,9 @@ Phases (any failure exits non-zero before the final line):
      on the tiles of their lists with a live slot alone (the same bits,
      and its time), and their bounds count only those tiles' pixels and
      outputs (a tile with none sums nothing; the window megastep's padded
-     lists are mostly such tiles);
+     lists are mostly such tiles); graph_while_cuda: WHILE loops of 0, 1,
+     7 and 50 passes captured and replayed against the same loops driven
+     from the host (equal pass counts), ms per pass of each;
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -106,7 +112,9 @@ Phases (any failure exits non-zero before the final line):
      chunk route (a capture and 5 replays on the card) on both devices,
      with the gates above; `[tracked megastep reference]`: 4 tracked
      frames at 128x96 through the megastep's graph (a capture, 2
-     replays) and uncaptured, bit for bit; the swap fixture of
+     replays) and uncaptured, bit for bit, each frame's iterations per
+     level equal to the eager loop's on its inputs and not the budgets;
+     the swap fixture of
      tests/test_swapping.py (128x96, 24
      frames, 1024-block pool) on both devices: equal counts, key sets and
      store keys at every check, words within fusion's tolerance; and the
@@ -810,6 +818,7 @@ class TrackedStats:
             "tracked_frame_ms": spread_ms(self.frame_ms[1:]),
             "megastep_graphs": {"captures": g.captures, "replays": g.replays,
                                 "dropped": g.dropped, "graph_mb": g.memory_bytes / 2 ** 20,
+                                "nodes": g.node_counts,
                                 "capture_ms": self.graph_ms["capture"],
                                 "replay_ms_mean": float(np.mean(self.graph_ms["replay"]))
                                 if self.graph_ms["replay"] else None},
@@ -1516,6 +1525,79 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
     return rows
 
 
+# passes of the WHILE loops that check graph_while_cuda, and of the one
+# that times a pass
+WHILE_CHECK_PASSES = (0, 1, 7, 50)
+WHILE_TIMED_PASSES = 1000
+
+
+def graph_while_row(launches: int) -> dict:
+    """graph_while_cuda (the tracker's WHILE nodes) against its plain
+    version: loops whose body is the loop test alone (a count, a compare;
+    the node adds the set kernel), captured as a WHILE node and replayed,
+    against the same loop driven from the host, which reads the flag back
+    each pass as the eager tracker reads its step: equal pass counts.
+    `ms` is the device time of one pass (a WHILE_TIMED_PASSES loop's
+    replay over its passes), `plain_ms` one pass of the host loop, its
+    read-back included; the bound, the one byte a pass reads.
+    `launches`: the tracked path's."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.utils import graph_while
+
+    c = torch.zeros((), dtype=torch.int64, device="cuda")
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def captured(k: int):
+        def body():
+            c.add_(1)
+            torch.lt(c, k, out=flag)
+
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        torch.cuda.synchronize()
+        with graph_while.capture(g):
+            c.zero_()
+            torch.lt(c, k, out=flag)
+            graph_while.while_loop(flag, body)
+        nodes = graph_while.node_counts(g)
+        g.instantiate()
+        return g, nodes
+
+    def host(k: int) -> int:
+        c.zero_()
+        torch.lt(c, k, out=flag)
+        while bool(flag):
+            c.add_(1)
+            torch.lt(c, k, out=flag)
+        return int(c)
+
+    passes = {}
+    for k in WHILE_CHECK_PASSES:
+        g, nodes = captured(k)
+        g.replay()
+        passes[k] = (int(c), host(k))
+    err = max(abs(a - b) for a, b in passes.values())
+    g, nodes = captured(WHILE_TIMED_PASSES)
+    ms = time_ms(g.replay, 5) / WHILE_TIMED_PASSES
+    plain_ms = time_ms(lambda: host(WHILE_TIMED_PASSES), 2, 1) / WHILE_TIMED_PASSES
+    b, by = bound_ms(1, 0)
+    row = {"name": kernels.GRAPH_WHILE.name, "tpu": None,
+           "design": kernels.GRAPH_WHILE.design, "route": "cuda",
+           "source": "gps_slam_torch/csrc/graph_while.cu",
+           "replaces": "gps_slam_tpu/slam/tracker.py:233 (the lax.while_loop's exit "
+                       "test, :225-227; no pallas_call)",
+           "launches": launches, "max_abs_err": float(err), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
+           "ok": err == 0 and all(a == k for k, (a, _) in passes.items())
+           and nodes["conditional"] == 1,
+           "passes": {str(k): v for k, v in passes.items()}, "timed_graph_nodes": nodes,
+           "tolerance": "pass counts equal to the host loop's and to the loop's "
+                        "bound; ms and plain_ms per pass"}
+    log("[kernel] " + json.dumps(row))
+    if not row["ok"]:
+        raise RuntimeError(f"graph_while_cuda disagrees with its host loop: {row}")
+    return row
+
+
 def by_key(vol):
     """(keys, state words, colour words) of the allocated blocks on the
     host, sorted by key."""
@@ -1636,6 +1718,7 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
     tracking-prepare call (launches: the prepare raycasts';
     `launches_path`: every K3 launch of the path)."""
     from gps_slam_torch import kernels
+    from gps_slam_torch.utils import graph_while
 
     cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
     out, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
@@ -1651,6 +1734,16 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
                            f"{eager['tracking_route']}")
     mega_ms, eager_ms = out["tracked_frame_ms"], eager["tracked_frame_ms"]
     n_eager = eager["tracked_frames"]
+    budgets = out["gn_iters_budget_per_level"]
+    # one WHILE node a pyramid level in each capture, and the replays
+    # running fewer iterations than the budgets
+    if (any(n["conditional"] != len(budgets) for n in out["megastep_graphs"]["nodes"])
+            or out["launches"][kernels.GRAPH_WHILE.name] <= 0
+            or not sum(out["gn_iters_mean_per_level"]) < sum(budgets)):
+        raise RuntimeError(f"tracked path: WHILE nodes {out['megastep_graphs']['nodes']}, "
+                           f"{out['launches'][kernels.GRAPH_WHILE.name]} graph_while_cuda "
+                           f"launches, iterations {out['gn_iters_mean_per_level']} of "
+                           f"{budgets}")
     log("[tracked routes] " + json.dumps({
         # the same scope on both routes: engine.process_frame of a tracked
         # frame (ICP, revert, fusion, the next prepare raycast), ms
@@ -1665,11 +1758,15 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
         "megastep_replay_ms_mean": out["megastep_graphs"]["replay_ms_mean"],
         "megastep_capture_ms": out["megastep_graphs"]["capture_ms"],
         "megastep_graph_mb": out["megastep_graphs"]["graph_mb"],
+        # a replay runs the iterations its WHILE nodes let through (the
+        # device tests the exit after each), the eager loop those its
+        # read-backs do: each route on its own trajectory
         "gn_iters_mean_per_level": {"megastep": out["gn_iters_mean_per_level"],
                                     "eager": eager["gn_iters_mean_per_level"]},
-        # a megastep frame runs every level to its budget, masked after
-        # the exit
         "gn_iters_budget_per_level": out["gn_iters_budget_per_level"],
+        "megastep_graph_nodes": out["megastep_graphs"]["nodes"],
+        "graph_while_launches": out["launches"][kernels.GRAPH_WHILE.name],
+        "torch_cuda": torch.version.cuda, "versions": graph_while.versions(),
         "ate_cm": {"megastep": out["ate_cm"], "eager": eager["ate_cm"]},
         "last_translation_err_cm": {"megastep": out["last_translation_err_cm"],
                                     "eager": eager["last_translation_err_cm"]},
@@ -2101,11 +2198,15 @@ def reference_tracked_megastep() -> dict:
     first 4 frames (128x96) on two card engines: frame 0 eager, then the
     tracked megastep, on one as its graph (a capture, then 2 replays), on
     the other uncaptured: poses, quality labels, iteration counts, the
-    volumes and the last prepare raycast's maps bit for bit."""
+    volumes and the last prepare raycast's maps bit for bit; on every
+    megastep frame the graph's iterations per level (its WHILE nodes')
+    equal to the eager loop's on the same inputs, and not the budgets."""
     from gps_slam_torch.config import Config
     from gps_slam_torch.data import synthetic
+    from gps_slam_torch.slam import tracker as trk
     from gps_slam_torch.slam.tracker import ICPTracker
     from gps_slam_torch.tsdf.engine import TsdfEngine
+    from gps_slam_torch.utils.se3 import bilateral_filter_depth, pose_inv
 
     W, H = 128, 96
     cams = synthetic.make_cameras(n_frames=8, width=W, height=H, look="in", arc=0.0125)[:4]
@@ -2119,20 +2220,39 @@ def reference_tracked_megastep() -> dict:
             e._track_graphs = None
         engines.append(e)
     ms_, labels = {0: [], 1: []}, {0: [], 1: []}
-    for c in cams:
-        for i, e in enumerate(engines):
+    e = engines[0]
+    tr = e._tracker
+    eager_iters = []   # the eager loop on each megastep frame's inputs
+    for k, c in enumerate(cams):
+        if k > 0:
+            T_prev = e._last_pose_dev.clone()
+            maps = {n: e._last_raycast_for_tracking[n].clone()
+                    for n in ("vertex_map", "normal_map")}
+        for i, eng in enumerate(engines):
             torch.cuda.synchronize()
             t = time.monotonic()
-            e.process_frame(c.image, c.depth)
+            eng.process_frame(c.image, c.depth)
             ms_[i].append((time.monotonic() - t) * 1e3)
-            labels[i].append((e._tracking_quality, e._tracker.last_iters))
-    g, ref = engines[0]._track_graphs, engines[1]
-    e = engines[0]
+            labels[i].append((eng._tracking_quality, eng._tracker.last_iters))
+        if k > 0:
+            d = torch.as_tensor(c.depth[..., 0], dtype=torch.float32, device="cuda")
+            if e.use_bilateral_filter:
+                d = bilateral_filter_depth(d)
+            eager_iters.append(trk.track_pyramid(
+                T_prev, d, maps["vertex_map"], maps["normal_map"], e.K, pose_inv(T_prev),
+                tuple(tr.level_iters), tr.space_thresh, tr.tukey_c)[3])
+    g, ref = e._track_graphs, engines[1]
+    graph_iters = [it for _, it in labels[0][1:]]
     fields = ("table_keys", "table_ptrs", "block_coords", "state", "color", "summary")
     res = {"width": W, "height": H, "frames": len(cams),
            "captures": g.captures, "replays": g.replays, "graph_mb": g.memory_bytes / 2 ** 20,
            "graph_frame_ms": ms_[0][1:], "uncaptured_frame_ms": ms_[1][1:],
            "labels_equal": labels[0] == labels[1], "labels": [q for q, _ in labels[0]],
+           "graph_nodes": g.node_counts,
+           # per megastep frame: the replay's iterations per level (finest
+           # first), the eager loop's on the same inputs, the budgets
+           "gn_iters": graph_iters, "gn_iters_eager": eager_iters,
+           "gn_iters_budget": list(tr.level_iters),
            "poses_equal": bool(np.array_equal(np.stack(e.cam_poses), np.stack(ref.cam_poses))),
            "not_equal": [k for k in fields if not torch.equal(getattr(e.vol, k),
                                                                 getattr(ref.vol, k))]
@@ -2141,7 +2261,8 @@ def reference_tracked_megastep() -> dict:
                                  ref._last_raycast_for_tracking[k])]}
     log("[tracked megastep reference] " + json.dumps(res))
     if not ((g.captures, g.replays) == (1, 2) and res["labels_equal"] and res["poses_equal"]
-            and not res["not_equal"]):
+            and not res["not_equal"] and graph_iters == eager_iters
+            and all(it != list(tr.level_iters) for it in graph_iters)):
         raise RuntimeError(f"tracked megastep reference: {res}")
     return res
 
@@ -2943,7 +3064,7 @@ def main() -> int:
     del main_engine, main_model, main_alloc
     megastep_path(args)
     k2, k3_large = large_frame_paths(args, rec)
-    _, k3_tracked = tracked_path(args, rec)
+    tracked, k3_tracked = tracked_path(args, rec)
     tracking_fixture_phase()
     swap_path(args)
     offline_raw_phase(args, main_cams)
@@ -2953,6 +3074,7 @@ def main() -> int:
     k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
           *k3_tracked, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
+    rows.append(graph_while_row(tracked["launches"][kernels.GRAPH_WHILE.name]))
     reference_phase()
     reference_chunked()
     reference_tracked()

@@ -10,7 +10,8 @@ or flag is rebuilt and a stale library is never loaded.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check`
 raises when it is not 0.  Each kernel carries a launch counter that its
-wrapper bumps by one per launch.
+wrapper bumps by one per launch.  A source may export C entries besides
+its launch (`Kernel.extra`, loaded into `Kernel.extra_fns`).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class Kernel:
     """One CUDA source, its C entry point and its launch count."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: list,
-                 design: str, flags: tuple = EXACT):
+                 design: str, flags: tuple = EXACT, extra: dict | None = None):
         self.name = name
         self.source = source
         self.entry = entry
@@ -48,6 +49,9 @@ class Kernel:
         self.flags = tuple(flags)  # nvcc flags of this kernel alone
         self.launches = 0
         self._fn = None
+        # the source's other C entries: name -> (argtypes, restype)
+        self.extra = dict(extra or {})
+        self.extra_fns: dict = {}
 
     @property
     def path(self) -> Path:
@@ -72,6 +76,11 @@ class Kernel:
         if self._fn is None:
             build_all()
         return self._fn
+
+    def extra_fn(self, name: str):
+        """The source's C entry `name` of `extra`, built and loaded."""
+        self.fn
+        return self.extra_fns[name]
 
 
 P = ctypes.c_void_p
@@ -111,7 +120,17 @@ SPLAT_BWD = Kernel(
     "contraction on; a tile with no live slot writes zeros and exits",
     flags=("-fmad=true",))
 
-ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD)
+GRAPH_WHILE = Kernel(
+    "graph_while_cuda", "graph_while.cu", "graph_while_begin", [P, P, P, P],
+    "one thread sets the WHILE node's handle from a 0-d bool, once before "
+    "the loop and once at the end of each pass of its body",
+    extra={"graph_while_end": ([P, ctypes.c_ulonglong, P, P], ctypes.c_int),
+           "graph_while_stream": ([P], ctypes.c_int),
+           "graph_while_versions": ([P, P], ctypes.c_int),
+           "graph_while_error": ([I], ctypes.c_char_p),
+           "graph_while_failed_call": ([], ctypes.c_char_p)})
+
+ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 
@@ -155,6 +174,10 @@ def build_all() -> None:
             fn = getattr(lib, k.entry)
             fn.argtypes = k.argtypes
             fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in k.extra.items():
+                extra = getattr(lib, name)
+                extra.argtypes, extra.restype = argtypes, restype
+                k.extra_fns[name] = extra
             k._fn = fn
 
 

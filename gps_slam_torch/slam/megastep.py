@@ -43,6 +43,7 @@ from ..gs import model as gmodel, optim, params as pmod
 from ..gs.params import GaussianPool
 from ..tsdf import raycast_tiles
 from ..tsdf.volume import TsdfVolume
+from ..utils import graph_while
 from ..utils.se3 import compute_normal_map
 
 
@@ -214,7 +215,11 @@ class GraphCache:
     `prepare(buffers, statics)`, when given, runs before each capture and
     makes what the function needs that a graph cannot capture (a constant
     copied from the host, a library's first call).  A capture that fails
-    raises; nothing falls back to an eager run.
+    raises; nothing falls back to an eager run.  A capture goes through
+    `graph_while.capture`, so that `fn` may hold conditional WHILE nodes
+    (the tracked megastep's Gauss-Newton levels); `node_counts` records
+    each capture's nodes: all of the graph's (`nodes`), its WHILE nodes
+    (`conditional`) and each WHILE body's (`bodies`).
 
     The kernel wrappers count their launches while a graph is captured,
     and the capture's first execution is its replay right after; a later
@@ -230,6 +235,7 @@ class GraphCache:
         self.dropped = 0
         self.memory_bytes = 0   # reserved by all captures so far
         self.peak_resident = 0  # most graphs held at once
+        self.node_counts: list[dict] = []   # per capture, in order
         self.replayed_launches = {k.name: 0 for k in kernels.ALL}
         self.last: tuple | None = None   # (key, "capture" or "replay")
         self._held = None
@@ -276,10 +282,17 @@ class GraphCache:
         torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_reserved()
         before = kernels.counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # kept until counted, then instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with graph_while.capture(graph) as cap:
             outputs = self.fn(**buf, **statics)
         launches = {k: n - before[k] for k, n in kernels.counts().items()}
+        nodes = {**graph_while.node_counts(graph), "bodies": cap.body_nodes}
+        if nodes["conditional"] != cap.while_nodes:
+            raise RuntimeError(f"the captured graph holds {nodes['conditional']} "
+                               f"conditional nodes, not the {cap.while_nodes} added")
+        self.node_counts.append(nodes)
+        graph.instantiate()
         graph.replay()
         return Captured(graph, buf, outputs, launches,
                         memory_bytes=torch.cuda.memory_reserved() - mem0)

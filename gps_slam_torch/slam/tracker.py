@@ -13,10 +13,16 @@ stays on the device.  The eager route (`_track_level`, `ICPTracker.track`)
 reads `step` back once per iteration (4 bytes, the only synchronising call
 of an iteration) to take the same exit after the same iteration.  The
 tracked megastep's route (`_track_level_static`, `track_pyramid_static`)
-reads nothing: it unrolls each level to its budget and masks every state
-update after the exit with a device flag, so it returns the same values
-and a CUDA graph can capture it; the masked iterations still run on the
-card.  The 6x6 solve is `torch.linalg.solve_ex`, which neither raises nor
+reads nothing: each level keeps its state in tensors allocated before its
+loop, which one Gauss-Newton iteration (`_StaticLevel.iterate`) updates
+in place.  Captured into a CUDA graph on the card, the iterations after
+the first are the body of one conditional WHILE node per level
+(`utils/graph_while.py`), whose exit test stays on the device as the JAX
+one does: a converged level runs no more iterations.  Uncaptured (the
+CPU, an eager run on the card), the loop is unrolled to the level's
+budget and every update after the exit is masked with a device flag; the
+masked iterations are computed and dropped, and the values are the same.
+The 6x6 solve is `torch.linalg.solve_ex`, which neither raises nor
 synchronises (on the card it runs on cuSOLVER, PyTorch's default, and a
 graph captures it): a singular system gives the same zero step as the
 non-finite solution that the JAX package zeroes.
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..utils import graph_while
 from ..utils.se3 import _sobel, pose_inv, se3_exp
 
 # per-level Gauss-Newton budgets: numiterC (coarsest) to numiterF (finest),
@@ -245,46 +252,85 @@ def _track_level(
     return T_acc, inlier, mean_r, it
 
 
+class _StaticLevel:
+    """One level of `track_pyramid_static`: its inputs and the state its
+    Gauss-Newton loop carries, allocated before the loop and updated in
+    place by `iterate`: T, T_acc, H_acc, g_acc, err_acc, lam, step, inlier
+    and mean_r in one f32 buffer, the iterations run `n_run` (0-d int64)
+    and the loop's test `more` (0-d bool: `n_run < n_iters` and the last
+    step above the exit, the JAX `cond`).  Iteration 0 runs when the level
+    is made (its step starts above the exit)."""
+
+    _FIELDS = (("T", (4, 4)), ("T_acc", (4, 4)), ("H_acc", (6, 6)), ("g_acc", (6,)),
+               ("err_acc", ()), ("lam", ()), ("step", ()), ("inlier", ()), ("mean_r", ()))
+
+    def __init__(self, T0, depth, ref_vertex, ref_normal, cam, n_iters: int,
+                 rotation_only: bool, ref_pose_inv, space_thresh, tukey_c):
+        dev = depth.device
+        h, w = depth.shape
+        self.pts_cam, self.has_depth = _level_points(depth, cam)
+        self.refs = (ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c)
+        self.n_pix = _scalar(h * w, dev)
+        self.eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+        self.rot_mask = _rotation_mask(dev) if rotation_only else None
+        self.n_iters = n_iters
+        self.state = torch.cat([
+            T0.reshape(-1), T0.reshape(-1), self.eye6.reshape(-1),
+            torch.zeros(6, dtype=torch.float32, device=dev),
+            _vector((float("inf"), 1e-3, 0.0, 0.0, 0.0), dev)])
+        at = 0
+        for name, shape in self._FIELDS:
+            n = int(np.prod(shape))
+            setattr(self, name, self.state[at:at + n].view(shape))
+            at += n
+        self.n_run = torch.zeros((), dtype=torch.int64, device=dev)
+        self.more = torch.zeros((), dtype=torch.bool, device=dev)
+        self.iterate(first=True)
+
+    def iterate(self, active: torch.Tensor | None = None, first: bool = False) -> None:
+        """One Gauss-Newton iteration on the carried state, in place: taken
+        whole (iteration 0, or the body of a WHILE node, which runs only
+        while `more` holds), or with every update masked by the 0-d bool
+        `active` (the unrolled loop); then `more` anew."""
+        ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c = self.refs
+        Hm, g, err, inl, mr = _gn_system(
+            self.T, self.pts_cam, self.has_depth, ref_vertex, ref_normal, cam,
+            ref_pose_inv, space_thresh, tukey_c, self.rot_mask, self.n_pix)
+        T_new, T_ref, H_ref, g_ref, err_ref, lam_new, step = _lm_step(
+            self.T, self.T_acc, Hm, self.H_acc, g, self.g_acc, err, self.err_acc,
+            self.lam, first, self.eye6, 1e-6)
+        new = torch.cat([T_new.reshape(-1), T_ref.reshape(-1), H_ref.reshape(-1), g_ref,
+                         torch.stack([err_ref, lam_new, step, inl, mr])])
+        if active is None:
+            self.state.copy_(new)
+            self.n_run.add_(1)
+        else:
+            self.state.copy_(torch.where(active, new, self.state))
+            self.n_run.add_(active.to(torch.int64))
+        torch.logical_and(self.n_run < self.n_iters, self.step > _STEP_EXIT, out=self.more)
+
+    def result(self) -> tuple:
+        """(T, inlier, mean_r, n_run) as `_track_level` returns them."""
+        return self.T_acc, self.inlier, self.mean_r, self.n_run
+
+
 def _track_level_static(T0, depth, ref_vertex, ref_normal, cam, n_iters: int,
                         rotation_only: bool, ref_pose_inv, space_thresh, tukey_c):
-    """`_track_level` with a fixed cap and no read-back: the loop is
-    unrolled over `n_iters`, iteration 0 always runs (its step starts at
-    1, above the exit) and a later one updates the state only while the
-    device flag `active` (every step so far above the exit) holds.  The
-    same values bit for bit, with the iteration count a 0-d int64 device
-    tensor; the iterations past the exit are computed and dropped."""
-    dev = depth.device
-    h, w = depth.shape
-    pts_cam, has_depth = _level_points(depth, cam)
-    n_pix = _scalar(h * w, dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    rot_mask = _rotation_mask(dev) if rotation_only else None
-
-    T, T_acc = T0, T0
-    H_acc, g_acc = eye6, torch.zeros(6, dtype=torch.float32, device=dev)
-    err_acc = _scalar(float("inf"), dev)
-    lam = _scalar(1e-3, dev)
-    inlier = mean_r = step = _scalar(0.0, dev)
-    n_run = torch.zeros((), dtype=torch.int64, device=dev)
-    for it in range(n_iters):
-        Hm, g, err, inl, mr = _gn_system(
-            T, pts_cam, has_depth, ref_vertex, ref_normal, cam, ref_pose_inv,
-            space_thresh, tukey_c, rot_mask, n_pix)
-        new = _lm_step(T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, it == 0,
-                       eye6, 1e-6)
-        if it == 0:
-            T, T_acc, H_acc, g_acc, err_acc, lam, step = new
-            inlier, mean_r = inl, mr
-            n_run = n_run + 1
-            continue
-        active = step > _STEP_EXIT
-        T, T_acc, H_acc, g_acc, err_acc, lam, step = (
-            torch.where(active, a, b) for a, b in zip(
-                new, (T, T_acc, H_acc, g_acc, err_acc, lam, step)))
-        inlier = torch.where(active, inl, inlier)
-        mean_r = torch.where(active, mr, mean_r)
-        n_run = n_run + active.to(torch.int64)
-    return T_acc, inlier, mean_r, n_run
+    """`_track_level` with no read-back: the same values bit for bit, the
+    iteration count a 0-d int64 device tensor.  While a CUDA graph is
+    captured the iterations after the first are one WHILE node's body,
+    which the device runs while `more` holds; otherwise the loop is
+    unrolled to `n_iters` and an iteration updates the state only while
+    `more` (every step so far above the exit) holds."""
+    lv = _StaticLevel(T0, depth, ref_vertex, ref_normal, cam, n_iters, rotation_only,
+                      ref_pose_inv, space_thresh, tukey_c)
+    if graph_while.capturing(depth.device):
+        graph_while.while_loop(lv.more, lv.iterate)
+    else:
+        for _ in range(1, n_iters):
+            # `iterate` reads the flag before it rewrites it
+            lv.iterate(active=lv.more)
+    return lv.result()
 
 
 class TrackerQuality:

@@ -34,7 +34,12 @@ the JAX package's jitted programs do (`integrate.fuse_frame_static`):
     quality.
 
 On the CPU they run eagerly; on the card each is captured as a CUDA graph
-once per static key (`slam/megastep.GraphCache`) and replayed.
+once per static key (`slam/megastep.GraphCache`) and replayed.  In the
+tracked megastep's graph each pyramid level's Gauss-Newton iterations
+after the first are the body of a conditional WHILE node
+(`utils/graph_while.py`, the JAX `lax.while_loop`): the device tests the
+exit after each iteration, and a replay runs the iterations that the
+eager route runs, not the levels' budgets.
 Everything else (the gt-pose frame of `log_pipeline_time`, the colour
 and composite trackers, the other failure policies, swapping, sharding)
 runs per frame with its counts read exactly every frame.  The JAX
@@ -54,6 +59,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..parallel import spatial
+from ..utils import graph_while
 from ..utils.se3 import bilateral_filter_depth
 from . import integrate, raycast_tiles
 from .volume import TsdfParams, TsdfVolume
@@ -114,10 +120,19 @@ def _fuse_gt_frame(vol, n_blocks, depth, rgb, c2w, *, K, bilateral) -> dict:
 
 
 def _warm_solver(buf: dict, statics: dict) -> None:
-    """The solver's first call sets up its library handle, which a graph
-    cannot capture: make it before the tracked frame's capture."""
+    """The first calls of the solver and of the matrix products on a
+    stream make their library handles and cuBLAS's workspace for that
+    stream, which a graph cannot capture: make them before the tracked
+    frame's capture, on the current stream and on the stream of the WHILE
+    nodes' bodies, where the Gauss-Newton iterations after each level's
+    first are captured."""
     dev = buf["depth"].device
-    torch.linalg.solve_ex(torch.eye(6, device=dev), torch.ones(6, device=dev))
+    for stream in (torch.cuda.current_stream(dev), graph_while.body_stream(dev)):
+        with torch.cuda.stream(stream):
+            torch.linalg.solve_ex(torch.eye(6, device=dev), torch.ones(6, device=dev))
+            for dtype in (torch.float32, torch.float64):
+                x = torch.ones((8, 6), dtype=dtype, device=dev)
+                x.T @ x
 
 
 class TsdfEngine:

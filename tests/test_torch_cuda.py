@@ -503,7 +503,7 @@ def test_wrappers_never_read_back(cuda_device, fused):
     torch.cuda.synchronize()
     assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
                                 "raycast_cuda": 2, "splat_fwd_cuda": 0,
-                                "splat_bwd_cuda": 0}
+                                "splat_bwd_cuda": 0, "graph_while_cuda": 0}
 
 
 @pytest.mark.cuda
@@ -1571,3 +1571,54 @@ def test_tracked_graph_replays_equal_uncaptured(cuda_device):
     for k in ("vertex_map", "normal_map"):
         assert torch.equal(e._last_raycast_for_tracking[k],
                            ref._last_raycast_for_tracking[k]), k
+
+
+@pytest.mark.cuda
+def test_tracked_pyramid_while_nodes_replay_equal_uncaptured(cuda_device):
+    """`track_pyramid_static` at 160x120 captured with its conditional
+    WHILE nodes (one per level, budgets 50/10/30/20) and replayed on two
+    inputs: frame 1 against frame 0's maps (every level exits early) and
+    frame 2 (level 1 runs to its cap of 10).  Poses, inlier shares,
+    residuals and the iterations per level bit for bit equal to the
+    uncaptured masked run; the iterations also equal the eager
+    `track_pyramid`'s."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import tracker as ttrk
+    from gps_slam_torch.tsdf import engine as teng
+    from gps_slam_torch.utils import graph_while
+    from gps_slam_torch.utils import se3 as tse3
+
+    dev, budgets = cuda_device, (50, 10, 30, 20)
+    cams = synthetic.make_cameras(n_frames=16, width=160, height=120, look="in", arc=0.025)
+    a = cams[0]
+    vm = tse3.compute_vertex_map(torch.as_tensor(a.depth[..., 0], device=dev),
+                                 a.fx, a.fy, a.cx, a.cy)
+    nm = tse3.compute_normal_map(vm)
+    ok = vm[..., 2:3] > 0
+    c2w = torch.as_tensor(a.c2w, device=dev)
+    vw = torch.where(ok, vm @ c2w[:3, :3].T + c2w[:3, 3], 0.0)
+    nw = torch.where(ok, nm @ c2w[:3, :3].T, 0.0)
+    depths = [torch.as_tensor(cams[k].depth[..., 0], device=dev) for k in (1, 2)]
+    kernels.build_all()
+    T_buf, d_buf = c2w.clone(), depths[0].clone()
+    teng._warm_solver({"depth": d_buf}, {})
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with graph_while.capture(g) as cap:
+        out = ttrk.track_pyramid_static(T_buf, d_buf, vw, nw, a.K, budgets)
+    nodes = graph_while.node_counts(g)
+    g.instantiate()
+    assert cap.while_nodes == nodes["conditional"] == 4 and min(cap.body_nodes) > 0
+    runs = []
+    for d in depths:
+        d_buf.copy_(d)
+        g.replay()
+        ref = ttrk.track_pyramid_static(c2w, d, vw, nw, a.K, budgets)
+        _, _, _, eager = ttrk.track_pyramid(c2w, d, vw, nw, a.K, tse3.pose_inv(c2w), budgets)
+        torch.cuda.synchronize()
+        for x, y in zip(out, ref):
+            assert torch.equal(x, y)
+        assert out[3].tolist() == eager
+        runs.append(eager)
+    assert all(n < b for n, b in zip(runs[0], budgets)), runs
+    assert any(n == b for n, b in zip(runs[1], budgets)), runs

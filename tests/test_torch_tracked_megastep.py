@@ -2,12 +2,14 @@
 by `TsdfEngine._can_fast_track`) on the CPU.
 
 (a) The fixed-cap Gauss-Newton level against the early-exit
-`_track_level`, bit for bit.  (b) The read-back-free pyramid against the
-JAX `track_pyramid`.  (c) The megastep frame under the guard that fails
-on every host read.  (d) A failed frame keeps its previous pose.  (e)
-`_can_fast_track` gate by gate against the JAX engine's.  (f) 8 frames at
-160x120 in lockstep with the JAX engine's tracked megastep (its packed
-integrate kernel in interpret mode, its raycasts on the XLA march)."""
+`_track_level`, bit for bit, masked and as its WHILE node repeats it.
+(b) The read-back-free pyramid against the JAX `track_pyramid`.  (c) The
+megastep frame under the guard that fails on every host read; a WHILE
+node refused outside a capture.  (d) A failed frame keeps its previous
+pose.  (e) `_can_fast_track` gate by gate against the JAX engine's.  (f)
+8 frames at 160x120 in lockstep with the JAX engine's tracked megastep
+(its packed integrate kernel in interpret mode, its raycasts on the XLA
+march)."""
 
 import os
 
@@ -81,13 +83,22 @@ def ref_maps():
 
 # ------------------------------------------------------ (a) one level
 
-@pytest.mark.parametrize("lvl,budget,runs", [(0, 50, "exit"), (1, 3, "cap"),
-                                              (3, 20, "exit")],
-                         ids=["early_exit", "to_cap", "rotation_only"])
-def test_static_level_matches_track_level(ref_maps, lvl, budget, runs):
+LEVEL_CASES = [(0, 50, "exit"), (1, 3, "cap"), (3, 20, "exit")]
+LEVEL_IDS = ["early_exit", "to_cap", "rotation_only"]
+
+
+@pytest.mark.parametrize(
+    "lvl,budget,runs,form",
+    [(*c, "masked") for c in LEVEL_CASES] + [(*c, "branch") for c in LEVEL_CASES],
+    ids=LEVEL_IDS + [f"{i}_branch" for i in LEVEL_IDS])
+def test_static_level_matches_track_level(ref_maps, lvl, budget, runs, form):
     """The same estimate, inlier share, residual and iteration count, bit
     for bit: level 0 exits before its 50 iterations, level 1 runs to a cap
-    of 3, level 3 solves rotation only and exits before its 20."""
+    of 3, level 3 solves rotation only and exits before its 20.  The
+    static level in its uncaptured form (unrolled to the budget, masked
+    after the exit: `_track_level_static`) and as its WHILE node runs it
+    (`branch`: the in-place iteration repeated while the read-back loop
+    test holds, as the device repeats the node's body)."""
     cams, vw, nw, depth, T0 = ref_maps
     d = _t(depth)
     for _ in range(lvl):
@@ -98,7 +109,13 @@ def test_static_level_matches_track_level(ref_maps, lvl, budget, runs):
             _t(np.linalg.inv(cams[0].c2w.astype(np.float32))),
             ttrk._scalar(ttrk.SPACE_THRESH[li], "cpu"), ttrk._scalar(ttrk.TUKEY_C[li], "cpu"))
     T, inl, mr, n = ttrk._track_level(*args)
-    Ts, inls, mrs, ns = ttrk._track_level_static(*args)
+    if form == "masked":
+        Ts, inls, mrs, ns = ttrk._track_level_static(*args)
+    else:
+        lv = ttrk._StaticLevel(*args)
+        while bool(lv.more):
+            lv.iterate()
+        Ts, inls, mrs, ns = lv.result()
     assert int(ns) == n
     assert 1 < n < budget if runs == "exit" else n == budget
     for a, b in ((T, Ts), (inl, inls), (mr, mrs)):
@@ -164,6 +181,18 @@ def test_megastep_frame_reads_nothing_back(tmp_path):
             prefix=1 << 12)
     assert bool(torch.isfinite(out["pose"]).all()) and float(out["inlier"]) > 0
     assert int(nb) > e.vol.n_blocks and tuple(out["vertex_map"].shape) == (72, 96, 3)
+
+
+def test_while_loop_refuses_outside_a_capture():
+    """A WHILE node is built only inside `graph_while.capture`: the
+    request on the CPU (or on an uncaptured stream) raises, and the
+    static level takes its masked form there."""
+    from gps_slam_torch.utils import graph_while
+
+    flag = torch.ones((), dtype=torch.bool)
+    assert not graph_while.capturing(flag.device)
+    with pytest.raises(RuntimeError, match="WHILE node"):
+        graph_while.while_loop(flag, lambda: None)
 
 
 def test_failed_frame_keeps_its_pose(tmp_path):
