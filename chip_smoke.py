@@ -82,8 +82,8 @@ Phases (any failure exits non-zero before the final line):
  10. kernels: each kernel against its plain PyTorch version on the inputs
      of its last call on its path (K1 on the main and the sharded path, K2
      once per route, K3 on the main path, on the 1920x1080 path, on the
-     tracked path's last tracking-prepare call (its tracking mode, and
-     beside it the same inputs at k_blocks 1 on the TPU kernel's
+     tracked path's last tracking-prepare call (its tracking mode, bit
+     for bit, and beside it the same inputs at k_blocks 1 on the TPU kernel's
      semantics: a [kernel] line left out of the JSON line, not a launch
      of the path) and on the sharded path's last shard raycast), with
      CUDA-event timings, the least time the card
@@ -1785,7 +1785,7 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
     # a [kernel] line, not a launch of the path
     parent = ((*a[:9], 1, False), {})
     return out, [("tracking prepare, 1200x680", call, out["tracking_prepare_k3_launches"],
-                  {"launches_path": out["launches"][kernels.RAYCAST.name]}),
+                  {"launches_path": out["launches"][kernels.RAYCAST.name]}, True),
                  ("tracking prepare, 1200x680, the TPU kernel's semantics at k_blocks 1",
                   parent, 0, {"comparison": "the prepare call before the tracking mode, "
                                             "on the same inputs; not launched on the path"})]

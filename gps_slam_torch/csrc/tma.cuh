@@ -7,6 +7,8 @@
 // barrier with the total byte count (mbar_expect_tx; 0 bytes completes the
 // phase at once); threads issue bulk_copy for 16-byte aligned spans whose
 // sizes are multiples of 16; every thread waits on mbar_wait(bar, 0).
+// Copies into shared memory that the CTA has used before wait for
+// fence_proxy_async.
 
 #pragma once
 
@@ -41,6 +43,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// order the calling thread's earlier accesses to shared memory before
+// later bulk copies into it (every thread that touched the destination
+// calls it before the barrier that precedes the copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // copy `bytes` from global `src` to shared `dst`, counted on `bar`

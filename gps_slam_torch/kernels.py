@@ -102,11 +102,14 @@ RAYCAST = Kernel(
     [P] * 7 + [I] * 8 + [F] * 8 + [P],
     "coarse once per (quad, block) pair; picked rows staged by TMA, "
     "sdf decoded once")
-# the design of raycast_cuda's tracking mode (`track`), printed beside its
-# measurements
-RAYCAST_TRACK_DESIGN = ("tracking mode: coarse once per (pixel, block) pair, "
-                        "k picks a pixel kept in registers; picked rows staged "
-                        "by TMA, sdf decoded once; two bracket stages")
+# the design of raycast_cuda's tracking mode (`track`, a kernel of its own
+# in the same source), printed beside its measurements
+RAYCAST_TRACK_DESIGN = ("tracking mode: a division-free slab bound per (pixel, "
+                        "block) pair, then the pairs that may hit spread over "
+                        "the CTA (exact slab test, mip samples to the first "
+                        "negative); k picks a pixel in registers; picked rows "
+                        "staged by TMA; two bracket stages, each to its first "
+                        "crossing, reusing stage 1's samples")
 SPLAT_FWD = Kernel(
     "splat_fwd_cuda", "splat_fwd.cu", "splat_fwd",
     [P, P, P, P, P, P, I, I, I, I, F, P],
