@@ -48,18 +48,21 @@ Phases (any failure exits non-zero before the final line):
      frame after the first the tracked megastep (one CUDA graph: ICP,
      the revert, fusion, the next prepare raycast; one read a frame; each
      pyramid level's Gauss-Newton loop a conditional WHILE node, whose
-     exit the card tests after each iteration: graph_while_cuda), then
-     the same frames on the eager route as its witness: K1 and the
+     exit the card tests after each iteration: graph_while_cuda; each
+     Gauss-Newton iteration one launch of icp_gn_cuda), then the same
+     frames on the eager route as its witness: K1 and the
      tracking-prepare K3 (its tracking mode: the JAX XLA march's
-     semantics, k_blocks 2, need_color False) once per frame;
+     semantics, k_blocks 2, need_color False) once per frame, icp_gn_cuda
+     launched on both routes;
      each run: ATE below 3 voxels, the last pose within 2 cm and 2
      degrees, GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
      `[tracked routes]` gives both routes' ms per tracked frame over the
      same scope (engine.process_frame: ICP, revert, fusion, the next
      prepare raycast; median, mean, least, most, first) and the eager
      route's split, the replay ms, the iterations per level of both
-     routes, each capture's nodes and WHILE nodes (one a level) and the
-     CUDA versions; then `[tracking fixture]`: tests/test_tracking.py's
+     routes, each capture's nodes, WHILE nodes (one a level) and WHILE
+     bodies' nodes, icp_gn_cuda's launches and the iterations the card
+     ran, and the CUDA versions; then `[tracking fixture]`: tests/test_tracking.py's
      three tracking fixtures at 160x120 (its fixture, the same at half
      the arc, its noisy stress fixture) on both routes, with that file's
      gates;
@@ -93,7 +96,9 @@ Phases (any failure exits non-zero before the final line):
      outputs (a tile with none sums nothing; the window megastep's padded
      lists are mostly such tiles); graph_while_cuda: WHILE loops of 0, 1,
      7 and 50 passes captured and replayed against the same loops driven
-     from the host (equal pass counts), ms per pass of each;
+     from the host (equal pass counts), ms per pass of each; icp_gn_cuda
+     on the tracked path's last frame at pyramid level 0 and level 3
+     (the state its loop ended with), bit for bit with its plain version;
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -175,6 +180,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12     # f32 outside the tensor cores
+H100_F64_FLOP_PER_S = 34e12     # f64 outside the tensor cores, the same data sheet
 
 N_FRAMES = 30   # >= 2 optimization windows at local_opt_interval 10
 RESIDENT_FRAMES = 21  # the fewest frames that still hold 2 windows
@@ -333,9 +339,12 @@ def plain_march(*a, track: bool = False, **kw):
     return trc.march_plain(*a, xla=trc.TRACK if track else frozenset(), **kw)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, n_f64_ops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes' time at the card's memory rate and the
+    operations' time at its peak rates (f32 ops, then f64 ops beside
+    them)."""
     tb = n_bytes / H100_BYTES_PER_S * 1e3
-    to = n_ops / H100_F32_FLOP_PER_S * 1e3
+    to = (n_ops / H100_F32_FLOP_PER_S + n_f64_ops / H100_F64_FLOP_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -355,20 +364,26 @@ def spread_ms(ms: list) -> dict:
             "n": len(ms)}
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
     """Mean CUDA-event time of fn over `reps` launches, each after a write
     of 128 MiB that evicts the 50 MB L2 (the main path reaches each kernel
     with its pool rows cold) and a spin of the card that keeps it busy
     while the host runs the wrapper: the events then time the device work
-    of fn alone, not the host's Python before the launch."""
+    of fn alone, not the host's Python before the launch.  `before`, when
+    given, runs ahead of each launch and its flush, outside the events
+    (it restores what fn updates in place)."""
     global _L2_FLUSH
     if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
+        if before is not None:
+            before()
         fn()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(reps)]
     for a, b in ev:
+        if before is not None:
+            before()
         _L2_FLUSH.zero_()
         torch.cuda._sleep(_HOST_LEAD_CYCLES)
         a.record()
@@ -410,7 +425,8 @@ def bench_config(n_frames: int, width: int, height: int, cam0,
 
 
 class Recorder:
-    """Keeps the arguments of the last call of each kernel wrapper."""
+    """Keeps the arguments of the last call of each kernel wrapper (of
+    `icp_gn.iterate`, one per pyramid level size)."""
 
     def __init__(self):
         from gps_slam_torch.gs import rasterize as trz
@@ -427,6 +443,16 @@ class Recorder:
                 return _orig(*args, **kw)
 
             setattr(mod, name, wrap)
+        from gps_slam_torch.slam import icp_gn
+
+        iterate = icp_gn.iterate
+
+        def gn_wrap(*args, **kw):
+            # one entry per level size: ("icp_gn", (h, w))
+            self.last[("icp_gn", tuple(args[0].shape))] = (args, kw)
+            return iterate(*args, **kw)
+
+        icp_gn.iterate = gn_wrap
 
 
 def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
@@ -825,6 +851,8 @@ class TrackedStats:
             "tracking_prepare_raycast_ms_total": self.prepare_ms,
             "tracking_prepare_k3_launches": self.prepare_k3,
             "gn_iters_mean_per_level": [float(v) for v in np.mean(self.iters, 0)],
+            # the Gauss-Newton iterations the card ran, all levels and frames
+            "gn_iters_total": int(np.sum(self.iters)),
             "gn_iters_budget_per_level": list(self.engine._tracker.level_iters),
             "quality": {name: sum(q == v for q in self.quality) for name, v in (
                 ("GOOD", TrackerQuality.GOOD), ("POOR", TrackerQuality.POOR),
@@ -1724,11 +1752,19 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
     out, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
                          tracked=rec)
     call = rec.last["tracking prepare"]
+    # the last frame's Gauss-Newton calls at the finest and the coarsest
+    # level (the WHILE bodies' captured calls, whose tensors hold the last
+    # replay's state)
+    gn_calls = [(f"level {lvl}, {1200 >> lvl}x{680 >> lvl}",
+                 rec.last[("icp_gn", (680 >> lvl, 1200 >> lvl))]) for lvl in (0, 3)]
     eager, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path, eager witness",
                            kernels.INTEGRATE, tracked=rec, fast_track=False)
     for r in (out, eager):
         if r["adam_steps"] != ADAM_STEPS * r["windows"]:
             raise RuntimeError(f"tracked path ran {r['adam_steps']} Adam steps")
+        if r["launches"][kernels.ICP_GN.name] <= 0:
+            raise RuntimeError(f"tracked path ({r['tracking_route']}): icp_gn_cuda was "
+                               "not launched")
     if (out["tracking_route"], eager["tracking_route"]) != ("megastep", "eager"):
         raise RuntimeError(f"tracked path: routes {out['tracking_route']} and "
                            f"{eager['tracking_route']}")
@@ -1765,6 +1801,14 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
                                     "eager": eager["gn_iters_mean_per_level"]},
         "gn_iters_budget_per_level": out["gn_iters_budget_per_level"],
         "megastep_graph_nodes": out["megastep_graphs"]["nodes"],
+        # each capture's WHILE bodies (one a level, coarsest first)
+        "while_body_nodes": [n["bodies"] for n in out["megastep_graphs"]["nodes"]],
+        # icp_gn_cuda: the wrappers' launches (the megastep's: 8 a graph
+        # run, each level's first iteration and its WHILE body as
+        # captured) and the iterations the card ran
+        "icp_gn_launches": {"megastep": out["launches"][kernels.ICP_GN.name],
+                            "eager": eager["launches"][kernels.ICP_GN.name]},
+        "gn_iters_total": {"megastep": out["gn_iters_total"], "eager": eager["gn_iters_total"]},
         "graph_while_launches": out["launches"][kernels.GRAPH_WHILE.name],
         "torch_cuda": torch.version.cuda, "versions": graph_while.versions(),
         "ate_cm": {"megastep": out["ate_cm"], "eager": eager["ate_cm"]},
@@ -1784,11 +1828,118 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
     # (the TPU kernel's semantics, k_blocks 1), timed beside it; printed as
     # a [kernel] line, not a launch of the path
     parent = ((*a[:9], 1, False), {})
+    out["gn_calls"] = [(tag, c, out["launches"][kernels.ICP_GN.name],
+                        {"launches_eager": eager["launches"][kernels.ICP_GN.name],
+                         "gn_iters_total": {"megastep": out["gn_iters_total"],
+                                            "eager": eager["gn_iters_total"]}})
+                       for tag, c in gn_calls]
     return out, [("tracking prepare, 1200x680", call, out["tracking_prepare_k3_launches"],
                   {"launches_path": out["launches"][kernels.RAYCAST.name]}, True),
                  ("tracking prepare, 1200x680, the TPU kernel's semantics at k_blocks 1",
                   parent, 0, {"comparison": "the prepare call before the tracking mode, "
                                             "on the same inputs; not launched on the path"})]
+
+
+# f32 and f64 operations of icp_gn_cuda's first kernel a pixel, counted
+# from its expressions: the point, its two transforms and projection, two
+# 4-corner bilinear reads, the normal, residual, Tukey weight and Jacobian
+# (~270 f32); 42 f64 products and ~45 adds of the sums
+ICP_GN_F32_OPS, ICP_GN_F64_OPS = 270, 90
+
+
+def icp_gn_texels(depth, refv, cam, T, rpi) -> int:
+    """The reference-map pixels that one Gauss-Newton pass reads: the 4
+    bilinear corners of every pixel's projection (the plain version's
+    arithmetic), distinct."""
+    from gps_slam_torch.slam import icp_gn
+
+    Hf, Wf = refv.shape[:2]
+    pts, _ = icp_gn.level_points(depth, cam)
+    pw = icp_gn._affine(T, *pts.unbind(1))
+    pr = icp_gn._affine(rpi, *pw)
+    zs = torch.clamp(pr[2], min=1e-6)
+    u = torch.clamp(cam[4] * pr[0] / zs + cam[6], 0.0, Wf - 1.0).floor().long()
+    v = torch.clamp(cam[5] * pr[1] / zs + cam[7], 0.0, Hf - 1.0).floor().long()
+    u1, v1 = torch.clamp(u + 1, max=Wf - 1), torch.clamp(v + 1, max=Hf - 1)
+    idx = torch.cat([v * Wf + u, v * Wf + u1, v1 * Wf + u, v1 * Wf + u1])
+    return int(torch.unique(idx).numel())
+
+
+def icp_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) -> dict:
+    """icp_gn_cuda against its plain version on one recorded
+    `icp_gn.iterate` call: its level's inputs and the state the level
+    carried at the end of the path's last frame.  The new state (the
+    system's H, g, err, inlier share and mean residual; T, T_acc, lam,
+    step), the iteration count and the loop's test bit for bit; the first
+    kernel's per-CTA rows bit for bit with `cta_sums` of the plain terms;
+    a second launch the same bits.  `ms` times the launch (both kernels)
+    from the same state each time (restored outside the events).  The
+    bound: the depth, the reference-map pixels the pass reads (each once),
+    the state and the CTAs' rows; ICP_GN_F32_OPS and ICP_GN_F64_OPS a
+    pixel."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import icp_gn
+
+    a, _ = call
+    inputs = a[:10]
+    depth, refv, refn, cam, rpi, st, tc, rot = inputs[:8]
+    state, n_run, more, partials = a[10:14]
+    s0, r0, m0 = state.clone(), n_run.clone(), more.clone()
+    runs = []
+    for how in ("cuda", "cuda", "plain"):
+        s, n, m = s0.clone(), r0.clone(), m0.clone()
+        p = partials.clone()
+        p[:-1].fill_(float("nan"))
+        if how == "cuda":
+            icp_gn.iterate(*inputs, s, n, m, p)
+        else:
+            icp_gn.iterate_plain(*inputs, s, n, m)
+        runs.append((s, n, m, p))
+    pts, has_depth = icp_gn.level_points(depth, cam)
+    x = icp_gn.terms(s0[:16].view(4, 4), pts, has_depth, refv, refn, cam, rpi, st, tc, rot)
+    rows = icp_gn.cta_rows(x)
+    torch.cuda.synchronize()
+    (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
+    ok = (torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(m1, m3)
+          and torch.equal(s1, s2) and torch.equal(p1, p2)
+          and torch.equal(p1[:-1].view(icp_gn.N_TERMS, -1).T, rows))
+    # where the bits differ (an inf on both sides is equal)
+    max_err = float(torch.where(s1 == s3, 0.0, (s1 - s3).abs()).max().item())
+    s, n, m, p = s0.clone(), r0.clone(), m0.clone(), partials.clone()
+
+    def restore():
+        s.copy_(s0)
+        n.copy_(r0)
+        m.copy_(m0)
+
+    ms = time_ms(lambda: icp_gn.iterate(*inputs, s, n, m, p), 50, before=restore)
+    plain_ms = time_ms(lambda: icp_gn.iterate_plain(*inputs, s, n, m), 5, 1, before=restore)
+    h, w = depth.shape
+    N, C = h * w, icp_gn.n_ctas(h * w)
+    texels = icp_gn_texels(depth, refv, cam, s0[:16].view(4, 4), rpi)
+    # depth, the two maps' pixels read (3 f32 each), cam, w2c, the two
+    # thresholds, the state in and out, the CTAs' rows out and in
+    n_bytes = (N * 4 + 2 * texels * 12 + (8 + 16 + 2) * 4 + 2 * icp_gn.STATE_SIZE * 4
+               + 2 * C * icp_gn.N_TERMS * 8)
+    b, by = bound_ms(n_bytes, N * ICP_GN_F32_OPS, N * ICP_GN_F64_OPS)
+    row = {"name": kernels.ICP_GN.name + f" ({tag})", "tpu": None,
+           "design": kernels.ICP_GN.design, "route": "cuda",
+           "source": "gps_slam_torch/csrc/icp_gn.cu",
+           "replaces": "gps_slam_tpu/slam/tracker.py:150-224 (XLA)",
+           "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b, "bound_by": by, "library_ms": None, "ok": ok,
+           "bytes": n_bytes, "f32_ops": N * ICP_GN_F32_OPS, "f64_ops": N * ICP_GN_F64_OPS,
+           "shapes": {"h": h, "w": w, "ref": list(refv.shape[:2]), "texels_read": texels,
+                      "rotation_only": bool(rot), "ctas": C,
+                      "pixels_per_thread": icp_gn.PIX * icp_gn.rounds(N),
+                      "inliers": round(float(s1[77].item()) * N)},
+           "tolerance": "state, count, loop test and per-CTA rows bit for bit; "
+                        "a second launch the same bits",
+           **(extra or {})}
+    log("[kernel] " + json.dumps(row))
+    if not ok:
+        raise RuntimeError(f"icp_gn_cuda disagrees with its plain version: {row}")
+    return row
 
 
 def tracking_fixture_phase() -> dict:
@@ -3075,6 +3226,7 @@ def main() -> int:
           *k3_tracked, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
     rows.append(graph_while_row(tracked["launches"][kernels.GRAPH_WHILE.name]))
+    rows += [icp_gn_row(*r) for r in tracked.pop("gn_calls")]
     reference_phase()
     reference_chunked()
     reference_tracked()

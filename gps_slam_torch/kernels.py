@@ -132,8 +132,14 @@ GRAPH_WHILE = Kernel(
            "graph_while_versions": ([P, P], ctypes.c_int),
            "graph_while_error": ([I], ctypes.c_char_p),
            "graph_while_failed_call": ([], ctypes.c_char_p)})
+ICP_GN = Kernel(
+    "icp_gn_cuda", "icp_gn.cu", "icp_gn", [P] * 12 + [I] * 9 + [F, P],
+    "one kernel a pass: 2 pixels a thread a round, a warp's 45 sums by an xor "
+    "transpose, per-CTA f64 rows; the last CTA sums the rows in the same order "
+    "and takes the LM step in one warp",
+    extra={"icp_gn_load": ([], ctypes.c_int)})
 
-ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE)
+ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE, ICP_GN)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 

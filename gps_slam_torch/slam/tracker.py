@@ -9,31 +9,27 @@ composite trackers of the reference's tracker factory.
 
 Each level's loop runs on the tensors' device.  The JAX package runs it as
 one `lax.while_loop` whose exit test (`it < n_iters and step > 1e-10`)
-stays on the device.  The eager route (`_track_level`, `ICPTracker.track`)
-reads `step` back once per iteration (4 bytes, the only synchronising call
-of an iteration) to take the same exit after the same iteration.  The
-tracked megastep's route (`_track_level_static`, `track_pyramid_static`)
-reads nothing: each level keeps its state in tensors allocated before its
-loop, which one Gauss-Newton iteration (`_StaticLevel.iterate`) updates
-in place.  Captured into a CUDA graph on the card, the iterations after
-the first are the body of one conditional WHILE node per level
-(`utils/graph_while.py`), whose exit test stays on the device as the JAX
-one does: a converged level runs no more iterations.  Uncaptured (the
-CPU, an eager run on the card), the loop is unrolled to the level's
-budget and every update after the exit is masked with a device flag; the
-masked iterations are computed and dropped, and the values are the same.
-The 6x6 solve is `torch.linalg.solve_ex`, which neither raises nor
-synchronises (on the card it runs on cuSOLVER, PyTorch's default, and a
-graph captures it): a singular system gives the same zero step as the
-non-finite solution that the JAX package zeroes.
+stays on the device.  A Gauss-Newton iteration (the JAX loop body: the
+per-pixel system, its f64 sums and the Levenberg-Marquardt step) is
+`icp_gn.iterate`: the kernel `icp_gn_cuda` on the card, its plain version
+on the CPU, on the level's state (`_StaticLevel`) in place.  The eager
+route (`_track_level`, `ICPTracker.track`) reads `step` back once per
+iteration (4 bytes, the only synchronising call of an iteration) to take
+the same exit after the same iteration.  The tracked megastep's route
+(`_track_level_static`, `track_pyramid_static`) reads nothing.  Captured
+into a CUDA graph on the card, the iterations after the first are the
+body of one conditional WHILE node per level (`utils/graph_while.py`),
+whose exit test stays on the device as the JAX one does: a converged
+level runs no more iterations.  Uncaptured (the CPU, an eager run on the
+card), the loop is unrolled to the level's budget and every update after
+the exit is masked with a device flag; the masked iterations change
+nothing.
 
 The sums over pixels (the 6x6 system, the gradient, the robust error) are
-accumulated in f64 and rounded to f32, on both routes: the LM
-accept/reject compares errors that differ in their last bits, so f32 sums
-taken in another order (another device, another thread count, a graph's
-kernels against eager ones) can flip it and send the trajectory
-elsewhere; f64 sums of the f32 terms round to the same f32 value in any
-order.
+accumulated in f64 and rounded to f32, in one fixed order on both devices
+(`icp_gn.cta_sums`): the LM accept/reject compares errors that differ in
+their last bits, so sums taken in another order could flip it and send
+the trajectory elsewhere.
 """
 
 from __future__ import annotations
@@ -44,6 +40,8 @@ import torch
 from ..config import Config
 from ..utils import graph_while
 from ..utils.se3 import _sobel, pose_inv, se3_exp
+from . import icp_gn
+from .icp_gn import bilinear as _bilinear
 
 # per-level Gauss-Newton budgets: numiterC (coarsest) to numiterF (finest),
 # interpolated as the reference's SetupLevels does
@@ -90,34 +88,6 @@ def _subsample_depth(depth: torch.Tensor) -> torch.Tensor:
     return torch.where(c > 0, s / torch.clamp(c, min=1), 0.0)
 
 
-def _bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-    """Bilinear sample of [H, W, C] at float (u, v) pixel coords.
-    Returns ([N, C], weight_sum [N]); corners whose value is all zero
-    (no vertex / no normal) are left out of the weights."""
-    H, W = img.shape[:2]
-    u0 = torch.floor(u)
-    v0 = torch.floor(v)
-    fu = (u - u0)[:, None]
-    fv = (v - v0)[:, None]
-    u0 = torch.clamp(u0.to(torch.int64), 0, W - 1)
-    v0 = torch.clamp(v0.to(torch.int64), 0, H - 1)
-    u1 = torch.clamp(u0 + 1, max=W - 1)
-    v1 = torch.clamp(v0 + 1, max=H - 1)
-    acc = torch.zeros((u.shape[0], img.shape[2]), dtype=img.dtype, device=img.device)
-    wacc = torch.zeros((u.shape[0], 1), dtype=img.dtype, device=img.device)
-    for (uu, vv, ww) in (
-        (u0, v0, (1 - fu) * (1 - fv)),
-        (u1, v0, fu * (1 - fv)),
-        (u0, v1, (1 - fu) * fv),
-        (u1, v1, fu * fv),
-    ):
-        c = img[vv, uu]                       # [N, C]
-        ok = (c.abs().sum(-1, keepdim=True) > 1e-6).to(img.dtype)
-        acc = acc + c * ww * ok
-        wacc = wacc + ww * ok
-    return acc / torch.clamp(wacc, min=1e-6), wacc[:, 0]
-
-
 def _rotation_mask(device) -> torch.Tensor:
     """[1, 6] of (0, 0, 0, 1, 1, 1): keeps the rotation columns of J."""
     z = torch.zeros((1, 3), dtype=torch.float32, device=device)
@@ -127,89 +97,6 @@ def _rotation_mask(device) -> torch.Tensor:
 def _vector(vals, device) -> torch.Tensor:
     """A 1-d f32 tensor of host values made on `device` by fills."""
     return torch.stack([_scalar(v, device) for v in vals])
-
-
-def _lm_step(T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, first: bool,
-             eye6, diag_floor: float):
-    """The Levenberg-Marquardt accept/reject of one iteration: a step that
-    raised the error is rolled back and re-solved from the accepted system
-    with 10x damping; an improving step is kept and damping relaxes.
-    Returns (T_new, T_ref, H_ref, g_ref, err_ref, lam_new, step)."""
-    better = err <= err_acc
-    if first:
-        better = torch.ones_like(better)
-    T_ref = torch.where(better, T, T_acc)
-    H_ref = torch.where(better, Hm, H_acc)
-    g_ref = torch.where(better, g, g_acc)
-    err_ref = torch.where(better, err, err_acc)
-    lam_new = torch.clamp(torch.where(better, lam * 0.1, lam * 10.0), 1e-6, 1e5)
-    # lambda-scaled diagonal + an absolute floor scaled to the mean
-    # diagonal (views of parallel walls make H rank deficient)
-    mean_diag = torch.trace(H_ref) / 6.0 + diag_floor
-    damp = lam_new * torch.diag(torch.diagonal(H_ref)) + 1e-2 * mean_diag * eye6
-    delta, info = torch.linalg.solve_ex(H_ref + damp, -g_ref)
-    ok_solve = torch.isfinite(delta).all() & torch.isfinite(err_ref) & (info == 0)
-    delta = torch.where(ok_solve, delta, 0.0)
-    T_new = se3_exp(delta) @ T_ref
-    return T_new, T_ref, H_ref, g_ref, err_ref, lam_new, (delta * delta).sum()
-
-
-def _level_points(depth: torch.Tensor, cam: torch.Tensor):
-    """A level's camera points [h*w, 3] and their depth mask."""
-    dev = depth.device
-    h, w = depth.shape
-    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
-    i = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    j = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    x = ((i - cx) / fx).expand(h, w)
-    y = ((j - cy) / fy).expand(h, w)
-    pts_cam = (torch.stack([x, y, torch.ones_like(x)], -1)
-               * depth[..., None]).reshape(-1, 3)
-    return pts_cam, depth.reshape(-1) > 0
-
-
-def _gn_system(T, pts_cam, has_depth, ref_vertex, ref_normal, cam, ref_pose_inv,
-               space_thresh, tukey_c, rot_mask, n_pix):
-    """One Gauss-Newton iteration's system at the estimate T: (H [6, 6],
-    g [6], err, inlier share, mean |residual|)."""
-    Hf, Wf = ref_vertex.shape[:2]
-    fx0, fy0, cx0, cy0 = cam[4], cam[5], cam[6], cam[7]
-    # current points -> world; project into the raycast camera
-    p_w = pts_cam @ T[:3, :3].T + T[:3, 3]
-    p_ref = p_w @ ref_pose_inv[:3, :3].T + ref_pose_inv[:3, 3]
-    z = p_ref[:, 2]
-    zs = torch.clamp(z, min=1e-6)
-    u = fx0 * p_ref[:, 0] / zs + cx0
-    v = fy0 * p_ref[:, 1] / zs + cy0
-    in_img = (z > 0) & (u >= 0) & (u <= Wf - 1) & (v >= 0) & (v <= Hf - 1)
-    us = torch.clamp(u, 0.0, Wf - 1.0)
-    vs = torch.clamp(v, 0.0, Hf - 1.0)
-    vt, wv = _bilinear(ref_vertex, us, vs)
-    nt, wn = _bilinear(ref_normal, us, vs)
-    nlen = torch.sqrt((nt * nt).sum(-1, keepdim=True))
-    nt = nt / torch.clamp(nlen, min=1e-6)
-    has_ref = (wv > 0.5) & (wn > 0.5) & (nlen[:, 0] > 0.3)
-    diff = p_w - vt
-    dist2 = (diff * diff).sum(-1)
-    r = (nt * diff).sum(-1)
-    ok = has_depth & in_img & has_ref & (dist2 < space_thresh * space_thresh)
-    # Tukey biweight on the point-to-plane residual
-    t_ = torch.clamp(r / tukey_c, -1.0, 1.0)
-    tw = (1.0 - t_ * t_) ** 2
-    wgt = ok.to(torch.float32) * tw
-    # d r / d xi = [n ; p_w x n] for a left-multiplied twist on T
-    Jt = torch.cat([nt, torch.linalg.cross(p_w, nt, dim=-1)], dim=-1)
-    if rot_mask is not None:
-        Jt = Jt * rot_mask
-    Jw = (Jt * wgt[:, None]).double()
-    Hm = (Jw.T @ Jt.double()).float()
-    g = (Jw * r.double()[:, None]).sum(0).float()
-    n_ok = ok.to(torch.float32).sum()
-    mean_r = ((r.abs() * wgt).double().sum()
-              / torch.clamp(wgt.double().sum(), min=1.0)).float()
-    inlier = n_ok / n_pix
-    err = torch.where(n_ok > 50, mean_r, float("inf"))
-    return Hm, g, err, inlier, mean_r
 
 
 def _track_level(
@@ -228,86 +115,59 @@ def _track_level(
     inlier_frac, mean_residual, n_iters_run): T is the last accepted
     estimate (the trailing trial step is never evaluated), the inlier share
     and residual those of the last iteration, all on the device."""
-    dev = depth.device
-    h, w = depth.shape
-    pts_cam, has_depth = _level_points(depth, cam)
-    n_pix = _scalar(h * w, dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    rot_mask = _rotation_mask(dev) if rotation_only else None
-
-    T, T_acc = T0, T0
-    H_acc, g_acc = eye6, torch.zeros(6, dtype=torch.float32, device=dev)
-    err_acc = _scalar(float("inf"), dev)
-    lam = _scalar(1e-3, dev)
-    inlier = mean_r = _scalar(0.0, dev)
-    it, step = 0, 1.0
+    lv = _StaticLevel(T0, depth, ref_vertex, ref_normal, cam, n_iters, rotation_only,
+                      ref_pose_inv, space_thresh, tukey_c)
+    it, step = 1, float(lv.step)  # the one read-back of an iteration
     while it < n_iters and step > _STEP_EXIT:
-        Hm, g, err, inlier, mean_r = _gn_system(
-            T, pts_cam, has_depth, ref_vertex, ref_normal, cam, ref_pose_inv,
-            space_thresh, tukey_c, rot_mask, n_pix)
-        T, T_acc, H_acc, g_acc, err_acc, lam, step_t = _lm_step(
-            T, T_acc, Hm, H_acc, g, g_acc, err, err_acc, lam, it == 0, eye6, 1e-6)
+        lv.iterate()
         it += 1
-        step = float(step_t)  # the one read-back of the iteration
-    return T_acc, inlier, mean_r, it
+        step = float(lv.step)
+    T, inlier, mean_r, _ = lv.result()
+    return T, inlier, mean_r, it
 
 
 class _StaticLevel:
-    """One level of `track_pyramid_static`: its inputs and the state its
-    Gauss-Newton loop carries, allocated before the loop and updated in
-    place by `iterate`: T, T_acc, H_acc, g_acc, err_acc, lam, step, inlier
-    and mean_r in one f32 buffer, the iterations run `n_run` (0-d int64)
-    and the loop's test `more` (0-d bool: `n_run < n_iters` and the last
-    step above the exit, the JAX `cond`).  Iteration 0 runs when the level
-    is made (its step starts above the exit)."""
-
-    _FIELDS = (("T", (4, 4)), ("T_acc", (4, 4)), ("H_acc", (6, 6)), ("g_acc", (6,)),
-               ("err_acc", ()), ("lam", ()), ("step", ()), ("inlier", ()), ("mean_r", ()))
+    """One Gauss-Newton level: its inputs and the state its loop carries,
+    allocated before the loop and updated in place by `iterate`
+    (`icp_gn.iterate`: `icp_gn_cuda` on the card, its plain version on the
+    CPU): T, T_acc, H_acc, g_acc, err_acc, lam, step, inlier and mean_r in
+    one f32 buffer (`icp_gn.FIELDS`), the iterations run `n_run` (0-d
+    int64) and the loop's test `more` (0-d bool: `n_run < n_iters` and the
+    last step above the exit, the JAX `cond`).  Iteration 0 runs when the
+    level is made (its step starts above the exit).  Both routes run it:
+    the eager `_track_level` reads `step` back after each iteration,
+    `_track_level_static` reads nothing."""
 
     def __init__(self, T0, depth, ref_vertex, ref_normal, cam, n_iters: int,
                  rotation_only: bool, ref_pose_inv, space_thresh, tukey_c):
         dev = depth.device
         h, w = depth.shape
-        self.pts_cam, self.has_depth = _level_points(depth, cam)
-        self.refs = (ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c)
-        self.n_pix = _scalar(h * w, dev)
-        self.eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-        self.rot_mask = _rotation_mask(dev) if rotation_only else None
-        self.n_iters = n_iters
+        self.inputs = (depth.contiguous(), ref_vertex.contiguous(), ref_normal.contiguous(),
+                       cam, ref_pose_inv, space_thresh, tukey_c, rotation_only, n_iters,
+                       _STEP_EXIT)
         self.state = torch.cat([
-            T0.reshape(-1), T0.reshape(-1), self.eye6.reshape(-1),
+            T0.reshape(-1), T0.reshape(-1),
+            torch.eye(6, dtype=torch.float32, device=dev).reshape(-1),
             torch.zeros(6, dtype=torch.float32, device=dev),
             _vector((float("inf"), 1e-3, 0.0, 0.0, 0.0), dev)])
         at = 0
-        for name, shape in self._FIELDS:
+        for name, shape in icp_gn.FIELDS:
             n = int(np.prod(shape))
             setattr(self, name, self.state[at:at + n].view(shape))
             at += n
         self.n_run = torch.zeros((), dtype=torch.int64, device=dev)
         self.more = torch.zeros((), dtype=torch.bool, device=dev)
+        self.partials = icp_gn.partials_buffer(h * w, dev) if dev.type == "cuda" else None
         self.iterate(first=True)
 
     def iterate(self, active: torch.Tensor | None = None, first: bool = False) -> None:
         """One Gauss-Newton iteration on the carried state, in place: taken
-        whole (iteration 0, or the body of a WHILE node, which runs only
-        while `more` holds), or with every update masked by the 0-d bool
-        `active` (the unrolled loop); then `more` anew."""
-        ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c = self.refs
-        Hm, g, err, inl, mr = _gn_system(
-            self.T, self.pts_cam, self.has_depth, ref_vertex, ref_normal, cam,
-            ref_pose_inv, space_thresh, tukey_c, self.rot_mask, self.n_pix)
-        T_new, T_ref, H_ref, g_ref, err_ref, lam_new, step = _lm_step(
-            self.T, self.T_acc, Hm, self.H_acc, g, self.g_acc, err, self.err_acc,
-            self.lam, first, self.eye6, 1e-6)
-        new = torch.cat([T_new.reshape(-1), T_ref.reshape(-1), H_ref.reshape(-1), g_ref,
-                         torch.stack([err_ref, lam_new, step, inl, mr])])
-        if active is None:
-            self.state.copy_(new)
-            self.n_run.add_(1)
-        else:
-            self.state.copy_(torch.where(active, new, self.state))
-            self.n_run.add_(active.to(torch.int64))
-        torch.logical_and(self.n_run < self.n_iters, self.step > _STEP_EXIT, out=self.more)
+        whole (iteration 0, an eager iteration, or the body of a WHILE
+        node, which runs only while `more` holds), or with every update
+        masked by the 0-d bool `active` (the unrolled loop); then `more`
+        anew."""
+        icp_gn.iterate(*self.inputs, self.state, self.n_run, self.more, self.partials,
+                       active, first)
 
     def result(self) -> tuple:
         """(T, inlier, mean_r, n_run) as `_track_level` returns them."""

@@ -59,7 +59,6 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..parallel import spatial
-from ..utils import graph_while
 from ..utils.se3 import bilateral_filter_depth
 from . import integrate, raycast_tiles
 from .volume import TsdfParams, TsdfVolume
@@ -119,20 +118,17 @@ def _fuse_gt_frame(vol, n_blocks, depth, rgb, c2w, *, K, bilateral) -> dict:
                                                      n_blocks, bilateral)}
 
 
-def _warm_solver(buf: dict, statics: dict) -> None:
-    """The first calls of the solver and of the matrix products on a
-    stream make their library handles and cuBLAS's workspace for that
-    stream, which a graph cannot capture: make them before the tracked
-    frame's capture, on the current stream and on the stream of the WHILE
-    nodes' bodies, where the Gauss-Newton iterations after each level's
-    first are captured."""
-    dev = buf["depth"].device
-    for stream in (torch.cuda.current_stream(dev), graph_while.body_stream(dev)):
-        with torch.cuda.stream(stream):
-            torch.linalg.solve_ex(torch.eye(6, device=dev), torch.ones(6, device=dev))
-            for dtype in (torch.float32, torch.float64):
-                x = torch.ones((8, 6), dtype=dtype, device=dev)
-                x.T @ x
+def _before_tracked_capture(buf: dict, statics: dict) -> None:
+    """What the tracked frame's capture needs made first, which a graph
+    cannot capture: the cuBLAS handle of the f32 matrix products (the
+    tracking-prepare raycast's block binning), made by their first call,
+    and the Gauss-Newton kernel `icp_gn_cuda` loaded (the WHILE bodies and
+    each level's first iteration launch nothing else)."""
+    from ..slam import icp_gn
+
+    x = torch.ones((8, 6), dtype=torch.float32, device=buf["depth"].device)
+    x.T @ x
+    icp_gn.load()
 
 
 class TsdfEngine:
@@ -197,7 +193,7 @@ class TsdfEngine:
             from ..slam.megastep import GraphCache
 
             self._fusion_graphs = GraphCache(_fuse_gt_frame)
-            self._track_graphs = GraphCache(track_fuse_step, prepare=_warm_solver)
+            self._track_graphs = GraphCache(track_fuse_step, prepare=_before_tracked_capture)
         self.swap = None
         self.swap_check_interval = int(tpu.swap_check_interval)
         if tpu.enable_swapping:

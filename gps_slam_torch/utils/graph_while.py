@@ -20,9 +20,10 @@ allocator): nothing but a WHILE body allocates from it.  The bodies of
 all graphs share it, which is safe because a body's temporaries are dead
 once its pass ends and the graphs replay one at a time on one stream; so
 the body must write what outlives a pass into tensors allocated before
-the loop.  The library handles that the body needs (cuBLAS's workspace
-on the body stream) are made before the capture
-(`tsdf/engine._warm_solver`).
+the loop.  A body launches hand-written kernels only (the tracker's
+`icp_gn_cuda`, loaded before the capture by
+`tsdf/engine._before_tracked_capture`): no library handle is made inside
+it.
 """
 
 from __future__ import annotations

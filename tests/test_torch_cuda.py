@@ -512,11 +512,13 @@ def test_raycast_cuda_tracking_mode_dense_and_no_negative(tracking_fixture, mips
 
 @pytest.mark.cuda
 def test_wrappers_never_read_back(cuda_device, fused):
-    """The K1, K2 and K3 wrappers (K3 also in its tracking mode) launch under
+    """The K1, K2 and K3 wrappers (K3 also in its tracking mode) and the
+    tracker's Gauss-Newton iteration (`icp_gn_cuda`) launch under
     torch.cuda.set_sync_debug_mode("error"): none of them copies a CUDA
     tensor to the host or otherwise waits on the card (the pose goes to
     the kernels as a device pointer)."""
     from gps_slam_torch import kernels
+    from gps_slam_torch.slam import tracker as ttrk
 
     vol, cams = fused
     vol = _to(vol, cuda_device)
@@ -528,6 +530,14 @@ def test_wrappers_never_read_back(cuda_device, fused):
     valid = torch.ones(n, dtype=torch.bool, device=cuda_device)
     margs = _march_args(vol, cams[2], 16, 6, 2, True, cuda_device)
     kernels.build_all()
+    # a tracking level: frame 3's depth against frame 2's camera rays
+    c2w = torch.as_tensor(cams[2].c2w, device=cuda_device)
+    rays = torch.as_tensor(cams[2].depth, device=cuda_device).expand(-1, -1, 3).contiguous()
+    lv = ttrk._StaticLevel(torch.as_tensor(cams[3].c2w, device=cuda_device), d, rays, rays,
+                           torch.as_tensor(ttrk._level_cam(cams[3].K, 0, True),
+                                           device=cuda_device),
+                           50, False, pose_inv(c2w), ttrk._scalar(0.015, cuda_device),
+                           ttrk._scalar(0.02, cuda_device))
     kernels.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -539,12 +549,15 @@ def test_wrappers_never_read_back(cuda_device, fused):
                               d.shape[1], d.shape[0], vs, mu, max_w)
         trc.march(*margs)
         trc.march(*margs, track=True)
+        lv.iterate()
+        lv.iterate(active=lv.more)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
                                 "raycast_cuda": 2, "splat_fwd_cuda": 0,
-                                "splat_bwd_cuda": 0, "graph_while_cuda": 0}
+                                "splat_bwd_cuda": 0, "graph_while_cuda": 0,
+                                "icp_gn_cuda": 2}
 
 
 @pytest.mark.cuda
@@ -1568,8 +1581,6 @@ def test_fixed_shape_bodies_never_synchronise(cuda_device, route, monkeypatch):
                   ray=(c.width, c.height, p.raycast_lb, p.raycast_samples,
                        max(p.raycast_bisect, 3)), prefix=p.block_capacity)
         e._n_blocks_dev.fill_(e.vol.n_blocks)
-        torch.linalg.solve_ex(torch.eye(6, device=cuda_device),
-                              torch.ones(6, device=cuda_device))
         run = lambda: teng.track_fuse_step(*args, **kw)["pose"]
     else:
         cams = synthetic.make_cameras(n_frames=2, width=128, height=96)
@@ -1642,7 +1653,7 @@ def test_tracked_pyramid_while_nodes_replay_equal_uncaptured(cuda_device):
     depths = [torch.as_tensor(cams[k].depth[..., 0], device=dev) for k in (1, 2)]
     kernels.build_all()
     T_buf, d_buf = c2w.clone(), depths[0].clone()
-    teng._warm_solver({"depth": d_buf}, {})
+    teng._before_tracked_capture({"depth": d_buf}, {})
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with graph_while.capture(g) as cap:
@@ -1663,3 +1674,120 @@ def test_tracked_pyramid_while_nodes_replay_equal_uncaptured(cuda_device):
         runs.append(eager)
     assert all(n < b for n, b in zip(runs[0], budgets)), runs
     assert any(n == b for n, b in zip(runs[1], budgets)), runs
+
+
+# ------------------------------------- icp_gn_cuda, the Gauss-Newton iteration
+
+@pytest.fixture(scope="module")
+def icp_levels(cuda_device):
+    """The 4 pyramid levels of one tracking step at 1200x680 on the card
+    (tests/test_torch_tracking.py's `ref_maps` at the tracked path's size:
+    frame 0's world vertices and normals, frame 1's depth, frame 1's pose
+    perturbed by a small twist): each level's `_track_level` arguments."""
+    from gps_slam_torch.slam import tracker as ttrk
+    from gps_slam_torch.utils import se3 as tse3
+
+    dev = cuda_device
+    # two frames at the per-frame motion of the 16-frame arc-0.025 fixture
+    a, b = synthetic.make_cameras(n_frames=2, width=1200, height=680, look="in",
+                                  arc=0.025 / 8)
+    vm = tse3.compute_vertex_map(torch.as_tensor(a.depth[..., 0], device=dev),
+                                 a.fx, a.fy, a.cx, a.cy)
+    nm = tse3.compute_normal_map(vm)
+    ok = vm[..., 2:3] > 0
+    c2w = torch.as_tensor(a.c2w, device=dev)
+    vw = torch.where(ok, vm @ c2w[:3, :3].T + c2w[:3, 3], 0.0).contiguous()
+    nw = torch.where(ok, nm @ c2w[:3, :3].T, 0.0).contiguous()
+    twist = torch.tensor([0.004, -0.003, 0.006, 0.004, -0.006, 0.003], device=dev)
+    T0 = (tse3.se3_exp(twist) @ torch.as_tensor(b.c2w, device=dev)).contiguous()
+    rpi = pose_inv(c2w)
+    d = torch.as_tensor(b.depth[..., 0], device=dev)
+    levels = []
+    for lvl in range(4):
+        cam = torch.as_tensor(ttrk._level_cam(a.K, lvl, True), device=dev)
+        levels.append((T0, d, vw, nw, cam, ttrk.LEVEL_ITERS[lvl],
+                       lvl >= ttrk.ROTATION_ONLY_FROM_LEVEL, rpi,
+                       ttrk._scalar(ttrk.SPACE_THRESH[lvl], dev),
+                       ttrk._scalar(ttrk.TUKEY_C[lvl], dev)))
+        d = ttrk._subsample_depth(d)
+    return levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_icp_gn_cuda_matches_plain(icp_levels, lvl):
+    """`icp_gn_cuda` against its plain version on the card, on the state
+    its iteration 0 left at each level of a 1200x680 tracking step, in
+    both rotation modes, with `first` true and false and `active` absent,
+    true and false: the new state (the system H, g, err, inlier share and
+    mean residual; T, T_acc, lam, step), the iteration count and the loop's
+    test bit for bit; the per-CTA rows bit for bit with `cta_rows` of the
+    plain terms, the CTAs' count back at 0; a second launch the same bits;
+    a masked launch changes nothing."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import icp_gn
+    from gps_slam_torch.slam import tracker as ttrk
+
+    T0, d, vw, nw, cam, budget, rot, rpi, st, tc = icp_levels[lvl]
+    lv = ttrk._StaticLevel(T0, d, vw, nw, cam, budget, rot, rpi, st, tc)
+    n0 = kernels.ICP_GN.launches
+    for rot_mode in (rot, not rot):
+        inputs = (d, vw, nw, cam, rpi, st, tc, rot_mode, budget, ttrk._STEP_EXIT)
+        pts, has_depth = icp_gn.level_points(d, cam)
+        x = icp_gn.terms(lv.T, pts, has_depth, vw, nw, cam, rpi, st, tc, rot_mode)
+        rows = icp_gn.cta_rows(x)
+        for first in (True, False):
+            for active in (None, True, False):
+                flag = None if active is None else torch.tensor(active, device=d.device)
+                runs = []
+                for how in ("cuda", "cuda", "plain"):
+                    s, n, m = lv.state.clone(), lv.n_run.clone(), lv.more.clone()
+                    p = lv.partials.clone()
+                    p[:-1].fill_(float("nan"))
+                    if how == "cuda":
+                        icp_gn.iterate(*inputs, s, n, m, p, flag, first)
+                    else:
+                        icp_gn.iterate_plain(*inputs, s, n, m, flag, first)
+                    runs.append((s, n, m, p))
+                torch.cuda.synchronize()
+                (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
+                case = (rot_mode, first, active)
+                for a_, b_ in ((s1, s3), (n1, n3), (m1, m3), (s1, s2), (n1, n2), (m1, m2)):
+                    assert torch.equal(a_, b_), case
+                if active is False:
+                    assert torch.equal(s1, lv.state) and torch.equal(n1, lv.n_run), case
+                else:
+                    assert torch.equal(p1[:-1].view(icp_gn.N_TERMS, -1).T, rows), case
+                    assert torch.equal(p1, p2) and int(n1) == int(lv.n_run) + 1, case
+                    assert float(p1[-1]) == 0.0, case
+    assert kernels.ICP_GN.launches - n0 == 2 * 2 * 3 * 2
+    with pytest.raises(ValueError):   # an f64 state
+        icp_gn.iterate(*inputs, lv.state.double(), lv.n_run, lv.more, lv.partials)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lvl", [0, 3])
+def test_icp_gn_while_level_runs_the_eager_iterations(icp_levels, lvl):
+    """One level of the 1200x680 step captured as its WHILE node
+    (`_track_level_static` in `graph_while.capture`) and replayed: the
+    estimate, inlier share, residual and iteration count bit for bit with
+    the eager loop (`_track_level`, one read-back an iteration), which
+    exits before the budget; the node's body holds the kernel's launch and
+    the node's set kernel."""
+    from gps_slam_torch.slam import tracker as ttrk
+    from gps_slam_torch.utils import graph_while
+
+    args = icp_levels[lvl]
+    T, inl, mr, n = ttrk._track_level(*args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with graph_while.capture(g) as cap:
+        out = ttrk._track_level_static(*args)
+    nodes = graph_while.node_counts(g)
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    assert cap.while_nodes == nodes["conditional"] == 1 and cap.body_nodes == [2]
+    assert 1 < int(out[3]) == n < args[5]
+    for a_, b_ in zip(out[:3], (T, inl, mr)):
+        assert torch.equal(a_, b_)
