@@ -65,7 +65,17 @@ Phases (any failure exits non-zero before the final line):
      ran, and the CUDA versions; then `[tracking fixture]`: tests/test_tracking.py's
      three tracking fixtures at 160x120 (its fixture, the same at half
      the arc, its noisy stress fixture) on both routes, with that file's
-     gates;
+     gates; then `[color tracked path]`: the same 30 frames with
+     PIPE.TSDF.tracker.type composite (colour refine, then ICP), on the
+     eager route the JAX engine's gate gives it: the colour stage's ms per
+     frame, iterations per level, labels, inliers and residuals,
+     color_gn_cuda once per colour Gauss-Newton pass, icp_gn_cuda
+     launched, no torch.linalg solve or inverse in the colour stage, the
+     tracking-prepare raycast with colour at LB 16, and the tracked gates
+     and the 15 dB floor; `[color tracker fixture]`:
+     tests/test_tracking.py's colour test (160x120, the old view's exact
+     points and colours, a new rgb 2.2 cm away) on the card: not FAILED,
+     the translation error at most half the initial one;
   7. swap path: gt-pose `train` at 1200x680 on a full outward turn (40
      frames) with the block pool cut to 16,384 rows and host swapping on
      (check every 2 frames, waters 0.80 / 0.50): blocks spill and reload,
@@ -99,6 +109,8 @@ Phases (any failure exits non-zero before the final line):
      from the host (equal pass counts), ms per pass of each; icp_gn_cuda
      on the tracked path's last frame at pyramid level 0 and level 3
      (the state its loop ended with), bit for bit with its plain version;
+     color_gn_cuda likewise on the colour tracked path's last frame, and
+     K3's tracking mode on that path's last prepare call (with colour);
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -113,7 +125,11 @@ Phases (any failure exits non-zero before the final line):
      loop at 128x96 (8 frames, look="in") on the card and the CPU in
      lockstep (the card fuses at the CPU's poses): equal quality labels,
      each frame's estimates within 1 voxel and 0.1 degree, all but one
-     within 1 mm; `[reference chunked]`: the fusion fixtures through the
+     within 1 mm; `[reference color tracked]`: the same loop with the
+     composite tracker, the card's trackers also run on the CPU engine's
+     maps: equal labels of both stages, on the same maps equal colour
+     iterations per level, each frame within 1 voxel and 0.1 degree;
+     `[reference chunked]`: the fusion fixtures through the
      chunk route (a capture and 5 replays on the card) on both devices,
      with the gates above; `[tracked megastep reference]`: 4 tracked
      frames at 128x96 through the megastep's graph (a capture, 2
@@ -426,7 +442,8 @@ def bench_config(n_frames: int, width: int, height: int, cam0,
 
 class Recorder:
     """Keeps the arguments of the last call of each kernel wrapper (of
-    `icp_gn.iterate`, one per pyramid level size)."""
+    `icp_gn.iterate` and `color_gn.iterate`, one per pyramid level
+    size)."""
 
     def __init__(self):
         from gps_slam_torch.gs import rasterize as trz
@@ -443,16 +460,18 @@ class Recorder:
                 return _orig(*args, **kw)
 
             setattr(mod, name, wrap)
-        from gps_slam_torch.slam import icp_gn
+        from gps_slam_torch.slam import color_gn, icp_gn
 
-        iterate = icp_gn.iterate
+        # one entry per level size: ("icp_gn", (h, w)) of the depth,
+        # ("color_gn", (h, w)) of the image
+        for mod, name, image in ((icp_gn, "icp_gn", 0), (color_gn, "color_gn", 3)):
+            iterate = mod.iterate
 
-        def gn_wrap(*args, **kw):
-            # one entry per level size: ("icp_gn", (h, w))
-            self.last[("icp_gn", tuple(args[0].shape))] = (args, kw)
-            return iterate(*args, **kw)
+            def gn_wrap(*args, _iterate=iterate, _name=name, _image=image, **kw):
+                self.last[(_name, tuple(args[_image].shape[:2]))] = (args, kw)
+                return _iterate(*args, **kw)
 
-        icp_gn.iterate = gn_wrap
+            mod.iterate = gn_wrap
 
 
 def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
@@ -467,7 +486,8 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
 
 def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
              shards: int = 1, tpu: dict | None = None, megastep: bool = True,
-             extras: dict | None = None, fast_track: bool = True):
+             extras: dict | None = None, fast_track: bool = True,
+             tracker: str | None = None):
     """Drive the train loop with `iters` Adam steps per window over `cams`,
     then the eval render, with every kernel count set to 0 just before and
     read just after; check the output and return the numbers of the
@@ -478,8 +498,10 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     seeded with its gt pose): each later frame the tracked megastep (a
     CUDA graph: track, revert, fuse, prepare raycast), or with
     `fast_track` False the eager route (the tracker timed apart from
-    fusion).  Gt-pose fusion runs in `_fusion_groups` groups (each frame a
-    replay of the fusion frame's graph) unless TPU.fuse_chunk is 1, shards
+    fusion); `tracker` sets PIPE.TSDF.tracker.type (a composite tracker
+    takes the eager route, as the JAX engine's gate says).  Gt-pose
+    fusion runs in `_fusion_groups` groups (each frame a replay of the
+    fusion frame's graph) unless TPU.fuse_chunk is 1, shards
     or swapping make it per frame: `fusion_route`.  `swap` (TPU
     settings) turns host swapping on, instrumented by `SwapStats`.  With
     `shards` > 1 the pool splits into that many space shards
@@ -505,6 +527,8 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     if tracked is not None:
         d["PIPE"]["TSDF"]["use_gt_pose"] = False
         d["TPU"]["visible_block_capacity"] = TRACKED_VISIBLE_CAP
+        if tracker is not None:
+            d["PIPE"]["TSDF"]["tracker"] = {"type": tracker}
     d["TPU"].update(swap or {})
     d["TPU"].update(tpu or {})
     if shards > 1:
@@ -750,15 +774,40 @@ class TrackedStats:
     inputs and the replay, synchronised).  Keeps the arguments of the last prepare
     `march` call as `rec.last["tracking prepare"]` (on the megastep route
     those of the call recorded at the graph's capture, whose tensors hold
-    the last replay's values)."""
+    the last replay's values).  With a composite tracker (colour refine,
+    then ICP: eager) it also times the colour stage apart and keeps its
+    labels, inlier shares, residuals and iterations per level; `iters`
+    are the ICP stage's."""
 
     def __init__(self, engine, tracker, rec):
         from gps_slam_torch import kernels
+        from gps_slam_torch.slam.tracker import ColorTracker
 
         self.track_ms = self.prepare_ms = self.megastep_ms = 0.0
         self.prepare_k3 = 0
         self.quality, self.iters, self.frame_ms = [], [], []
         self.graph_ms = {"capture": [], "replay": []}
+        stages = getattr(tracker, "trackers", [tracker])
+        self.icp = stages[-1]
+        self.color = next((t for t in stages if isinstance(t, ColorTracker)), None)
+        self.color_log = {"ms": [], "quality": [], "inlier": [], "residual": [], "iters": []}
+        if self.color is not None:
+            color_track = self.color.track
+
+            def timed_color(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                pose, q = color_track(*a, **kw)
+                torch.cuda.synchronize()
+                log_ = self.color_log
+                log_["ms"].append((time.monotonic() - t) * 1e3)
+                log_["quality"].append(q)
+                log_["inlier"].append(self.color.last_inlier)
+                log_["residual"].append(self.color.last_residual)
+                log_["iters"].append(list(self.color.last_iters))
+                return pose, q
+
+            self.color.track = timed_color
         track, run_raycast = tracker.track, engine.run_raycast
         process = engine.process_frame
         fast = engine._process_frame_fast_tracked
@@ -780,7 +829,7 @@ class TrackedStats:
             torch.cuda.synchronize()
             self.track_ms += (time.monotonic() - t) * 1e3
             self.quality.append(q)
-            self.iters.append(list(tracker.last_iters))
+            self.iters.append(list(self.icp.last_iters))
             return pose, q
 
         def timed_prepare(*a, **kw):
@@ -802,7 +851,7 @@ class TrackedStats:
             self.prepare_k3 += (kernels.RAYCAST.launches
                                 + graphs.replayed_launches[kernels.RAYCAST.name] - n0)
             self.quality.append(engine._tracking_quality)
-            self.iters.append(list(tracker.last_iters))
+            self.iters.append(list(self.icp.last_iters))
             if graphs.last[1] == "capture":
                 rec.last["tracking prepare"] = rec.last["march"]
             return pose
@@ -832,6 +881,21 @@ class TrackedStats:
         n = len(self.quality)
         g = self.graphs
         mega = g.captures + g.replays > 0
+        labels = lambda qs: {name: sum(q == v for q in qs) for name, v in (  # noqa: E731
+            ("GOOD", TrackerQuality.GOOD), ("POOR", TrackerQuality.POOR),
+            ("FAILED", TrackerQuality.FAILED))}
+        cl = self.color_log
+        color = None if self.color is None else {
+            # the colour stage of each tracked frame (its pyramid, Sobel
+            # and Gauss-Newton levels, one read a pass and the final one)
+            "ms_per_frame": spread_ms(cl["ms"]),
+            "ms_total": float(np.sum(cl["ms"])),
+            "iters_per_frame": cl["iters"],
+            "iters_mean_per_level": [float(v) for v in np.mean(cl["iters"], 0)],
+            "iters_total": int(np.sum(cl["iters"])),
+            "iters_budget_per_level": list(self.color.level_iters),
+            "quality": labels(cl["quality"]),
+            "inlier": cl["inlier"], "residual": cl["residual"]}
         return {
             "tracked_frames": n,
             "tracking_route": "megastep" if mega else "eager",
@@ -853,10 +917,9 @@ class TrackedStats:
             "gn_iters_mean_per_level": [float(v) for v in np.mean(self.iters, 0)],
             # the Gauss-Newton iterations the card ran, all levels and frames
             "gn_iters_total": int(np.sum(self.iters)),
-            "gn_iters_budget_per_level": list(self.engine._tracker.level_iters),
-            "quality": {name: sum(q == v for q in self.quality) for name, v in (
-                ("GOOD", TrackerQuality.GOOD), ("POOR", TrackerQuality.POOR),
-                ("FAILED", TrackerQuality.FAILED))},
+            "gn_iters_budget_per_level": list(self.icp.level_iters),
+            "quality": labels(self.quality),
+            "color_stage": color,
             "ate_cm": M.ate_rmse_cm(est, gt),
             "last_translation_err_cm": float(np.linalg.norm(est[-1][:3, 3] - gt[-1][:3, 3]) * 100),
             "last_rotation_err_deg": float(np.degrees(np.arccos(np.clip(
@@ -1738,17 +1801,16 @@ def reference_phase() -> dict:
     return res
 
 
-def tracked_path(args, rec) -> tuple[dict, tuple]:
-    """The tracked path at 1200x680 (phase 6): the tracked megastep, then
-    the same frames on the eager route as its witness (`_can_fast_track`
-    off on that engine alone); both held to the path's gates.  Returns the
-    megastep run's line numbers and `k3_row`'s arguments for its last
-    tracking-prepare call (launches: the prepare raycasts';
-    `launches_path`: every K3 launch of the path)."""
+def tracked_path(args, rec, cams) -> tuple[dict, tuple]:
+    """The tracked path at 1200x680 (phase 6) on `cams`: the tracked
+    megastep, then the same frames on the eager route as its witness
+    (`_can_fast_track` off on that engine alone); both held to the path's
+    gates.  Returns the megastep run's line numbers and `k3_row`'s
+    arguments for its last tracking-prepare call (launches: the prepare
+    raycasts'; `launches_path`: every K3 launch of the path)."""
     from gps_slam_torch import kernels
     from gps_slam_torch.utils import graph_while
 
-    cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
     out, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
                          tracked=rec)
     call = rec.last["tracking prepare"]
@@ -1838,6 +1900,100 @@ def tracked_path(args, rec) -> tuple[dict, tuple]:
                  ("tracking prepare, 1200x680, the TPU kernel's semantics at k_blocks 1",
                   parent, 0, {"comparison": "the prepare call before the tracking mode, "
                                             "on the same inputs; not launched on the path"})]
+
+
+def color_tracked_path(args, rec, cams) -> tuple[dict, list, list]:
+    """`[color tracked path]` (phase 6b): the tracked path's frames and
+    config (1200x680, inward orbit, arc TRACKED_ARC, raycast LB 16, 2
+    windows x 20 Adam steps) with PIPE.TSDF.tracker.type composite: each
+    frame the colour tracker refines the pose (its pyramid and Sobel, then
+    one `color_gn_cuda` launch and one 4-byte read a Gauss-Newton pass),
+    then ICP (`icp_gn_cuda`), on the eager route the JAX engine's gate
+    gives a tracker that is not device-pure; the tracking-prepare raycast
+    (K3's tracking mode) carries colour.  Held to the tracked path's gates
+    (ATE, last pose, GOOD share, 15 dB), both kernels launched, no
+    torch.linalg solve or inverse inside the colour stage.  Returns the
+    line's numbers, `k3_row`'s arguments for the last prepare call and
+    `color_gn_row`'s for the last frame's finest and coarsest levels."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import tracker as ttrk
+    from gps_slam_torch.tsdf import raycast_tiles as trc
+
+    # count torch.linalg's solves and inverses while the colour stage runs
+    in_color, linalg_calls = [False], [0]
+    color_track = ttrk.ColorTracker.track
+
+    def flagged(self, *a, **kw):
+        in_color[0] = True
+        try:
+            return color_track(self, *a, **kw)
+        finally:
+            in_color[0] = False
+
+    names = ("solve", "solve_ex", "inv", "inv_ex", "lstsq", "cholesky", "lu_factor")
+    saved = {name: getattr(torch.linalg, name) for name in names}
+
+    def counted(fn):
+        def wrap(*a, **kw):
+            linalg_calls[0] += in_color[0]
+            return fn(*a, **kw)
+        return wrap
+
+    ttrk.ColorTracker.track = flagged
+    for name, fn in saved.items():
+        setattr(torch.linalg, name, counted(fn))
+    try:
+        out, _, _ = run_path(args, cams, ADAM_STEPS, "color tracked path", kernels.INTEGRATE,
+                             tracked=rec, tracker="composite")
+    finally:
+        ttrk.ColorTracker.track = color_track
+        for name, fn in saved.items():
+            setattr(torch.linalg, name, fn)
+    cs = out["color_stage"]
+    res = {"frames": out["frames"], "width": out["width"], "height": out["height"],
+           "tracker": "composite", "route": out["tracking_route"],
+           "raycast_lb": out["raycast_lb"],
+           "color_stage_ms_per_frame": cs["ms_per_frame"],
+           "color_stage_ms_total": cs["ms_total"],
+           "color_iters_per_frame": cs["iters_per_frame"],
+           "color_iters_mean_per_level": cs["iters_mean_per_level"],
+           "color_iters_budget_per_level": cs["iters_budget_per_level"],
+           "color_quality": cs["quality"], "color_inlier": cs["inlier"],
+           "color_residual": cs["residual"],
+           "tracking_ms_per_frame": out["tracking_ms_per_frame"],
+           "icp_iters_mean_per_level": out["gn_iters_mean_per_level"],
+           "quality": out["quality"],
+           "launches": {k.name: out["launches"][k.name]
+                        for k in (kernels.COLOR_GN, kernels.ICP_GN, kernels.RAYCAST)},
+           "linalg_calls_in_color_stage": linalg_calls[0],
+           "ate_cm": out["ate_cm"], "last_translation_err_cm": out["last_translation_err_cm"],
+           "last_rotation_err_deg": out["last_rotation_err_deg"],
+           "psnr_mean": out["psnr_mean"], "train_s": out["train_s"]}
+    log("[color tracked path] " + json.dumps(res))
+    if out["tracking_route"] != "eager":
+        raise RuntimeError(f"color tracked path: route {out['tracking_route']}, not eager")
+    if (out["launches"][kernels.COLOR_GN.name] != cs["iters_total"]
+            or out["launches"][kernels.ICP_GN.name] <= 0):
+        raise RuntimeError(f"color tracked path: launches {res['launches']} for "
+                           f"{cs['iters_total']} colour Gauss-Newton passes")
+    if linalg_calls[0]:
+        raise RuntimeError(f"color tracked path: {linalg_calls[0]} torch.linalg calls in the "
+                           "colour stage")
+    call = rec.last["tracking prepare"]
+    a, kw = call
+    need_color = a[10] if len(a) > 10 else kw.get("need_color", True)
+    track = a[11] if len(a) > 11 else kw.get("track", False)
+    if not (need_color and track and a[9] == trc.TRACK_K_BLOCKS and a[0].shape[1] == 16):
+        raise RuntimeError("the colour path's tracking-prepare raycast did not run in the "
+                           f"tracking mode at k_blocks {trc.TRACK_K_BLOCKS}, LB 16, "
+                           "with colour")
+    n = out["launches"][kernels.COLOR_GN.name]
+    gn_calls = [(f"level {lvl}, {1200 >> lvl}x{680 >> lvl}",
+                 rec.last[("color_gn", (680 >> lvl, 1200 >> lvl))], n) for lvl in (0, 3)]
+    k3 = [("tracking prepare with colour, 1200x680, color tracked path", call,
+           out["tracking_prepare_k3_launches"],
+           {"launches_path": out["launches"][kernels.RAYCAST.name]}, True)]
+    return res, k3, gn_calls
 
 
 # f32 and f64 operations of icp_gn_cuda's first kernel a pixel, counted
@@ -1940,6 +2096,166 @@ def icp_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) 
     if not ok:
         raise RuntimeError(f"icp_gn_cuda disagrees with its plain version: {row}")
     return row
+
+
+# f32 and f64 operations of color_gn_cuda a point, counted from its
+# expressions: the camera point and projection (~30), three 4-corner
+# bilinear reads of 3 channels (~80 each), the residual, the projection
+# Jacobians and their cross products (~40), J over 3 channels x 6 (54);
+# the 36 + 6 entries of the system summed over 3 channels in f64 (~210),
+# conversions and the sums' adds (~90)
+COLOR_GN_F32_OPS, COLOR_GN_F64_OPS = 390, 300
+
+
+def color_gn_texels(pts, rgb, cam, M) -> int:
+    """The image pixels that one colour pass reads in each of its three
+    images: the 4 bilinear corners of every point's projection (the plain
+    version's arithmetic), distinct."""
+    from gps_slam_torch.slam import icp_gn
+
+    h, w = rgb.shape[:2]
+    pc = icp_gn._affine(M, *pts.unbind(1))
+    z = torch.clamp(pc[2], min=1e-6)
+    u = torch.clamp(cam[0] * pc[0] / z + cam[2], 0.0, w - 1.0).floor().long()
+    v = torch.clamp(cam[1] * pc[1] / z + cam[3], 0.0, h - 1.0).floor().long()
+    u1, v1 = torch.clamp(u + 1, max=w - 1), torch.clamp(v + 1, max=h - 1)
+    idx = torch.cat([v * w + u, v * w + u1, v1 * w + u, v1 * w + u1])
+    return int(torch.unique(idx).numel())
+
+
+def color_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) -> dict:
+    """color_gn_cuda against its plain version on one recorded
+    `color_gn.iterate` call: its level's inputs and the state the level
+    carried at the end of the path's last frame.  The new state (M, M_acc,
+    err, lam, step, inlier share, residual), the iteration count and the
+    loop's test bit for bit; the per-CTA rows bit for bit with `cta_rows`
+    of the plain terms; a second launch the same bits.  `ms` times the
+    launch from the same state each time (restored outside the events).
+    The bound: the points, colours and flags, the three images' pixels
+    the pass reads (each once), the state and the CTAs' rows;
+    COLOR_GN_F32_OPS and COLOR_GN_F64_OPS a point."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import color_gn, icp_gn
+
+    a, kw = call
+    inputs = a[:10]
+    pts, col, valid, rgb, gx, gy, cam, rot = inputs[:8]
+    state, n_run, more, partials = a[10:14]
+    first = bool(kw.get("first", False))
+    s0, r0, m0 = state.clone(), n_run.clone(), more.clone()
+    runs = []
+    for how in ("cuda", "cuda", "plain"):
+        s, n, m = s0.clone(), r0.clone(), m0.clone()
+        p = partials.clone()
+        p[:-1].fill_(float("nan"))
+        if how == "cuda":
+            color_gn.iterate(*inputs, s, n, m, p, first)
+        else:
+            color_gn.iterate_plain(*inputs, s, n, m, first)
+        runs.append((s, n, m, p))
+    rows = icp_gn.cta_rows(color_gn.terms(s0[:16].view(4, 4), *inputs[:7], rot))
+    torch.cuda.synchronize()
+    (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
+    ok = (torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(m1, m3)
+          and torch.equal(s1, s2) and torch.equal(p1, p2)
+          and torch.equal(p1[:-1].view(color_gn.N_TERMS, -1).T, rows))
+    # where the bits differ (an inf on both sides is equal)
+    max_err = float(torch.where(s1 == s3, 0.0, (s1 - s3).abs()).max().item())
+    s, n, m, p = s0.clone(), r0.clone(), m0.clone(), partials.clone()
+
+    def restore():
+        s.copy_(s0)
+        n.copy_(r0)
+        m.copy_(m0)
+
+    ms = time_ms(lambda: color_gn.iterate(*inputs, s, n, m, p, first), 50, before=restore)
+    plain_ms = time_ms(lambda: color_gn.iterate_plain(*inputs, s, n, m, first), 5, 1,
+                       before=restore)
+    h, w = rgb.shape[:2]
+    N, C = pts.shape[0], icp_gn.n_ctas(pts.shape[0])
+    texels = color_gn_texels(pts, rgb, cam, s0[:16].view(4, 4))
+    # points, colours and flags; the three images' pixels read (3 f32
+    # each); cam; the state in and out; the CTAs' rows out and in
+    n_bytes = (N * (12 + 12 + 1) + 3 * texels * 12 + 4 * 4 + 2 * color_gn.STATE_SIZE * 4
+               + 2 * C * color_gn.N_TERMS * 8)
+    b, by = bound_ms(n_bytes, N * COLOR_GN_F32_OPS, N * COLOR_GN_F64_OPS)
+    row = {"name": kernels.COLOR_GN.name + f" ({tag})", "tpu": None,
+           "design": kernels.COLOR_GN.design, "route": "cuda",
+           "source": "gps_slam_torch/csrc/color_gn.cu",
+           "replaces": "gps_slam_tpu/slam/tracker.py:322-380 (XLA)",
+           "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b, "bound_by": by, "library_ms": None, "ok": ok,
+           "bytes": n_bytes, "f32_ops": N * COLOR_GN_F32_OPS,
+           "f64_ops": N * COLOR_GN_F64_OPS,
+           "shapes": {"points": N, "image": [h, w], "texels_read": texels,
+                      "rotation_only": bool(rot), "ctas": C,
+                      "points_per_thread": icp_gn.PIX * icp_gn.rounds(N),
+                      "inliers": round(float(s1[35].item()) * N)},
+           "tolerance": "state, count, loop test and per-CTA rows bit for bit; "
+                        "a second launch the same bits",
+           **(extra or {})}
+    log("[kernel] " + json.dumps(row))
+    if not ok:
+        raise RuntimeError(f"color_gn_cuda disagrees with its plain version: {row}")
+    return row
+
+
+def color_tracker_fixture_phase() -> dict:
+    """`[color tracker fixture]`: tests/test_tracking.py's colour test
+    (test_color_tracker_converges: 160x120, the old view's exact world
+    points from compute_vertex_map and its colours as the maps, the new
+    rgb rendered 2.2 cm away) through ColorTracker on the card: not
+    FAILED, the translation error at most half the initial one (so its
+    accept steps moved the pose), `color_gn_cuda` launched once a pass;
+    beside it the same inputs on the CPU (pose difference printed)."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.slam import tracker as trk
+    from gps_slam_torch.utils import se3 as tse3
+
+    W, H = 160, 120
+    cams = synthetic.make_cameras(n_frames=2, width=W, height=H, look="in")
+    cam = cams[0]
+    cfg = Config.from_dict(small_config(cams, tracked=True))
+    true_pose = cam.c2w.copy()
+    true_pose[:3, 3] += np.array([0.012, 0.0, 0.018], np.float32)
+    rgb_new, _ = synthetic.render_frame(true_pose, W, H, cam.fx, cam.fy, cam.cx, cam.cy)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        vm = tse3.compute_vertex_map(torch.as_tensor(cam.depth[..., 0], device=dev),
+                                     cam.fx, cam.fy, cam.cx, cam.cy)
+        c2w = torch.as_tensor(cam.c2w, device=dev)
+        vw = (vm.reshape(-1, 3) @ c2w[:3, :3].T + c2w[:3, 3]).reshape(vm.shape)
+        maps = {"vertex_map": vw, "color_map": torch.as_tensor(cam.image, device=dev)}
+        tr = trk.ColorTracker(cfg, W, H)
+        n0 = kernels.COLOR_GN.launches
+        t = time.monotonic()
+        est, q = tr.track(cam.c2w, None, maps, cam.K,
+                          rgb=torch.as_tensor(rgb_new, device=dev))
+        res[dev] = {"quality": q, "est": est, "ms": (time.monotonic() - t) * 1e3,
+                    "iters": tr.last_iters, "inlier": tr.last_inlier,
+                    "residual": tr.last_residual,
+                    "launches": kernels.COLOR_GN.launches - n0}
+    err0 = float(np.linalg.norm(cam.c2w[:3, 3] - true_pose[:3, 3]))
+    card = res["cuda"]
+    out = {"width": W, "height": H, "quality": card["quality"],
+           "quality_cpu": res["cpu"]["quality"],
+           "translation_err_cm": {"before": err0 * 100, "after": float(np.linalg.norm(
+               card["est"][:3, 3] - true_pose[:3, 3])) * 100},
+           "iters_per_level": card["iters"], "iters_per_level_cpu": res["cpu"]["iters"],
+           "inlier": card["inlier"], "residual": card["residual"],
+           "color_gn_launches": card["launches"], "ms": card["ms"],
+           "pose_diff_card_cpu": float(np.abs(card["est"] - res["cpu"]["est"]).max()),
+           "gate": "not FAILED; translation error <= half the initial 2.2 cm; "
+                   "color_gn_cuda once a pass"}
+    log("[color tracker fixture] " + json.dumps(out))
+    err = out["translation_err_cm"]
+    if (card["quality"] == trk.TrackerQuality.FAILED
+            or not err["after"] <= 0.5 * err["before"]
+            or card["launches"] != sum(card["iters"]) or res["cpu"]["launches"] != 0):
+        raise RuntimeError(f"color tracker fixture: {out}")
+    return out
 
 
 def tracking_fixture_phase() -> dict:
@@ -2473,6 +2789,109 @@ def reference_tracked() -> dict:
     if not (res["labels_equal"] and res["max_pose_diff_mm"] < vox_mm
             and res["max_pose_diff_deg"] < 0.1 and res["frames_over_1mm"] <= 1):
         raise RuntimeError("the card's tracked loop disagrees with the CPU's")
+    return res
+
+
+def _stage_log(comp) -> list:
+    """Wraps each stage of a composite tracker to log (stage, label,
+    iterations per level) per call; returns the log."""
+    got = []
+    for t in comp.trackers:
+        def track(*a, _track=t.track, _t=t, **kw):
+            pose, q = _track(*a, **kw)
+            got.append((type(_t).__name__, q, list(_t.last_iters)))
+            return pose, q
+        t.track = track
+    return got
+
+
+def reference_color_tracked() -> dict:
+    """`[reference color tracked]`: the composite tracker (colour refine,
+    then ICP) on `[reference tracked]`'s loop (128x96, 8 frames, look="in",
+    2 cm voxels) on the card and on the CPU in lockstep: the card engine
+    fuses at the CPU engine's poses, and each frame the card's composite
+    tracks on the card's own maps and, beside it, on the CPU engine's maps
+    moved to the card (the same inputs, so only the trackers' devices
+    differ).  Gates: equal labels of both stages on both; on the same maps
+    the colour stage's iterations per level equal to the CPU's; each
+    frame's estimates within 1 voxel and 0.1 degree of the CPU's.  The
+    ICP stage's iterations are printed, not held: its se3_exp takes sin
+    and cos from each device's library, and an accept/reject on last bits
+    may then turn (one level of 28 did once, on the CPU's maps)."""
+    from gps_slam_torch.config import Config
+    from gps_slam_torch.data import synthetic
+    from gps_slam_torch.slam.tracker import make_tracker
+    from gps_slam_torch.tsdf.engine import TsdfEngine
+
+    W, H, N = 128, 96, 8
+    cams = synthetic.make_cameras(n_frames=N, width=W, height=H, look="in", arc=0.0125)
+    c0 = cams[0]
+    cfg = Config.from_dict(small_config(cams, tracked=True,
+                                        tsdf={"tracker": {"type": "composite"}}))
+    cpu = TsdfEngine(cfg, W, H, c0.K, device="cpu")
+    card = TsdfEngine(cfg, W, H, c0.K, device="cuda")
+    for e in (cpu, card):
+        e.set_gt_poses([c0.c2w])
+    cpu_trk, own_trk, same_trk = (make_tracker(cfg, W, H) for _ in range(3))
+    logs = {name: _stage_log(t) for name, t in (("cpu", cpu_trk), ("card", own_trk),
+                                                  ("card, CPU maps", same_trk))}
+    inputs, poses = [], {"card": [], "card, CPU maps": []}
+    cpu_track = cpu_trk.track
+
+    def keep(last_pose, depth, maps, K, rgb=None):
+        inputs.append((last_pose, depth, maps, rgb))
+        return cpu_track(last_pose, depth, maps, K, rgb=rgb)
+
+    cpu_trk.track = keep
+    cpu.attach_tracker(cpu_trk)
+
+    class Lockstep:
+        needs_color = True
+
+        def track(self, last_pose, depth, maps, K, rgb=None):
+            poses["card"].append(own_trk.track(last_pose, depth, maps, K, rgb=rgb)[0])
+            lp, d, m, c = inputs[-1]
+            moved = {k: v.to("cuda") for k, v in m.items() if torch.is_tensor(v)}
+            poses["card, CPU maps"].append(same_trk.track(lp, d.to("cuda"), moved, K,
+                                                          rgb=c.to("cuda"))[0])
+            return cpu.cam_poses[len(poses["card"])], cpu._tracking_quality
+
+    card.attach_tracker(Lockstep())
+    for c in cams:
+        cpu.process_frame(c.image, c.depth)
+        card.process_frame(c.image, c.depth)
+    vox_mm = cfg.pipe.tsdf.voxel_size * 1e3
+    res = {"width": W, "height": H, "frames": N}
+    ok = True
+    for name in ("card", "card, CPU maps"):
+        d_mm, d_deg = [], []
+        for k, pose in enumerate(poses[name], 1):
+            ref = cpu.cam_poses[k]
+            d_mm.append(float(np.linalg.norm(pose[:3, 3] - ref[:3, 3]) * 1e3))
+            R = pose[:3, :3].T @ ref[:3, :3]
+            d_deg.append(float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1)))))
+        lg, ref_lg = logs[name], logs["cpu"]
+        labels_equal = [x[:2] for x in lg] == [x[:2] for x in ref_lg]
+        iters_equal = {stage: [x[2] for x in lg if x[0] == stage]
+                       == [x[2] for x in ref_lg if x[0] == stage]
+                       for stage in ("ColorTracker", "ICPTracker")}
+        res[name] = {"labels_equal": labels_equal, "iters_equal": iters_equal,
+                     "labels": [x[1] for x in lg],
+                     "color_iters": [x[2] for x in lg if x[0] == "ColorTracker"],
+                     "icp_iters": [x[2] for x in lg if x[0] == "ICPTracker"],
+                     "max_pose_diff_mm": max(d_mm), "max_pose_diff_deg": max(d_deg),
+                     "pose_diff_mm": d_mm}
+        ok &= labels_equal and max(d_mm) < vox_mm and max(d_deg) < 0.1
+    res["cpu"] = {"labels": [x[1] for x in logs["cpu"]],
+                  "color_iters": [x[2] for x in logs["cpu"] if x[0] == "ColorTracker"],
+                  "icp_iters": [x[2] for x in logs["cpu"] if x[0] == "ICPTracker"]}
+    ok &= res["card, CPU maps"]["iters_equal"]["ColorTracker"]
+    res["tolerance"] = (f"labels of both stages equal on both; on the CPU's maps the colour "
+                        f"stage's iterations per level equal; every frame within {vox_mm} mm "
+                        "(1 voxel) and 0.1 deg")
+    log("[reference color tracked] " + json.dumps(res))
+    if not ok:
+        raise RuntimeError("the card's composite tracker disagrees with the CPU's")
     return res
 
 
@@ -3215,21 +3634,27 @@ def main() -> int:
     del main_engine, main_model, main_alloc
     megastep_path(args)
     k2, k3_large = large_frame_paths(args, rec)
-    tracked, k3_tracked = tracked_path(args, rec)
+    tracked_cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
+    tracked, k3_tracked = tracked_path(args, rec, tracked_cams)
     tracking_fixture_phase()
+    _, k3_color, color_calls = color_tracked_path(args, rec, tracked_cams)
+    del tracked_cams
+    color_tracker_fixture_phase()
     swap_path(args)
     offline_raw_phase(args, main_cams)
     del main_cams
     k1 = [(None, main_last["integrate_blocks_packed"], mp["launches"][kernels.INTEGRATE.name]),
           k1_sharded]
     k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
-          *k3_tracked, k3_sharded]
+          *k3_tracked, *k3_color, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
     rows.append(graph_while_row(tracked["launches"][kernels.GRAPH_WHILE.name]))
     rows += [icp_gn_row(*r) for r in tracked.pop("gn_calls")]
+    rows += [color_gn_row(*r) for r in color_calls]
     reference_phase()
     reference_chunked()
     reference_tracked()
+    reference_color_tracked()
     reference_tracked_megastep()
     reference_swap()
     reference_offline(args)

@@ -18,7 +18,8 @@
 // FP64 rate is half its FP32) take less.  The design fights what a loop of
 // small torch kernels paid for, launches (~300 a pass) and the trips of
 // [N, 6] intermediates through device memory, and then what a warp spends
-// on its 45 sums.  One kernel a pass, `gn_iter`:
+// on its 45 sums.  One kernel a pass, `gn_iter` (its warp sums, ticket,
+// row sums, LU and se3_exp are gn_common.cuh's, shared with color_gn.cu):
 //
 //   * a thread takes PIX = 2 pixels a round, `rounds` rounds (the grid
 //     stays within 264 CTAs of 256 threads, one wave at 100 registers a
@@ -44,106 +45,13 @@
 // With `active` (the unrolled route's mask) false, the kernel changes no
 // state and writes the loop's test anew.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "gn_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads of a CTA
-constexpr int NW = NT / 32;
+using namespace gn;
+
 constexpr int NTERMS = 45;       // H (36, row-major), g (6), sum |r| w, sum w, inliers
-constexpr int PIX = 2;           // pixels a thread sums before its warp's transpose
-constexpr unsigned FULL = 0xffffffffu;
-
-// torch.clamp on the card: NaN passes through
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-__device__ __forceinline__ float clamp_minf(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-
-// one step of the transpose: a lane keeps values [0, N) or [N, 2N) by its
-// lane bit B, sends the other half across that bit and adds what comes back
-template <int N, int B>
-__device__ __forceinline__ void xor_step(double* v, int lane) {
-  const bool up = lane & B;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    v[i] = (up ? v[i + N] : v[i]) + __shfl_xor_sync(FULL, up ? v[i] : v[i + N], B);
-}
-
-// One warp's sums of the 45 terms of its 32 lanes, `term(j)` being lane's
-// term j, by an xor transpose: at each lane bit from 4 down to 0 a lane
-// keeps half of its values, sends the other half to the lane across that
-// bit and adds what it gets back.  Lane l ends with the warp's sum of term
-// l (s1) and of term 32 + (l >> 1) (s2, for 32 + (l >> 1) < 45).  Each sum
-// is the tree that pairs lanes l and l ^ 16, then those pairs at lane
-// distance 8, ..., 1: the halving tree of `icp_gn.cta_sums` (a shuffle down
-// by 16, 8, 4, 2, 1), bit for bit, since IEEE addition commutes; 47 f64
-// shuffles a warp where a shuffle-down sum of each term takes 225.
-template <class Term>
-__device__ __forceinline__ void warp_terms(const Term& term, int lane, double& s1,
-                                           double& s2) {
-  double v[16];
-  bool up = lane & 16;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const double lo = term(i), hi = term(i + 16);
-    v[i] = (up ? hi : lo) + __shfl_xor_sync(FULL, up ? lo : hi, 16);
-  }
-  xor_step<8, 8>(v, lane);
-  xor_step<4, 4>(v, lane);
-  xor_step<2, 2>(v, lane);
-  xor_step<1, 1>(v, lane);
-  s1 = v[0];
-  // terms 32 .. 44 as values 0 .. 12 of 16, the rest +0
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const double lo = term(32 + i), hi = 40 + i < NTERMS ? term(40 + i) : 0.0;
-    v[i] = (up ? hi : lo) + __shfl_xor_sync(FULL, up ? lo : hi, 16);
-  }
-  xor_step<4, 8>(v, lane);
-  xor_step<2, 4>(v, lane);
-  xor_step<1, 2>(v, lane);
-  s2 = v[0] + __shfl_xor_sync(FULL, v[0], 1);
-}
-
-// a warp's running sums (s1, s2 of `warp_terms`, added round after round
-// from +0) into acc[warp][term]
-__device__ __forceinline__ void store_warp_sums(double (*acc)[NTERMS], int warp, int lane,
-                                                double a1, double a2) {
-  acc[warp][lane] = a1;
-  if (!(lane & 1) && 32 + (lane >> 1) < NTERMS) acc[warp][32 + (lane >> 1)] = a2;
-}
-
-// the bilinear read of `_bilinear` at (us, vs): three channels and the
-// weight sum, a corner whose three values are all zero left out
-__device__ __forceinline__ void bilinear(const float* __restrict__ img, int Wf, int iu0,
-                                         int iv0, int iu1, int iv1, float fu, float fv,
-                                         float out[3], float& wacc) {
-  const int iu[4] = {iu0, iu1, iu0, iu1};
-  const int iv[4] = {iv0, iv0, iv1, iv1};
-  const float ww[4] = {(1.0f - fu) * (1.0f - fv), fu * (1.0f - fv), (1.0f - fu) * fv,
-                       fu * fv};
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  wacc = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float* px = img + ((size_t)iv[c] * Wf + iu[c]) * 3;
-    const float c0 = __ldg(px), c1 = __ldg(px + 1), c2 = __ldg(px + 2);
-    const float ok = ((fabsf(c0) + fabsf(c1)) + fabsf(c2)) > 1e-6f ? 1.0f : 0.0f;
-    a0 = a0 + (c0 * ww[c]) * ok;
-    a1 = a1 + (c1 * ww[c]) * ok;
-    a2 = a2 + (c2 * ww[c]) * ok;
-    wacc = wacc + ww[c] * ok;
-  }
-  const float den = clamp_minf(wacc, 1e-6f);
-  out[0] = a0 / den;
-  out[1] = a1 / den;
-  out[2] = a2 / den;
-}
 
 // shared parameters of a pass: T's rows 0-2, the raycast camera's w2c rows
 // 0-2, cam [8], space_thresh^2, tukey_c
@@ -179,13 +87,10 @@ __device__ __forceinline__ void pixel_terms(
                       & (v <= (float)(Hf - 1));
   const float us = clampf(u, 0.0f, (float)Wf - 1.0f);
   const float vs = clampf(v, 0.0f, (float)Hf - 1.0f);
-  const float u0 = floorf(us), v0 = floorf(vs);
-  const float fu = us - u0, fv = vs - v0;
-  const int iu0 = min(max((int)u0, 0), Wf - 1), iv0 = min(max((int)v0, 0), Hf - 1);
-  const int iu1 = min(iu0 + 1, Wf - 1), iv1 = min(iv0 + 1, Hf - 1);
+  const Corners q = corners(us, vs, Wf, Hf);
   float vt[3], nt[3], wv, wn;
-  bilinear(refv, Wf, iu0, iv0, iu1, iv1, fu, fv, vt, wv);
-  bilinear(refn, Wf, iu0, iv0, iu1, iv1, fu, fv, nt, wn);
+  bilinear(refv, Wf, q.iu0, q.iv0, q.iu1, q.iv1, q.fu, q.fv, vt, wv);
+  bilinear(refn, Wf, q.iu0, q.iv0, q.iu1, q.iv1, q.fu, q.fv, nt, wn);
   const float nlen = sqrtf((nt[0] * nt[0] + nt[1] * nt[1]) + nt[2] * nt[2]);
   const float nl = clamp_minf(nlen, 1e-6f);
   const float n0 = nt[0] / nl, n1 = nt[1] / nl, n2 = nt[2] / nl;
@@ -216,20 +121,6 @@ __device__ __forceinline__ void pixel_terms(
   rw = fabsf(r) * wgt;
 }
 
-// the 8 warps' running sums acc [NW][NTERMS] by halving; thread j < NTERMS
-// returns term j's
-__device__ __forceinline__ double warps_sum(const double (*acc)[NTERMS], int j) {
-  double a[NW];
-#pragma unroll
-  for (int i = 0; i < NW; ++i) a[i] = acc[i][j];
-#pragma unroll
-  for (int h = NW / 2; h >= 1; h /= 2) {
-#pragma unroll
-    for (int i = 0; i < h; ++i) a[i] = a[i] + a[i + h];
-  }
-  return a[0];
-}
-
 // one round of a thread: its PIX pixels p0 + m NT, m < PIX (+0 terms past
 // the level's n pixels), summed term by term in m's order
 struct Pixels {
@@ -256,10 +147,10 @@ __device__ __forceinline__ void test_only(const float* state, const long long* n
   *more = (*n_run < n_iters) & (state[76] > step_exit);
 }
 
-// the last CTA: the CTAs' rows summed as the pixels are (a row a thread a
-// round, PIX 1), then `icp_gn.lm_step` in one warp, each entry of a matrix
-// in a lane of its own, with the plain version's operations in its order;
-// what every lane needs, every lane computes alike
+// the last CTA: the CTAs' rows summed as the pixels are (`sum_rows`), then
+// `icp_gn.lm_step` in one warp, each entry of a matrix in a lane of its
+// own, with the plain version's operations in its order; what every lane
+// needs, every lane computes alike
 __device__ __forceinline__ void take_step(const double* partials, float* __restrict__ state,
                                           long long* __restrict__ n_run,
                                           bool* __restrict__ more, int n_ctas, int n_pix,
@@ -270,26 +161,10 @@ __device__ __forceinline__ void take_step(const double* partials, float* __restr
   // the step's matrices: H_ref, the damped system, T_ref, E = se3_exp(delta)
   __shared__ float sH[36], sA[36], sT[16], sE[16], sg[6], sb[6], sx[6];
   __shared__ int s_piv;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x, lane = t & 31;
   if (t < 79) ss[t] = state[t];
-  const int rounds = (n_ctas + NT - 1) / NT;
-  double a1 = 0.0, a2 = 0.0;
-  for (int k = 0; k < rounds; ++k) {
-    const int row = k * NT + t;
-    // rows other CTAs wrote: read from L2
-    auto term = [&](int j) -> double {
-      return row < n_ctas ? __ldcg(partials + (size_t)j * n_ctas + row) : 0.0;
-    };
-    double s1, s2;
-    warp_terms(term, lane, s1, s2);
-    a1 = a1 + s1;
-    a2 = a2 + s2;
-  }
-  store_warp_sums(acc, warp, lane, a1, a2);
-  __syncthreads();
-  if (t < NTERMS) tot[t] = warps_sum(acc, t);
-  __syncthreads();
-  if (warp != 0) return;
+  sum_rows<NTERMS>(partials, n_ctas, acc, tot);
+  if (t >= 32) return;
 
   const float n_ok = (float)tot[44];
   const double den = isnan(tot[43]) ? tot[43] : fmax(tot[43], 1.0);
@@ -315,53 +190,7 @@ __device__ __forceinline__ void take_step(const double* partials, float* __restr
   }
   if (lane < 6) sb[lane] = -sg[lane];
   __syncwarp();
-  // LU with partial pivoting: the first largest |value| (NaN counts as
-  // largest) at or below the diagonal; then lane (i, j) eliminates entry
-  // j > k of row i > k, lanes 25-29 the right-hand side
-  bool nonzero = true;
-  for (int k = 0; k < 6; ++k) {
-    if (lane == 0) {
-      int p = k;
-      float best = fabsf(sA[k * 6 + k]);
-      for (int i = k + 1; i < 6; ++i) {
-        const float m = fabsf(sA[i * 6 + k]);
-        if (m > best || (isnan(m) && !isnan(best))) {
-          best = m;
-          p = i;
-        }
-      }
-      s_piv = p;
-    }
-    __syncwarp();
-    const int p = s_piv;
-    if (p != k && lane < 7) {
-      float* x = lane < 6 ? sA + lane : sb;
-      const int stride = lane < 6 ? 6 : 1;
-      const float tmp = x[k * stride];
-      x[k * stride] = x[p * stride];
-      x[p * stride] = tmp;
-    }
-    __syncwarp();
-    nonzero = nonzero && sA[k * 7] != 0.0f;
-    const int m = 5 - k;
-    if (lane < m * m) {
-      const int i = k + 1 + lane / m, j = k + 1 + lane % m;
-      const float f = sA[i * 6 + k] / sA[k * 7];
-      sA[i * 6 + j] = sA[i * 6 + j] - f * sA[k * 6 + j];
-    } else if (lane >= 25 && lane < 25 + m) {
-      const int i = k + 1 + (lane - 25);
-      const float f = sA[i * 6 + k] / sA[k * 7];
-      sb[i] = sb[i] - f * sb[k];
-    }
-    __syncwarp();
-  }
-  // back substitution, the known unknowns subtracted from the last one up
-  for (int j = 5; j >= 0; --j) {
-    if (lane == 0) sx[j] = sb[j] / sA[j * 7];
-    __syncwarp();
-    if (lane < j) sb[lane] = sb[lane] - sA[lane * 6 + j] * sx[j];
-    __syncwarp();
-  }
+  const bool nonzero = lu6_warp(sA, sb, sx, &s_piv, lane);
   bool ok = nonzero && isfinite(err_ref);
   float dl[6];
   for (int i = 0; i < 6; ++i) {
@@ -369,43 +198,14 @@ __device__ __forceinline__ void take_step(const double* partials, float* __restr
     dl[i] = sx[i];
   }
   for (int i = 0; i < 6; ++i) dl[i] = ok ? dl[i] : 0.0f;
-
-  // se3_exp(delta), each sum term by term; lane i < 3 builds row i of E
-  const float theta = clamp_minf(sqrtf((dl[3] * dl[3] + dl[4] * dl[4]) + dl[5] * dl[5]),
-                                 1e-12f);
-  if (lane < 3) {
-    const int i = lane;
-    const float ax = dl[3] / theta, ay = dl[4] / theta, az = dl[5] / theta;
-    const float K[9] = {0.0f, -az, ay, az, 0.0f, -ax, -ay, ax, 0.0f};
-    const float sin_t = sinf(theta), cos_t = cosf(theta);
-    const bool small = theta < 1e-8f;
-    const float omc = 1.0f - cos_t;
-    const float c1 = omc / theta, c2 = (theta - sin_t) / theta;
-    float V[3];
-    for (int j = 0; j < 3; ++j) {
-      const float kk = (K[i * 3] * K[j] + K[i * 3 + 1] * K[3 + j]) + K[i * 3 + 2] * K[6 + j];
-      const float e = i == j ? 1.0f : 0.0f;
-      sE[i * 4 + j] = small ? e : (e + sin_t * K[i * 3 + j]) + omc * kk;
-      V[j] = small ? e : (e + c1 * K[i * 3 + j]) + c2 * kk;
-    }
-    sE[i * 4 + 3] = (V[0] * dl[0] + V[1] * dl[1]) + V[2] * dl[2];
-  } else if (lane < 7) {
-    sE[12 + lane - 3] = lane == 6 ? 1.0f : 0.0f;
-  }
+  se3_exp_warp(dl, sE, lane);
   __syncwarp();
   // the new state: lane (i, j) of T_new, the rest copied over
-  if (lane < 16) {
-    const int i = lane >> 2, j = lane & 3;
-    state[lane] = ((sE[i * 4] * sT[j] + sE[i * 4 + 1] * sT[4 + j]) + sE[i * 4 + 2] * sT[8 + j])
-                  + sE[i * 4 + 3] * sT[12 + j];
-  } else {
-    state[lane] = sT[lane - 16];
-  }
+  state[lane] = lane < 16 ? compose_entry(sE, sT, lane) : sT[lane - 16];
   for (int i = lane; i < 36; i += 32) state[32 + i] = sH[i];
   if (lane < 6) state[68 + lane] = sg[lane];
   if (lane == 0) {
-    const float step = ((((dl[0] * dl[0] + dl[1] * dl[1]) + dl[2] * dl[2]) + dl[3] * dl[3])
-                        + dl[4] * dl[4]) + dl[5] * dl[5];
+    const float step = step_of(dl);
     state[74] = err_ref;
     state[75] = lam_new;
     state[76] = step;
@@ -432,8 +232,7 @@ gn_iter(const float* __restrict__ depth, const float* __restrict__ refv,
   }
   __shared__ float sp[P_N];
   __shared__ double acc[NW][NTERMS];
-  __shared__ bool s_last;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x, lane = t & 31;
   if (t < 12) sp[P_T + t] = state[t];            // T's rows 0-2
   else if (t < 24) sp[P_R + t - 12] = rpi[t - 12];
   else if (t < 32) sp[P_CAM + t - 24] = cam[t - 24];
@@ -458,20 +257,12 @@ gn_iter(const float* __restrict__ depth, const float* __restrict__ refv,
       }
     }
     double s1, s2;
-    warp_terms(px, lane, s1, s2);
+    warp_terms<NTERMS>(px, lane, s1, s2);
     a1 = a1 + s1;
     a2 = a2 + s2;
   }
-  store_warp_sums(acc, warp, lane, a1, a2);
-  __syncthreads();
-  if (t < NTERMS) partials[(size_t)t * n_ctas + blockIdx.x] = warps_sum(acc, t);
-  // the CTA that finishes last takes the step; it leaves the ticket at 0
-  __threadfence();
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(ticket, 1u) == (unsigned)(n_ctas - 1);
-  __syncthreads();
-  if (!s_last) return;
-  if (t == 0) *ticket = 0u;
+  // the CTA that finishes last takes the step
+  if (!cta_done<NTERMS>(acc, partials, ticket, n_ctas, a1, a2)) return;
   take_step(partials, state, n_run, more, n_ctas, n, first, n_iters, step_exit, acc);
 }
 

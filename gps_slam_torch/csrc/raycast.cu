@@ -78,8 +78,12 @@
 //      its first negative one (the key is then t0 - 1e4 and nothing reads a
 //      later sample); it leaves its key and info in shared memory;
 //   3. each pixel walks its pairs in slot order, keeping its smallest keys
-//      in registers (sorted insert, a tie stays; a miss's key is inf); the
-//      picked blocks are ORed into the tile's mask a warp at a time;
+//      in registers, in (key, slot) order (sorted insert: a new pair never
+//      displaces an equal key, whose slot comes before it, but a pair that
+//      an insert pushed down does displace an equal key of a later slot;
+//      a miss's key is inf and never enters), the plain version's picks:
+//      the smallest key k times, the first slot on a tie; the picked blocks
+//      are ORed into the tile's mask a warp at a time;
 //   4. the picked rows are staged by TMA as in the quad mode, over the
 //      shared memory that held the pairs' results;
 //   5. each pixel refines its picks; a bracket stage stops at its first
@@ -746,8 +750,8 @@ track_kernel(const int* __restrict__ gids, const int* __restrict__ state,
     float key = r.x;
     int slot = s_live[j], info = __float_as_int(r.y);
 #pragma unroll
-    for (int k = 0; k < MAX_TRACK_K; ++k) {  // sorted insert; a tie stays
-      if (k < kb && key < pk[k]) {
+    for (int k = 0; k < MAX_TRACK_K; ++k) {  // sorted insert, by (key, slot)
+      if (k < kb && (key < pk[k] || (key == pk[k] && slot < ps[k] && key < INFINITY))) {
         const float fk = pk[k];
         const int sk = ps[k], ik = pi[k];
         pk[k] = key;

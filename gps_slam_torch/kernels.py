@@ -139,7 +139,14 @@ ICP_GN = Kernel(
     "and takes the LM step in one warp",
     extra={"icp_gn_load": ([], ctypes.c_int)})
 
-ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE, ICP_GN)
+COLOR_GN = Kernel(
+    "color_gn_cuda", "color_gn.cu", "color_gn", [P] * 11 + [I] * 8 + [F, P],
+    "one kernel a pass, icp_gn_cuda's design: 2 points a thread a round, a warp's "
+    "44 sums by an xor transpose, per-CTA f64 rows; the last CTA sums the rows in "
+    "the same order and takes the colour LM step in one warp")
+
+ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE, ICP_GN,
+       COLOR_GN)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 

@@ -23,7 +23,9 @@ whose exit test stays on the device as the JAX one does: a converged
 level runs no more iterations.  Uncaptured (the CPU, an eager run on the
 card), the loop is unrolled to the level's budget and every update after
 the exit is masked with a device flag; the masked iterations change
-nothing.
+nothing.  The colour tracker's level (`_track_level_color`) runs only
+eagerly, as the JAX package's engine runs it: each iteration is
+`color_gn.iterate` (`color_gn_cuda` on the card) and one read of `step`.
 
 The sums over pixels (the 6x6 system, the gradient, the robust error) are
 accumulated in f64 and rounded to f32, in one fixed order on both devices
@@ -36,11 +38,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import Config
 from ..utils import graph_while
-from ..utils.se3 import _sobel, pose_inv, se3_exp
-from . import icp_gn
+from ..utils.se3 import pose_inv
+from . import color_gn, icp_gn
 from .icp_gn import bilinear as _bilinear
 
 # per-level Gauss-Newton budgets: numiterC (coarsest) to numiterF (finest),
@@ -78,20 +81,17 @@ def _scalar(v, device) -> torch.Tensor:
 
 def _subsample_depth(depth: torch.Tensor) -> torch.Tensor:
     """Stride-2 subsample keeping holes: the mean of each 2x2 block's
-    valid pixels."""
+    valid pixels.  The block's sum is written out, (x00 + x01) + (x10 +
+    x11), the order of the CPU's sum over the two axes, so that the card
+    computes the CPU's bits whatever order its own reduction takes."""
     H, W = depth.shape
     H2, W2 = H // 2, W // 2
     d = depth[: H2 * 2, : W2 * 2].reshape(H2, 2, W2, 2)
     valid = d > 0
-    s = torch.where(valid, d, 0.0).sum(dim=(1, 3))
+    z = torch.where(valid, d, 0.0)
+    s = (z[:, 0, :, 0] + z[:, 0, :, 1]) + (z[:, 1, :, 0] + z[:, 1, :, 1])
     c = valid.sum(dim=(1, 3))
     return torch.where(c > 0, s / torch.clamp(c, min=1), 0.0)
-
-
-def _rotation_mask(device) -> torch.Tensor:
-    """[1, 6] of (0, 0, 0, 1, 1, 1): keeps the rotation columns of J."""
-    z = torch.zeros((1, 3), dtype=torch.float32, device=device)
-    return torch.cat([z, torch.ones_like(z)], 1)
 
 
 def _vector(vals, device) -> torch.Tensor:
@@ -278,78 +278,56 @@ def _track_level_color(M0, pts_w, col_known, pts_valid, rgb, gx, gy,
                        n_iters: int, rotation_only: bool, cam: torch.Tensor):
     """One pyramid level of photometric Levenberg-Marquardt: minimises
     |bilinear(rgb, proj(M p_w)) - col_known|^2 over a left-multiplied twist
-    on the w2c matrix M.  Returns (M, inlier, residual, n_iters_run)."""
+    on the w2c matrix M.  Each iteration is `color_gn.iterate`
+    (`color_gn_cuda` on the card, its plain version on the CPU) on the
+    level's state (`color_gn.FIELDS`) in place, followed by one read of
+    `step` (4 bytes) to take the JAX `cond`'s exit after the same
+    iteration.  Returns (M, inlier, residual, n_iters_run): M the last
+    accepted estimate, the inlier share and residual those of the last
+    iteration, on the device."""
     dev = rgb.device
-    h, w = rgb.shape[:2]
-    fx, fy, cx, cy = cam[0], cam[1], cam[2], cam[3]
-    n_pts = _scalar(pts_w.shape[0], dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    rot_mask = _rotation_mask(dev) if rotation_only else None
-
-    M, M_acc = M0, M0
-    H_acc, g_acc = eye6, torch.zeros(6, dtype=torch.float32, device=dev)
-    err_acc = _scalar(float("inf"), dev)
-    lam = _scalar(1e-3, dev)
-    inl = mr = _scalar(0.0, dev)
-    it, step = 0, 1.0
+    state = torch.cat([M0.reshape(-1), M0.reshape(-1),
+                       _vector((float("inf"), 1e-3, 0.0, 0.0, 0.0), dev)])
+    n_run = torch.zeros((), dtype=torch.int64, device=dev)
+    more = torch.zeros((), dtype=torch.bool, device=dev)
+    partials = (color_gn.partials_buffer(pts_w.shape[0], dev) if dev.type == "cuda"
+                else None)
+    inputs = (pts_w.contiguous(), col_known.contiguous(), pts_valid.contiguous(),
+              rgb.contiguous(), gx.contiguous(), gy.contiguous(), cam, rotation_only,
+              n_iters, _STEP_EXIT)
+    color_gn.iterate(*inputs, state, n_run, more, partials, first=True)
+    it, step = 1, float(state[color_gn.STEP])  # the one read-back of an iteration
     while it < n_iters and step > _STEP_EXIT:
-        p_c = pts_w @ M[:3, :3].T + M[:3, 3]
-        z = torch.clamp(p_c[:, 2], min=1e-6)
-        u = fx * p_c[:, 0] / z + cx
-        v = fy * p_c[:, 1] / z + cy
-        in_img = (p_c[:, 2] > 0) & (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1)
-        us = torch.clamp(u, 0.0, w - 1.0)
-        vs = torch.clamp(v, 0.0, h - 1.0)
-        c_obs, wz = _bilinear(rgb, us, vs)
-        gx_o, _ = _bilinear(gx, us, vs)
-        gy_o, _ = _bilinear(gy, us, vs)
-        r = c_obs - col_known                       # [N,3]
-        ok = (pts_valid & in_img & (wz > 0.5)).to(torch.float32)
-
-        inv_z = 1.0 / z
-        zero = torch.zeros_like(z)
-        # projection jacobians d(u,v)/d p_c
-        du_dp = torch.stack([fx * inv_z, zero, -fx * p_c[:, 0] * inv_z * inv_z], -1)
-        dv_dp = torch.stack([zero, fy * inv_z, -fy * p_c[:, 1] * inv_z * inv_z], -1)
-        # left twist on M: dp_c/dv = I, dp_c/dw = w x p_c
-        J_u = torch.cat([du_dp, torch.linalg.cross(p_c, du_dp, dim=-1)], -1)
-        J_v = torch.cat([dv_dp, torch.linalg.cross(p_c, dv_dp, dim=-1)], -1)
-        if rotation_only:
-            J_u = J_u * rot_mask
-            J_v = J_v * rot_mask
-        J = gx_o[..., None] * J_u[:, None, :] + gy_o[..., None] * J_v[:, None, :]
-        Jm = (J * ok[:, None, None]).double()
-        Hm = torch.einsum("nci,ncj->ij", Jm, J.double()).float()
-        g = torch.einsum("nci,nc->i", Jm, r.double()).float()
-        n_ok = ok.sum()
-        err = torch.where(
-            n_ok > 50,
-            (((r * r).sum(-1) * ok).double().sum() / torch.clamp(n_ok, min=1.0)).float(),
-            float("inf"))
-        inl = n_ok / n_pts
-        mr = torch.sqrt(torch.clamp(err, min=0.0))
-        # the colour tracker damps its new system (Hm), not the accepted one
-        better = err <= err_acc
-        if it == 0:
-            better = torch.ones_like(better)
-        M_ref = torch.where(better, M, M_acc)
-        err_ref = torch.where(better, err, err_acc)
-        lam = torch.clamp(torch.where(better, lam * 0.1, lam * 10.0), 1e-6, 1e5)
-        mean_diag = torch.trace(Hm) / 6.0 + 1e-9
-        damp = lam * torch.diag(torch.diagonal(Hm)) + 1e-2 * mean_diag * eye6
-        delta, info = torch.linalg.solve_ex(Hm + damp, -g)
-        ok_solve = torch.isfinite(delta).all() & torch.isfinite(err_ref) & (info == 0)
-        delta = torch.where(ok_solve, delta, 0.0)
-        M, M_acc, err_acc = se3_exp(delta) @ M_ref, M_ref, err_ref
+        color_gn.iterate(*inputs, state, n_run, more, partials)
         it += 1
-        step = float((delta * delta).sum())  # the one read-back of the iteration
-    return M_acc, inl, mr, it
+        step = float(state[color_gn.STEP])
+    return state[16:32].view(4, 4), state[35], state[36], it
 
+
+# The colour tracker's pyramid and image gradients are elementwise torch
+# ops in one written order, so that the card and the CPU compute the same
+# bits (a mean over two axes or a convolution sums in an order of the
+# device's choosing, and an accept/reject of the loop turns on last bits).
 
 def _downsample_rgb(img: torch.Tensor) -> torch.Tensor:
+    """The mean of each 2x2 block, ((x00 + x01) + (x10 + x11)) / 4 (the
+    CPU's order, as in `_subsample_depth`)."""
     H, W, C = img.shape
-    return img[: H // 2 * 2, : W // 2 * 2].reshape(
-        H // 2, 2, W // 2, 2, C).mean(dim=(1, 3))
+    x = img[: H // 2 * 2, : W // 2 * 2].reshape(H // 2, 2, W // 2, 2, C)
+    return ((x[:, 0, :, 0] + x[:, 0, :, 1]) + (x[:, 1, :, 0] + x[:, 1, :, 1])) * 0.25
+
+
+def _gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`utils.se3._sobel` of [H, W, C] (replicate-padded Sobel x and y,
+    cross-correlation, no normalisation), each sum of its six taps written
+    out: dx = ((a02 - a00) + 2 (a12 - a10)) + (a22 - a20) over the 3x3
+    neighbourhood a, dy likewise down the columns."""
+    H, W = img.shape[:2]
+    p = F.pad(img.permute(2, 0, 1)[None], (1, 1, 1, 1), mode="replicate")[0].permute(1, 2, 0)
+    a = [[p[r:r + H, c:c + W] for c in range(3)] for r in range(3)]
+    dx = ((a[0][2] - a[0][0]) + (a[1][2] - a[1][0]) * 2.0) + (a[2][2] - a[2][0])
+    dy = ((a[2][0] - a[0][0]) + (a[2][1] - a[0][1]) * 2.0) + (a[2][2] - a[0][2])
+    return dx, dy
 
 
 class ColorTracker:
@@ -393,7 +371,7 @@ class ColorTracker:
         self.last_iters = [0] * self.n_levels
         for lvl in range(self.n_levels - 1, -1, -1):
             cam = torch.as_tensor(_level_cam(K, lvl, False), device=dev)
-            gx, gy = _sobel(levels[lvl])
+            gx, gy = _gradients(levels[lvl])
             li = min(lvl, len(self.level_iters) - 1)
             M, inl, mr, self.last_iters[lvl] = _track_level_color(
                 M, vtx, col, valid, levels[lvl], gx, gy,

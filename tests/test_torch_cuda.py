@@ -439,17 +439,18 @@ def test_raycast_cuda_matches_plain(cuda_device, fused, lb, s_refine, k_blocks,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lb,s_refine,k_blocks,need_color", [
-    pytest.param(lb, sr, kb, lb == 32, id=f"lb{lb}-sr{sr}-k{kb}")
-    for lb in (1, 16, 32) for sr in (2, 6) for kb in (1, 2, 4)])
+    pytest.param(lb, sr, kb, nc, id=f"lb{lb}-sr{sr}-k{kb}" + ("-color" if nc else ""))
+    for lb in (1, 16, 32) for sr in (2, 6) for kb in (1, 2, 4) for nc in (False, True)])
 def test_raycast_cuda_tracking_mode_matches_plain(cuda_device, fused, lb, s_refine,
                                                   k_blocks, need_color):
     """raycast_cuda's tracking mode (per-pixel ranking and picks, two
     bracket stages) against its plain version (`march_plain` with
     raycast_tiles.TRACK) over LB 1 to 32, s_refine 2 and 6 and 1 to 4
-    picks: the same f32 expressions in the same order, and the work the
-    kernel skips is work whose result nothing reads, so all five channels
-    are equal at every pixel, bit for bit; a second launch gives the same
-    bits."""
+    picks, with and without colour at every LB (the colour and composite
+    trackers' prepare raycast reads colour at LB 16): the same f32
+    expressions in the same order, and the work the kernel skips is work
+    whose result nothing reads, so all five channels are equal at every
+    pixel, bit for bit; a second launch gives the same bits."""
     vol, cams = fused
     vol = _to(vol, cuda_device)
     args = _march_args(vol, cams[2], lb, s_refine, k_blocks, need_color, cuda_device)
@@ -484,7 +485,7 @@ def tracking_fixture(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mips", ["as fused", "no negative sample"])
+@pytest.mark.parametrize("mips", ["as fused", "no negative sample", "tied keys"])
 def test_raycast_cuda_tracking_mode_dense_and_no_negative(tracking_fixture, mips):
     """The tracking mode bit for bit with its plain version on dense
     lists and where some of its skips cannot fire: 32-slot lists, most of
@@ -493,19 +494,25 @@ def test_raycast_cuda_tracking_mode_dense_and_no_negative(tracking_fixture, mips
     kernel leaves out); then the same volume with its mips made
     non-negative, so that no pixel has a negative coarse sample (no pair
     stops its samples early, every pick's first stage spans its whole
-    segment)."""
+    segment); then with its non-negative mip values set to 0, so that
+    every pair without a negative sample keys 0 (ties: the picks are the
+    smallest keys, the first slot on a tie, also where an insert pushes a
+    pick down onto an equal key)."""
     args = list(tracking_fixture)
     gids = args[0]
     assert (gids >= 0).float().mean() > 0.8
     if mips == "no negative sample":
         args[3] = args[3].clone()
         args[3][:, :64] = args[3][:, :64].abs()
+    elif mips == "tied keys":
+        args[3] = args[3].clone()
+        args[3][:, :64] = torch.clamp(args[3][:, :64], max=0.0)
     ok = trc.march(*args, track=True)
     op = trc.march_plain(*args, xla=trc.TRACK)
     has_neg = trc._coarse(torch.arange(gids.shape[0], device=gids.device), gids,
                           args[3], args[4], args[5], args[6], args[7], per_pixel=True)[6]
     torch.cuda.synchronize()
-    assert has_neg.any() == (mips == "as fused")
+    assert has_neg.any() == (mips != "no negative sample")
     assert (op[:, 5] > 0).float().mean() > 0.3
     assert torch.equal(ok, op)
 
@@ -513,11 +520,12 @@ def test_raycast_cuda_tracking_mode_dense_and_no_negative(tracking_fixture, mips
 @pytest.mark.cuda
 def test_wrappers_never_read_back(cuda_device, fused):
     """The K1, K2 and K3 wrappers (K3 also in its tracking mode) and the
-    tracker's Gauss-Newton iteration (`icp_gn_cuda`) launch under
-    torch.cuda.set_sync_debug_mode("error"): none of them copies a CUDA
-    tensor to the host or otherwise waits on the card (the pose goes to
-    the kernels as a device pointer)."""
+    trackers' Gauss-Newton iterations (`icp_gn_cuda`, `color_gn_cuda`)
+    launch under torch.cuda.set_sync_debug_mode("error"): none of them
+    copies a CUDA tensor to the host or otherwise waits on the card (the
+    pose goes to the kernels as a device pointer)."""
     from gps_slam_torch import kernels
+    from gps_slam_torch.slam import color_gn
     from gps_slam_torch.slam import tracker as ttrk
 
     vol, cams = fused
@@ -538,6 +546,16 @@ def test_wrappers_never_read_back(cuda_device, fused):
                                            device=cuda_device),
                            50, False, pose_inv(c2w), ttrk._scalar(0.015, cuda_device),
                            ttrk._scalar(0.02, cuda_device))
+    # a colour level: points made of frame 2's depth, projected into frame 3's image
+    img = torch.as_tensor(cams[3].image, device=cuda_device)
+    gx, gy = (g.contiguous() for g in ttrk._gradients(img))
+    pts = rays[::4, ::4].reshape(-1, 3).contiguous()
+    cargs = (pts, img[::4, ::4].reshape(-1, 3).contiguous(), pts[:, 2] > 0, img, gx, gy,
+             torch.as_tensor(ttrk._level_cam(cams[3].K, 0, False), device=cuda_device),
+             False, 50, ttrk._STEP_EXIT, _color_state(pose_inv(c2w)),
+             torch.zeros((), dtype=torch.int64, device=cuda_device),
+             torch.zeros((), dtype=torch.bool, device=cuda_device),
+             color_gn.partials_buffer(pts.shape[0], cuda_device))
     kernels.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -551,13 +569,14 @@ def test_wrappers_never_read_back(cuda_device, fused):
         trc.march(*margs, track=True)
         lv.iterate()
         lv.iterate(active=lv.more)
+        color_gn.iterate(*cargs)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
                                 "raycast_cuda": 2, "splat_fwd_cuda": 0,
                                 "splat_bwd_cuda": 0, "graph_while_cuda": 0,
-                                "icp_gn_cuda": 2}
+                                "icp_gn_cuda": 2, "color_gn_cuda": 1}
 
 
 @pytest.mark.cuda
@@ -1791,3 +1810,151 @@ def test_icp_gn_while_level_runs_the_eager_iterations(icp_levels, lvl):
     assert 1 < int(out[3]) == n < args[5]
     for a_, b_ in zip(out[:3], (T, inl, mr)):
         assert torch.equal(a_, b_)
+
+
+# ---------------------------------- color_gn_cuda, the colour tracker's iteration
+
+@pytest.fixture(scope="module")
+def color_levels(cuda_device):
+    """The 4 pyramid levels of one colour-tracking step at 1200x680 on the
+    card (tests/test_tracking.py's colour setup at the tracked path's
+    size): frame 0's world points and colours at the tracker's stride 4
+    (51,000 points), frame 1's rgb pyramid and Sobel gradients, and frame
+    0's w2c under a small twist; each level's `_track_level_color`
+    arguments but the budget and the rotation mode."""
+    from gps_slam_torch.slam import tracker as ttrk
+    from gps_slam_torch.utils import se3 as tse3
+
+    dev = cuda_device
+    a, b = synthetic.make_cameras(n_frames=2, width=1200, height=680, look="in",
+                                  arc=0.025 / 8)
+    vm = tse3.compute_vertex_map(torch.as_tensor(a.depth[..., 0], device=dev),
+                                 a.fx, a.fy, a.cx, a.cy)
+    c2w = torch.as_tensor(a.c2w, device=dev)
+    vw = torch.where(vm[..., 2:3] > 0, vm @ c2w[:3, :3].T + c2w[:3, 3], 0.0)
+    pts = vw[::4, ::4].reshape(-1, 3).contiguous()
+    col = torch.as_tensor(a.image, device=dev)[::4, ::4].reshape(-1, 3).contiguous()
+    valid = pts.abs().sum(-1) > 0
+    twist = torch.tensor([0.004, -0.003, 0.006, 0.004, -0.006, 0.003], device=dev)
+    M0 = (tse3.se3_exp(twist) @ pose_inv(c2w)).contiguous()
+    img = torch.as_tensor(b.image, device=dev)
+    levels = []
+    for lvl in range(4):
+        gx, gy = ttrk._gradients(img)
+        cam = torch.as_tensor(ttrk._level_cam(a.K, lvl, False), device=dev)
+        levels.append((M0, pts, col, valid, img.contiguous(), gx.contiguous(),
+                       gy.contiguous(), cam))
+        img = ttrk._downsample_rgb(img)
+    return levels
+
+
+def _color_state(M0, M_acc=None, err_acc=float("inf")):
+    M_acc = M0 if M_acc is None else M_acc
+    return torch.cat([M0.reshape(-1), M_acc.reshape(-1),
+                      torch.tensor([err_acc, 1e-3, 0.0, 0.0, 0.0], device=M0.device)])
+
+
+def _color_runs(inputs, state, first):
+    """color_gn_cuda twice and its plain version once from the same
+    state: [(state, n_run, more, partials)]."""
+    from gps_slam_torch.slam import color_gn
+
+    n = inputs[0].shape[0]
+    runs = []
+    for how in ("cuda", "cuda", "plain"):
+        s = state.clone()
+        r = torch.zeros((), dtype=torch.int64, device=s.device)
+        m = torch.zeros((), dtype=torch.bool, device=s.device)
+        p = color_gn.partials_buffer(n, s.device)
+        p[:-1].fill_(float("nan"))
+        if how == "cuda":
+            color_gn.iterate(*inputs, s, r, m, p, first)
+        else:
+            color_gn.iterate_plain(*inputs, s, r, m, first)
+        runs.append((s, r, m, p))
+    torch.cuda.synchronize()
+    return runs
+
+
+def _same(a, b) -> bool:
+    """Equal values, a NaN equal to a NaN (their payload bits aside)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _assert_color_runs_equal(runs, rows, case):
+    from gps_slam_torch.slam import color_gn
+
+    (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
+    for a_, b_ in ((s1, s3), (n1, n3), (m1, m3), (s1, s2), (n1, n2), (m1, m2), (p1, p2)):
+        assert _same(a_, b_), case
+    assert _same(p1[:-1].view(color_gn.N_TERMS, -1).T, rows), case
+    assert float(p1[-1]) == 0.0 and int(n1) == 1, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_color_gn_cuda_matches_plain(color_levels, lvl):
+    """`color_gn_cuda` against its plain version on the card at each level
+    of a 1200x680 colour-tracking step, in both rotation modes: iteration
+    0 from the start (`first`), the next iteration from its state, and a
+    reject (the accepted error set below any error: the new system damped
+    from the accepted estimate at 10x damping).  The new state (M, M_acc,
+    err, lam, step, inlier share, residual), the iteration count and the
+    loop's test bit for bit; the per-CTA rows bit for bit with `cta_rows`
+    of the plain terms, the CTAs' count back at 0; a second launch the
+    same bits."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import color_gn, icp_gn
+    from gps_slam_torch.slam import tracker as ttrk
+
+    M0, pts, col, valid, rgb, gx, gy, cam = color_levels[lvl]
+    n0 = kernels.COLOR_GN.launches
+    for rot in (False, True):
+        inputs = (pts, col, valid, rgb, gx, gy, cam, rot, 20, ttrk._STEP_EXIT)
+        state = _color_state(M0)
+        for case in ("first", "next", "reject"):
+            first = case == "first"
+            if case == "reject":
+                state = state.clone()
+                state[32] = 0.0
+            M = state[:16].view(4, 4)
+            rows = icp_gn.cta_rows(color_gn.terms(M, *inputs[:7], rot))
+            runs = _color_runs(inputs, state, first)
+            _assert_color_runs_equal(runs, rows, (rot, case))
+            new = runs[0][0]
+            if case == "reject":
+                assert torch.equal(new[16:32], state[16:32]) and float(new[32]) == 0.0
+                assert float(new[33]) > float(state[33])
+            assert float(new[35]) > 0.5 and float(new[34]) > 0.0, (rot, case)
+            state = new
+    assert kernels.COLOR_GN.launches - n0 == 2 * 3 * 2
+    with pytest.raises(ValueError):   # an f64 state
+        color_gn.iterate(*inputs, state.double(), torch.zeros((), dtype=torch.int64,
+                                                             device=state.device),
+                         torch.zeros((), dtype=torch.bool, device=state.device),
+                         color_gn.partials_buffer(pts.shape[0], state.device))
+
+
+@pytest.mark.cuda
+def test_color_gn_cuda_zero_steps(color_levels):
+    """The step's guards on the card, bit for bit with the plain version
+    (a NaN equal to a NaN): a NaN point (its terms NaN, and so the system
+    and the error: a non-finite solution) and no valid point (no inliers:
+    the error is inf) both give a zero step, M = M_acc."""
+    from gps_slam_torch.slam import color_gn, icp_gn
+    from gps_slam_torch.slam import tracker as ttrk
+
+    M0, pts, col, valid, rgb, gx, gy, cam = color_levels[0]
+    nan_pts = pts.clone()
+    nan_pts[7, 1] = float("nan")
+    for case, p_, v_ in (("nan", nan_pts, valid), ("none valid", pts, torch.zeros_like(valid))):
+        inputs = (p_, col, v_, rgb, gx, gy, cam, False, 20, ttrk._STEP_EXIT)
+        state = _color_state(M0)
+        rows = icp_gn.cta_rows(color_gn.terms(state[:16].view(4, 4), *inputs[:7], False))
+        runs = _color_runs(inputs, state, True)
+        _assert_color_runs_equal(runs, rows, case)
+        new = runs[0][0]
+        assert torch.equal(new[:16], state[16:32]) and float(new[34]) == 0.0, case
+        assert not bool(runs[0][2]), case

@@ -12,7 +12,10 @@ the work each step leaves out:
   be a miss of the slab test;
 - step 2: no mip samples where the slab test misses; none after a pair's
   first negative sample;
-- step 3: the sorted insert in slot order (a tie stays).  The kernel
+- step 3: the sorted insert in slot order, by (key, slot): a new pair
+  never displaces an equal key (its slot comes first), a pair pushed down
+  by an insert displaces an equal key of a later slot, so the picks are
+  the plain version's smallest keys, the first slot on a tie.  The kernel
   leaves one rule out: a pair whose t0 - 1e4 is at or above the pixel's
   kb-th key, that key with a negative sample, cannot enter (every key with
   a negative sample lies below every other finite key); the walk counts
@@ -28,7 +31,9 @@ The walk must give the plain version's picks (slot and info) and output.
 Inputs: tests/test_tracking.py's fixture (160x120, 2 cm voxels, its
 config's 32-slot tile lists) after a few gt-pose fusions, the same volume
 with its mips made non-negative (no pixel then has a negative sample),
-and a small synthetic room at 64x48."""
+the same with its non-negative mip values set to 0 (every pair without a
+negative sample keys 0: ties, and pairs with one come after them in
+slot order), and a small synthetic room at 64x48."""
 
 import pytest
 import torch
@@ -85,9 +90,13 @@ def _cases():
     summary = no_neg[3].clone()
     summary[:, :64] = summary[:, :64].abs()
     no_neg[3] = summary
+    tied = list(fixture)
+    summary = tied[3].clone()
+    summary[:, :64] = torch.clamp(summary[:, :64], max=0.0)
+    tied[3] = summary
     room = _fused(64, 48, 6, "out", 0.75, 16)
     return {"tracking fixture": fixture, "no negative sample": no_neg,
-            "room 64x48": room}
+            "tied keys": tied, "room 64x48": room}
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +135,7 @@ def _walk(gids, state, color, summary, bc, cam, tw, s_coarse, s_refine, kb,
     ps = torch.full((*shape, kb), LB, dtype=torch.int64)
     pi = torch.zeros((*shape, kb), dtype=torch.int64)
     n = {"listed": 0, "culled": 0, "hit": 0, "coarse_samples": 0, "prunable": 0,
-         "after_picks": 0}
+         "after_picks": 0, "tie_displaced": 0}
     for l in range(LB):
         live = valid[:, l][:, None].expand(shape)
         bo = [b[:, l][:, None] for b in borg]
@@ -169,11 +178,13 @@ def _walk(gids, state, color, summary, bc, cam, tw, s_coarse, s_refine, kb,
         assert not (prunable & (key < pk[..., kb - 1])).any()
         n["after_picks"] += int(held.sum())
         n["prunable"] += int(prunable.sum())
-        # step 3: the sorted insert, slot by slot (a tie stays)
+        # step 3: the sorted insert, slot by slot, by (key, slot)
         slot = torch.full(shape, l, dtype=torch.int64)
         info = (sf << 2) | (neg.to(torch.int64) << 1)
         for k in range(kb):
-            ins = key < pk[..., k]
+            tie = (key == pk[..., k]) & (slot < ps[..., k]) & torch.isfinite(key)
+            n["tie_displaced"] += int(tie.sum())
+            ins = (key < pk[..., k]) | tie
             for arr, new in ((pk, key), (ps, slot), (pi, info)):
                 old = arr[..., k].clone()
                 arr[..., k] = torch.where(ins, new, old)
@@ -279,14 +290,18 @@ def _plain_picks(margs):
     return torch.stack(slots, -1), torch.stack(infos, -1), keys, has_neg
 
 
-@pytest.mark.parametrize("name", ["tracking fixture", "no negative sample", "room 64x48"])
+@pytest.mark.parametrize("name", ["tracking fixture", "no negative sample", "tied keys",
+                                  "room 64x48"])
 def test_walk_with_skips_gives_the_plain_picks_and_output(cases, name):
     """The per-pixel walk with the work the kernel skips gives the plain
     version's picks (slot and info, pixel by pixel) and its output bit for
     bit, and every key with a negative sample lies below every other
     finite key.  Each case also shows the skips at work: most listed pairs
     miss, and `slab_misses` rules out all but a few of them; the refine
-    takes fewer samples than the plain version; with negative samples
+    takes fewer samples than the plain version; with tied keys a pair
+    pushed down by an insert displaces an equal key of a later slot (the
+    rule a pick without it got wrong on 1 pixel in ~800,000 of some
+    1200x680 prepare raycasts); with negative samples
     some pairs stop early, and on the fixture's 32-slot lists nearly every
     hit pair met after a pixel holds its picks could not enter, though
     they are few; without negative samples none stops early."""
@@ -313,6 +328,9 @@ def test_walk_with_skips_gives_the_plain_picks_and_output(cases, name):
         assert n["coarse_samples"] < n["hit"] * S_COARSE
     if name == "tracking fixture":
         assert 0.9 * n["after_picks"] < n["prunable"] < 0.05 * n["hit"]
+    if name == "tied keys":
+        # pushed-down pairs displaced equal keys of later slots
+        assert n["tie_displaced"] > 0
 
 
 if __name__ == "__main__":

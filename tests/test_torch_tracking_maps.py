@@ -93,15 +93,35 @@ def _config_dict(tmp, cams):
 XOR_MAX = 0.005
 VERTEX_MM = 1.0
 VERTEX_SHARE = 0.995
+# The XLA march's colour read rounds its trilinear weights to bf16 twice
+# (wz wy, then x wx: relative 2^-9 each) against the port's f32 weights on
+# the same 8-bit colours, so where both packages read the same cell at
+# crossings within VERTEX_MM a colour channel differs by at most ~4 x 2^-9
+# of a unit colour: COLOR_ATOL = 2/255.  The pixels whose crossing or
+# picked block differs (the thin set of the vertex gates) may differ by
+# more: COLOR_SHARE of the common hits lie within COLOR_ATOL.
+COLOR_ATOL = 2.0 / 255.0
+COLOR_SHARE = 0.995
 
 
 def _map_gaps(ref, other):
     """(hit-mask xor share, share of the common hits within VERTEX_MM) of
-    two (depth [H, W], vertex [H, W, 3]) numpy maps."""
-    (d0, v0), (d1, v1) = ref, other
+    two (depth [H, W], vertex [H, W, 3], ...) numpy maps."""
+    (d0, v0), (d1, v1) = ref[:2], other[:2]
     both = (d0 > 0) & (d1 > 0)
     dist_mm = np.linalg.norm(v0[both] - v1[both], axis=-1) * 1000
     return float(np.mean((d0 > 0) != (d1 > 0))), float(np.mean(dist_mm <= VERTEX_MM))
+
+
+def _color_gaps(ref, other):
+    """(share of the common hits whose three colour channels lie within
+    COLOR_ATOL, [the share of each map's hits with colour 0]) of two
+    (depth, vertex, colour [H, W, 3]) numpy maps."""
+    (d0, _, c0), (d1, _, c1) = ref, other
+    both = (d0 > 0) & (d1 > 0)
+    near = float(np.mean(np.abs(c0[both] - c1[both]).max(-1) <= COLOR_ATOL))
+    dark = [float(np.mean(c[d > 0].sum(-1) == 0)) for d, c in ((d0, c0), (d1, c1))]
+    return near, dark
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))
@@ -115,7 +135,12 @@ def test_tracking_mode_matches_the_xla_march(tmp_path, name):
     within VERTEX_MM (the bf16 reads' bound, above).  The march on the TPU
     kernel's semantics, which the tracking prepare ran before, misses the
     same gates (2-3.5% of the pixels flip, its p99 vertex gap is
-    centimetres)."""
+    centimetres).  The tracking mode's colour map (which the colour and
+    composite trackers read) against the XLA march's: COLOR_SHARE of the
+    common hits within COLOR_ATOL (the bf16 weights' bound, above), and
+    the same share of hits with colour 0 within 0.5% (fusion writes colour
+    only near the surface, and the trilinear read averages the voxels
+    without it: a dark map in both packages)."""
     cams, depths = _fixture(name)
     d = _config_dict(tmp_path, cams)
     je = JEngine(JConfig.from_dict(d), W, H, cams[0].K)
@@ -133,16 +158,21 @@ def test_tracking_mode_matches_the_xla_march(tmp_path, name):
     cam = cams[5]
     m = jrt.raycast(je.vol, jnp.asarray(cam.c2w), jnp.asarray(cam.K), W, H, lb, s_c, s_r,
                     p.raycast_chunk, 2)
-    ref = (np.asarray(m["depth_map"])[..., 0], np.asarray(m["vertex_map"]))
+    ref = (np.asarray(m["depth_map"])[..., 0], np.asarray(m["vertex_map"]),
+           np.asarray(m["color_map"]))
     assert (ref[0] > 0).mean() > 0.8
 
-    def port(track, k):
-        m = trc.raycast(tv, cam.c2w, cam.K, W, H, lb, s_c, s_r, k, need_color=False,
+    def port(track, k, need_color=False):
+        m = trc.raycast(tv, cam.c2w, cam.K, W, H, lb, s_c, s_r, k, need_color=need_color,
                         track=track)
-        return m["depth_map"].numpy()[..., 0], m["vertex_map"].numpy()
+        return (m["depth_map"].numpy()[..., 0], m["vertex_map"].numpy(),
+                m["color_map"].numpy())
 
-    xor, near = _map_gaps(ref, port(True, trc.TRACK_K_BLOCKS))
+    track = port(True, trc.TRACK_K_BLOCKS, need_color=True)
+    xor, near = _map_gaps(ref, track)
     assert xor <= XOR_MAX and near >= VERTEX_SHARE, (xor, near)
+    near, (dark_ref, dark) = _color_gaps(ref, track)
+    assert near >= COLOR_SHARE and abs(dark - dark_ref) <= 0.005, (near, dark_ref, dark)
     xor, near = _map_gaps(ref, port(False, 1))
     assert xor > XOR_MAX and near < VERTEX_SHARE, (xor, near)
 
