@@ -111,6 +111,14 @@ Phases (any failure exits non-zero before the final line):
      (the state its loop ended with), bit for bit with its plain version;
      color_gn_cuda likewise on the colour tracked path's last frame, and
      K3's tracking mode on that path's last prepare call (with colour);
+     `[window step]`: project_sh_fwd_cuda, project_sh_bwd_cuda and
+     window_adam_cuda (one launch each an Adam step, checked on every
+     path; each path line's `window_nodes_per_step` counts the nodes a
+     step adds to a window graph: the path's last captured window
+     captured again with all and with half its steps) on the main path's
+     last window step, bit for bit with their plain versions, then the
+     nodes per step and the megastep path's replay ms beside the parent's
+     records;
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -186,6 +194,7 @@ script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -387,10 +396,22 @@ def time_ms(fn, reps: int, warmup: int = 2, before=None) -> float:
     while the host runs the wrapper: the events then time the device work
     of fn alone, not the host's Python before the launch.  `before`, when
     given, runs ahead of each launch and its flush, outside the events
-    (it restores what fn updates in place)."""
+    (it restores what fn updates in place).  The garbage collector is
+    off meanwhile: a full collection of the script's heap, late in the
+    run, can outlast the spin and stall the card between the events."""
     global _L2_FLUSH
     if _L2_FLUSH is None:
         _L2_FLUSH = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        return _time_ms(fn, reps, warmup, before)
+    finally:
+        if gc_was:
+            gc.enable()
+
+
+def _time_ms(fn, reps: int, warmup: int, before) -> float:
     for _ in range(warmup):
         if before is not None:
             before()
@@ -443,7 +464,10 @@ def bench_config(n_frames: int, width: int, height: int, cam0,
 class Recorder:
     """Keeps the arguments of the last call of each kernel wrapper (of
     `icp_gn.iterate` and `color_gn.iterate`, one per pyramid level
-    size)."""
+    size); not of the calls made while `Recorder.paused` holds (the extra
+    window captures of `window_nodes_per_step`)."""
+
+    paused = False
 
     def __init__(self):
         from gps_slam_torch.gs import rasterize as trz
@@ -456,10 +480,27 @@ class Recorder:
             orig = getattr(mod, name)
 
             def wrap(*args, _orig=orig, _name=name, **kw):
-                self.last[_name] = (args, kw)
+                if not Recorder.paused:
+                    self.last[_name] = (args, kw)
                 return _orig(*args, **kw)
 
             setattr(mod, name, wrap)
+        from gps_slam_torch.gs import gauss_step, optim
+
+        # the Adam step's per-Gaussian kernels: the forward of a step (its
+        # means require a grad; binning, spawn and eval renders do not),
+        # the backward, and the optimizer (its state after the call)
+        for mod, name, keep in ((gauss_step, "project_sh_fwd", lambda a: a[0].requires_grad),
+                                (gauss_step, "project_sh_bwd", lambda a: True),
+                                (optim, "window_adam", lambda a: True)):
+            orig = getattr(mod, name)
+
+            def step_wrap(*args, _orig=orig, _name=name, _keep=keep, **kw):
+                if not Recorder.paused and _keep(args):
+                    self.last[_name] = (args, kw)
+                return _orig(*args, **kw)
+
+            setattr(mod, name, step_wrap)
         from gps_slam_torch.slam import color_gn, icp_gn
 
         # one entry per level size: ("icp_gn", (h, w)) of the depth,
@@ -468,7 +509,8 @@ class Recorder:
             iterate = mod.iterate
 
             def gn_wrap(*args, _iterate=iterate, _name=name, _image=image, **kw):
-                self.last[(_name, tuple(args[_image].shape[:2]))] = (args, kw)
+                if not Recorder.paused:
+                    self.last[(_name, tuple(args[_image].shape[:2]))] = (args, kw)
                 return _iterate(*args, **kw)
 
             mod.iterate = gn_wrap
@@ -482,6 +524,38 @@ def epoch_means(hist: np.ndarray, n_cams: int) -> tuple[float, float]:
     if k < 2:
         raise RuntimeError(f"window of {len(hist)} steps has < 2 epochs of {n_cams}")
     return float(hist[:n_cams].mean()), float(hist[(k - 1) * n_cams:k * n_cams].mean())
+
+
+def window_nodes_per_step(key: tuple, inputs: dict, statics: dict, vol, pool) -> float:
+    """The kernel nodes one Adam step adds to a window graph: a window
+    (`SLAMPipeline._megastep_window`'s key, inputs and statics) captured
+    in a fresh `WindowGraphs` with all its steps and with half of them,
+    each on its own copy of the pool; the difference of the two captures'
+    nodes (`node_counts`) over the steps between them, as
+    tools/window_step_time.py counts it.  The volume is only read, and
+    the `Recorder` keeps none of these calls."""
+    import dataclasses
+
+    from gps_slam_torch.gs import params as pmod
+    from gps_slam_torch.slam import megastep as ms
+
+    steps, half = key[1], key[1] // 2
+    nodes = []
+    Recorder.paused = True
+    try:
+        for n in (steps, half):
+            copy = dataclasses.replace(pool, **{
+                k: getattr(pool, k).clone() for k in (*pmod.PARAM_KEYS, "alive")})
+            graphs = ms.WindowGraphs()
+            graphs.run((key[0], n, *key[2:]), vol, copy,
+                       dict(inputs, iter_cam_idx=inputs["iter_cam_idx"][:n]), **statics)
+            nodes.append(graphs.node_counts[0]["nodes"])
+            del graphs, copy
+        torch.cuda.synchronize()
+    finally:
+        Recorder.paused = False
+    torch.cuda.empty_cache()
+    return (nodes[0] - nodes[1]) / (steps - half)
 
 
 def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
@@ -580,6 +654,15 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
                 k: v.detach().cpu() for k, v in (*model.pool.params.items(),
                                                  ("alive", model.pool.alive))}
 
+    # the window of each graph capture (its key, inputs and statics), for
+    # `window_nodes_per_step`
+    drawn, captured = [None], []
+    draw_window = pipe._megastep_window
+
+    def recorded_draw(model_):
+        drawn[0] = draw_window(model_)
+        return drawn[0]
+
     t_window = [0.0]
     raycast_opt_set, remove_redundant = pipe._raycast_opt_set, pipe.remove_redundant
     run_megastep = pipe._run_window_megastep
@@ -603,6 +686,8 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
         hist = pipe._last_loss_hist.cpu().numpy()
         windows.append((len(pipe.opt_cam_list), hist, len(hist)))
         key, event = pipe._window_graphs.last
+        if event == "capture":
+            captured.append(drawn[0])
         window_log.append({"frame": pipe.curr_frame_id, "route": "megastep",
                            "graph": event, "ms": ms_,
                            "key": {"M": key[0], "steps": key[1], "spawn_idx": key[11],
@@ -612,6 +697,7 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
     pipe._raycast_opt_set = eager_start
     pipe.remove_redundant = eager_end
     pipe._run_window_megastep = megastep_window
+    pipe._megastep_window = recorded_draw
     gmodel.window_optimize = record_window
     for c in cams:
         pipe.frame_cache.get(c)
@@ -641,6 +727,7 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
             train_s, eval_s = drive()
     finally:
         gmodel.window_optimize = window_optimize
+        del pipe._megastep_window
         if swapped is not None:
             swapped.detach()
     launches = kernels.counts()
@@ -650,6 +737,10 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
         for name, n in g.replayed_launches.items():
             launches[name] += n
     fg = engine._fusion_graphs
+    # the kernel nodes one Adam step adds to a window graph (None: no
+    # window was captured)
+    nodes_per_step = (window_nodes_per_step(*captured[-1], engine.vol, model.pool)
+                      if captured and iters > 1 else None)
     psnrs = []
     for cs, rgb in renders:
         if tuple(rgb.shape) != (len(cs), H, W, 3) or not bool(torch.isfinite(rgb).all()):
@@ -680,7 +771,9 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
         "megastep": {"captures": graphs.captures, "replays": graphs.replays,
                      "dropped": graphs.dropped, "graph_mb": graphs.memory_bytes / 2 ** 20,
                      "graphs_held_max": graphs.peak_resident,
-                     "graphs_held_end": len(graphs.graphs)},
+                     "graphs_held_end": len(graphs.graphs),
+                     "graph_nodes": [c["nodes"] for c in graphs.node_counts]},
+        "window_nodes_per_step": nodes_per_step,
         "eval_views": len(eval_cams), "eval_s": eval_s,
         "n_blocks": sum(v.n_blocks for v in vols), "gaussians": model.num_gaussians,
         "psnr_mean": float(np.mean(psnrs)), "psnr_min": float(np.min(psnrs)),
@@ -731,6 +824,14 @@ def run_path(args, cams, iters: int, tag: str, fusion, tracked=None, swap=None,
         raise RuntimeError(f"{tag}: {launches[kernels.SPLAT_BWD.name]} K5 launches "
                            f"for {out['adam_steps_with_tiles']} Adam steps with "
                            f"active tiles (eager) or in a megastep window")
+    # every Adam step launches the step's backward and the optimizer once,
+    # its forward at least once (binning, spawn and eval renders add more)
+    steps = out["adam_steps"]
+    step_launches = [launches[k.name] for k in (kernels.PROJECT_SH_FWD,
+                                                kernels.PROJECT_SH_BWD, kernels.WINDOW_ADAM)]
+    if not (step_launches[0] >= max(steps, 1) and step_launches[1:] == [steps, steps]):
+        raise RuntimeError(f"{tag}: project_sh_fwd/bwd and window_adam launched "
+                           f"{step_launches} times for {steps} Adam steps")
     routes = [w["route"] for w in window_log]
     want = (["eager"] * n_windows if not megastep or swap is not None or shards > 1
             else ["eager"] + ["megastep"] * (n_windows - 1))
@@ -1162,6 +1263,8 @@ def megastep_path(args) -> dict:
                                           if w["graph"] == "capture"] or [np.nan])),
         **{k: mo["megastep"][k] for k in ("captures", "replays", "dropped", "graph_mb",
                                           "graphs_held_max", "graphs_held_end")},
+        "window_nodes_per_step": mo["window_nodes_per_step"],
+        "graph_nodes": mo["megastep"]["graph_nodes"],
         "max_memory_allocated_mb": mo["max_memory_allocated_mb"],
         "eager_max_memory_allocated_mb": eo["max_memory_allocated_mb"],
         "psnr_mean": mo["psnr_mean"], "eager_psnr_mean": eo["psnr_mean"],
@@ -1994,6 +2097,213 @@ def color_tracked_path(args, rec, cams) -> tuple[dict, list, list]:
            out["tracking_prepare_k3_launches"],
            {"launches_path": out["launches"][kernels.RAYCAST.name]}, True)]
     return res, k3, gn_calls
+
+
+# f32 operations of project_sh_fwd_cuda and project_sh_bwd_cuda at SH
+# degree 3, counted from their expressions.  A row's projection: the camera
+# point, the quaternion's rotation, the scales' exp, M, Cw, Rc Cw Rc^T
+# (~180), the Jacobian, 2D covariance, conic, radius and cull (~80); the
+# backward recomputes it and runs its chain back (~300).  A visible row's
+# SH (a culled row's colour is 0.5 and its SH grads are 0, whatever its
+# coefficients): the direction and 3 channels of 16 coefficients (~210);
+# the backward recomputes them and runs the SH's chain back (15
+# coefficients x ~17, the basis and its derivatives, ~330)
+PROJECT_FWD_OPS, SH_FWD_OPS = 260, 210
+PROJECT_BWD_OPS, SH_BWD_OPS = 560, 540
+# records of the parent tree for the `[window step]` line (PERF.md
+# section 5): tools/window_step_time.py on the parent and on this tree in
+# one call on an NVIDIA H100 80GB HBM3 at 700 W (the kernel nodes one Adam
+# step adds to a window graph, and the device ms of the tool's replayed
+# window), and the `[megastep path]` replays of an earlier tree's run
+PARENT_RECORDS = {
+    "window_nodes_per_step": 1284,
+    "tool_replay_device_ms": [73.28, 73.53],
+    "tool_source": "tools/window_step_time.py on the parent tree, NVIDIA H100 80GB HBM3, "
+                   "700.00 W",
+    "megastep_path_replay_ms": [86.0, 102.0],
+    "megastep_path_source": "chip_smoke.py [megastep path] replays (host clock) before "
+                            "the window step's kernels, NVIDIA H100 80GB HBM3, 700.00 W",
+}
+
+
+def _step_row(name: str, kernel, source: str, replaces: str, launches: int, ok: bool,
+              max_err: float, ms: float, plain_ms: float, n_bytes: float, n_ops: float,
+              library_ms, extra: dict) -> dict:
+    b, by = bound_ms(n_bytes, n_ops)
+    row = {"name": name, "tpu": None, "design": kernel.design, "route": "cuda",
+           "source": source, "replaces": replaces, "launches": launches,
+           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+           "bound_by": by, "library_ms": library_ms, "ok": ok, "bytes": n_bytes,
+           "ops": n_ops, **extra}
+    log("[kernel] " + json.dumps(row))
+    return row
+
+
+def _bits_equal(a, b) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _max_err(a, b) -> float:
+    if a.dtype != torch.float32 or a.numel() == 0:
+        return float((a != b).sum().item())
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return float(torch.where(same, 0.0, (a - b).abs()).nan_to_num(float("inf")).max().item())
+
+
+def window_step_phase(last: dict, launches: dict, mega: dict) -> list[dict]:
+    """`[window step]`: the Adam step's three kernels against their plain
+    versions on the main path's last window (the last step of its last
+    window, a captured megastep window: the tensors hold its last run):
+    project_sh_fwd_cuda on that step's forward, project_sh_bwd_cuda on its
+    backward (its radii and cotangents), window_adam_cuda on the
+    optimizer's state after it (the last step's schedule row, on copies);
+    each bit for bit with its plain version and a second launch the same
+    bits.  `ms` by CUDA events after an L2 flush; the bound: each input
+    row read once, each output written once, over the card's memory rate
+    (the operations take less); the SH coefficients, and the colours'
+    cotangents, count only for the rows with a radius (a culled row's
+    colour is 0.5 and its SH grads are 0 whatever they hold): the function
+    needs no more, though the backward reads every row's.  window_adam's
+    library column times torch._fused_adam_ on the same seven groups (its
+    own Adam, timed only).  Then one line of the window graph's kernel
+    nodes per Adam step and the megastep path's replay ms, beside the
+    parent's records (PARENT_RECORDS)."""
+    import copy
+
+    from gps_slam_torch import kernels
+    from gps_slam_torch.gs import gauss_step as gs
+    from gps_slam_torch.gs import optim
+
+    rows = []
+    # ---- project_sh_fwd_cuda: the last step's forward
+    a, _ = last["project_sh_fwd"]
+    means, quats, ls, fdc, frest, alive, viewmat, c2w, active, cam, st = a
+    outs = [gs.project_sh_fwd(*a), gs.project_sh_fwd(*a), gs.project_sh_fwd_plain(*a)]
+    torch.cuda.synchronize()
+    ok = all(_bits_equal(x, z) and _bits_equal(x, y) for x, y, z in zip(*outs))
+    err = max(_max_err(x, z) for x, z in zip(outs[0], outs[2]))
+    N, nc = means.shape[0], frest.shape[1] + 1
+    vis = int((outs[0][3] > 0).sum().item())
+    if vis == 0:
+        raise RuntimeError("window step: the recorded step's forward has no visible row")
+    # inputs: means, quats, log-scales and alive of every row, the SH of
+    # the visible rows; outputs: means2d, conics, depths, radii, colours;
+    # the two 4 x 4 poses
+    fwd_bytes = (N * ((3 + 4 + 3) * 4 + 1) + vis * 3 * nc * 4
+                 + N * (2 + 3 + 1 + 1 + 3) * 4 + 2 * 64)
+    fwd_ops = N * PROJECT_FWD_OPS + vis * SH_FWD_OPS
+    shapes = {"rows": N, "sh_coeffs": nc, "sh_degree": st.sh_degree, "visible": vis}
+    rows.append(_step_row(
+        kernels.PROJECT_SH_FWD.name, kernels.PROJECT_SH_FWD, "gps_slam_torch/csrc/gauss_step.cu",
+        "gps_slam_tpu/gs/model.py:58-79 (XLA: projection.py:72, sh.py:44)",
+        launches[kernels.PROJECT_SH_FWD.name], ok, err,
+        time_ms(lambda: gs.project_sh_fwd(*a), 50), time_ms(lambda: gs.project_sh_fwd_plain(*a), 5, 1),
+        fwd_bytes, fwd_ops, None,
+        {"shapes": shapes, "tolerance": "every output bit for bit; a second launch the same bits"}))
+
+    # ---- project_sh_bwd_cuda: the last step's backward
+    a, _ = last["project_sh_bwd"]
+    outs = [gs.project_sh_bwd(*a), gs.project_sh_bwd(*a), gs.project_sh_bwd_plain(*a)]
+    torch.cuda.synchronize()
+    ok = all(_bits_equal(x, z) and _bits_equal(x, y) for x, y, z in zip(*outs))
+    err = max(_max_err(x, z) for x, z in zip(outs[0], outs[2]))
+    cots = [v for v in a[11:] if v is not None]
+    # inputs: means, quats, log-scales and radii of every row, the SH of
+    # the visible rows; the cotangents of means2d, conics and depths of
+    # every row, of the colours (the last) of the visible rows; outputs:
+    # the grads of means, quats, log-scales and SH
+    cot_floats = sum(v.numel() for v in a[11:14] if v is not None)
+    cot_floats += 3 * vis if a[14] is not None else 0
+    bwd_bytes = (N * (3 + 4 + 3 + 1) * 4 + vis * 3 * nc * 4 + cot_floats * 4
+                 + N * (3 + 4 + 3 + 3 * nc) * 4 + 2 * 64)
+    bwd_ops = N * PROJECT_BWD_OPS + vis * SH_BWD_OPS
+    rows.append(_step_row(
+        kernels.PROJECT_SH_BWD.name, kernels.PROJECT_SH_BWD, "gps_slam_torch/csrc/gauss_step.cu",
+        "gps_slam_tpu/gs/model.py:357-374,396 (XLA: jax.grad of model.py:58-79)",
+        launches[kernels.PROJECT_SH_BWD.name], ok, err,
+        time_ms(lambda: gs.project_sh_bwd(*a), 50), time_ms(lambda: gs.project_sh_bwd_plain(*a), 5, 1),
+        bwd_bytes, bwd_ops, None,
+        {"shapes": {**shapes, "cotangents": len(cots)},
+         "tolerance": "every grad bit for bit; a second launch the same bits"}))
+
+    # ---- window_adam_cuda: the optimizer's state after the last step,
+    # stepped once more with that step's schedule row, on copies
+    (opt,), _ = last["window_adam"]
+    row_idx = opt.count - 1
+
+    def clone_opt():
+        o = copy.copy(opt)
+        o.params = {}
+        for k, p in opt.params.items():
+            q = p.detach().clone()
+            q.grad = None if p.grad is None else p.grad.clone()
+            o.params[k] = q
+        o.mu = {k: v.clone() for k, v in opt.mu.items()}
+        o.nu = {k: v.clone() for k, v in opt.nu.items()}
+        o.count = row_idx
+        return o
+
+    ka, kb, pl = clone_opt(), clone_opt(), clone_opt()
+    optim.window_adam(ka)
+    optim.window_adam(kb)
+    pl._step_plain()
+    torch.cuda.synchronize()
+    pairs = [(ka.params[k], pl.params[k]) for k in opt.params]
+    pairs += [(ka.mu[k], pl.mu[k]) for k in opt.mu] + [(ka.nu[k], pl.nu[k]) for k in opt.nu]
+    ok = all(_bits_equal(x, y) for x, y in pairs) and all(
+        _bits_equal(ka.params[k], kb.params[k]) for k in opt.params)
+    err = max(_max_err(x, y) for x, y in pairs)
+    t = clone_opt()
+    saved = clone_opt()
+
+    def restore():
+        for k in t.params:
+            t.params[k].copy_(saved.params[k])
+            t.mu[k].copy_(saved.mu[k])
+            t.nu[k].copy_(saved.nu[k])
+
+    ms = time_ms(lambda: optim.window_adam(t), 50, before=restore)
+    plain_ms = time_ms(lambda: t._step_plain(), 5, 1, before=restore)
+    numel = sum(p.numel() for p in opt.params.values())
+    with_grad = sum(p.numel() for p in opt.params.values() if p.grad is not None)
+    # p, mu, nu read and written, the grads read (a missing one is zero)
+    adam_bytes = numel * 6 * 4 + with_grad * 4 + 3 * 4
+    # the library's fused Adam over the same groups (timed only)
+    lib = clone_opt()
+    plist = [p for p in lib.params.values() if p.numel()]
+    glist = [p.grad if p.grad is not None else torch.zeros_like(p) for p in plist]
+    keys = [k for k, p in lib.params.items() if p.numel()]
+    steps_t = [torch.full((), float(row_idx + 1), device=plist[0].device) for _ in plist]
+    mus, nus = [lib.mu[k] for k in keys], [lib.nu[k] for k in keys]
+    library_ms = time_ms(lambda: torch._fused_adam_(
+        plist, glist, mus, nus, [], steps_t, lr=1e-3, beta1=optim.B1, beta2=optim.B2,
+        weight_decay=0.0, eps=optim.EPS, amsgrad=False, maximize=False), 50)
+    rows.append(_step_row(
+        kernels.WINDOW_ADAM.name, kernels.WINDOW_ADAM, "gps_slam_torch/csrc/window_adam.cu",
+        "gps_slam_tpu/gs/optim.py:24-53 (XLA: model.py:398)",
+        launches[kernels.WINDOW_ADAM.name], ok, err, ms, plain_ms, adam_bytes, numel * 12,
+        library_ms,
+        {"shapes": {"elements": numel, "with_grad": with_grad, "attributes": len(opt.params),
+                    "schedule_row": row_idx},
+         "library_call": "torch._fused_adam_ over the same groups (one lr)",
+         "tolerance": "params and both moments bit for bit; a second launch the same bits"}))
+    bad = [r["name"] for r in rows if not r["ok"]]
+    summary = {
+        "window_nodes_per_step": mega["window_nodes_per_step"],
+        "window_graph_nodes": mega["graph_nodes"],
+        "replay_ms_mean": mega["replay_ms_mean"],
+        "replay_ms": [w["ms"] for w in mega["windows"] if w["graph"] == "replay"],
+        "parent_records": PARENT_RECORDS,
+        "step_launches": {k: launches[k] for k in (
+            kernels.PROJECT_SH_FWD.name, kernels.PROJECT_SH_BWD.name, kernels.WINDOW_ADAM.name)}}
+    log("[window step] " + json.dumps(summary))
+    if bad:
+        raise RuntimeError(f"window step kernels disagree with their plain versions: {bad}")
+    return rows
 
 
 # f32 and f64 operations of icp_gn_cuda's first kernel a pixel, counted
@@ -3632,7 +3942,7 @@ def main() -> int:
     lpips_phase(args, main_engine, main_model, main_cams)
     prefetch_phase(main_cams)
     del main_engine, main_model, main_alloc
-    megastep_path(args)
+    mega = megastep_path(args)
     k2, k3_large = large_frame_paths(args, rec)
     tracked_cams = synthetic_cams(N_FRAMES, 1200, 680, look="in", arc=TRACKED_ARC)
     tracked, k3_tracked = tracked_path(args, rec, tracked_cams)
@@ -3648,6 +3958,7 @@ def main() -> int:
     k3 = [(None, main_last["march"], mp["launches"][kernels.RAYCAST.name]), k3_large,
           *k3_tracked, *k3_color, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
+    rows += window_step_phase(main_last, mp["launches"], mega)
     rows.append(graph_while_row(tracked["launches"][kernels.GRAPH_WHILE.name]))
     rows += [icp_gn_row(*r) for r in tracked.pop("gn_calls")]
     rows += [color_gn_row(*r) for r in color_calls]

@@ -18,7 +18,7 @@ import torch
 from .. import resolve_device
 from ..config import Config
 from ..utils.se3 import pose_inv
-from . import losses, optim, params as pmod, projection, rasterize, sh
+from . import gauss_step, losses, optim, params as pmod, projection, rasterize
 from .params import GaussianPool
 
 
@@ -43,25 +43,58 @@ class RenderStatics(NamedTuple):
     bin_margin_px: float = 2.0
 
 
+class ProjectSH(torch.autograd.Function):
+    """Projection and SH colours of every row (`gauss_step.project_sh_fwd`)
+    with the analytic backward (`gauss_step.project_sh_bwd`): on the card
+    one launch of each of `project_sh_fwd_cuda` and `project_sh_bwd_cuda`.
+    Only the inputs and the radii are saved; the backward recomputes the
+    rest.  Gradients reach the means, quats, log-scales and both SH
+    arrays; the camera and the active degree take none, the radii are not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, means, quats, log_scales, features_dc, features_rest, alive,
+                viewmat, c2w, active_degree, cam, st):
+        if ctx.needs_input_grad[6] or ctx.needs_input_grad[7]:
+            raise NotImplementedError("ProjectSH: no gradient reaches the camera")
+        out = gauss_step.project_sh_fwd(means, quats, log_scales, features_dc,
+                                        features_rest, alive, viewmat, c2w,
+                                        active_degree, cam, st)
+        radii = out[3]
+        ctx.mark_non_differentiable(radii)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(means, quats, log_scales, features_dc, features_rest,
+                              radii, viewmat, c2w, active_degree)
+        ctx.cam, ctx.st = cam, st
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, v_means2d, v_conics, v_depths, _v_radii, v_colors):
+        g_means, g_quats, g_scales, g_dc, g_rest = gauss_step.project_sh_bwd(
+            *ctx.saved_tensors, ctx.cam, ctx.st,
+            *(None if v is None else v.contiguous()
+              for v in (v_means2d, v_conics, v_depths, v_colors)))
+        # what the loss does not reach takes no grad, as in autograd
+        if v_means2d is None and v_conics is None and v_depths is None:
+            g_quats = g_scales = None
+        if v_colors is None:
+            g_dc = g_rest = None
+        return g_means, g_quats, g_scales, g_dc, g_rest, None, None, None, None, None, None
+
+
 def _project_and_colors(params, alive, c2w, K, st: RenderStatics,
                         active_sh_degree=None):
     """Projection and SH colours (+0.5, clamped at 0) shared by the GES and
-    classic renders; `active_sh_degree` is the offline SH ramp."""
-    viewmat = pose_inv(c2w)
-    proj = projection.project(
-        params["means"], params["quats"], torch.exp(params["scales"]),
-        viewmat, K, st.width, st.height, eps2d=st.eps2d,
-        near_plane=st.near_plane, far_plane=st.far_plane,
-        radius_clip=st.radius_clip, valid=alive)
-    radii = proj.radii
-    if st.max_gs_radii > 0:
-        radii = torch.clamp(radii, max=st.max_gs_radii)
-    coeffs = torch.cat([params["features_dc"][:, None, :],
-                        params["features_rest"]], 1)
-    viewdirs = params["means"] - c2w[:3, 3]
-    colors = sh.eval_sh(st.sh_degree, viewdirs, coeffs, mask=radii > 0,
-                        active_degree=active_sh_degree)
-    return proj, radii, torch.clamp(colors + 0.5, min=0.0)
+    classic renders (`ProjectSH`); `active_sh_degree` is the offline SH
+    ramp."""
+    cam = projection.camera(K, st.width, st.height)
+    means2d, conics, depths, radii, colors = ProjectSH.apply(
+        params["means"], params["quats"], params["scales"], params["features_dc"],
+        params["features_rest"], alive, pose_inv(c2w), c2w, active_sh_degree, cam, st)
+    proj = projection.Projection(radii=radii, means2d=means2d, depths=depths,
+                                 conics=conics)
+    return proj, radii, colors
 
 
 def ges_bin(params, alive, c2w, K, st: RenderStatics,

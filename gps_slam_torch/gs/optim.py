@@ -9,6 +9,10 @@ the reference re-initialises its Adam state; the offline trainers keep one
 across PIPE.max_iterations (`GaussianModel.init_optimizers`), where
 `zero_state_rows` clears the moments of the pool rows densify touched.
 
+On the card one step is one launch of `window_adam_cuda`
+(csrc/window_adam.cu) over every attribute, bit for bit with the plain
+version `WindowAdam._step_plain`.
+
 Written out rather than torch.optim.Adam because the bias corrections
 1 - b**t are ill-conditioned in f32 (1 - 0.999 rounds to 1.3e-5 off):
 computed in f32 like optax, the update is the JAX package's to the last
@@ -17,10 +21,13 @@ bits instead of ~1e-5 of a step away.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -68,10 +75,21 @@ class WindowAdam:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update from each param's .grad (a missing grad is zero)."""
+        """One update from each param's .grad (a missing grad is zero).
+        CPU tensors take `_step_plain`; CUDA tensors one launch of
+        `window_adam_cuda` over every attribute, which updates the moments
+        and the params in place, or raise."""
         if self.count >= self.table.shape[0]:
             raise IndexError(f"WindowAdam: update {self.count + 1} past the "
                              f"{self.table.shape[0]} steps it was made for")
+        if self.table.device.type == "cuda":
+            window_adam(self)
+        else:
+            self._step_plain()
+        self.count += 1
+
+    def _step_plain(self) -> None:
+        """The plain version of `window_adam_cuda`: update `count`'s."""
         # device tensors, not host scalars: torch on CUDA divides by a host
         # scalar as a multiplication by its reciprocal
         bc1, bc2, means_lr = self.table[self.count]
@@ -81,11 +99,56 @@ class WindowAdam:
             self.nu[k] = (1.0 - B2) * (g * g) + B2 * self.nu[k]
             upd = (self.mu[k] / bc1) / (torch.sqrt(self.nu[k] / bc2) + EPS)
             p.add_(upd * (-means_lr if k == "means" else -self.lrs[k]))
-        self.count += 1
 
     def zero_grad(self) -> None:
         for p in self.params.values():
             p.grad = None
+
+
+class _Group(ctypes.Structure):
+    """csrc/window_adam.cu's `Group`: one attribute's update."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p), ("mu", ctypes.c_void_p),
+                ("nu", ctypes.c_void_p), ("n", ctypes.c_longlong), ("neg_lr", ctypes.c_float),
+                ("table_lr", ctypes.c_int)]
+
+
+MAX_GROUPS = 8
+
+
+class _Args(ctypes.Structure):
+    """csrc/window_adam.cu's `Args`, passed to the kernel by value."""
+
+    _fields_ = [("g", _Group * MAX_GROUPS), ("offset", ctypes.c_longlong * (MAX_GROUPS + 1))]
+
+
+def window_adam(opt: WindowAdam) -> None:
+    """Update `opt.count` of every attribute of `opt` in one launch of
+    `window_adam_cuda` (see `WindowAdam.step`); raises on anything the
+    kernel does not take."""
+    k = kernels.WINDOW_ADAM
+    if len(opt.params) > MAX_GROUPS:
+        raise ValueError(f"{k.name}: {len(opt.params)} attributes, at most {MAX_GROUPS}")
+    kernels.check_tensor(k, "table", opt.table, torch.float32, (opt.table.shape[0], 3))
+    args = _Args()
+    total = 0
+    for i, (name, p) in enumerate(opt.params.items()):
+        for what, t in (("param", p), ("grad", p.grad), ("mu", opt.mu[name]),
+                        ("nu", opt.nu[name])):
+            if t is not None:
+                kernels.check_tensor(k, f"{name} {what}", t, torch.float32, p.shape)
+        table_lr = name == "means"
+        args.g[i] = _Group(p.data_ptr(), None if p.grad is None else p.grad.data_ptr(),
+                           opt.mu[name].data_ptr(), opt.nu[name].data_ptr(), p.numel(),
+                           0.0 if table_lr else -opt.lrs[name], int(table_lr))
+        args.offset[i] = total
+        total += p.numel()
+    for i in range(len(opt.params), MAX_GROUPS + 1):
+        args.offset[i] = total
+    err = k.fn(ctypes.byref(args), opt.table.data_ptr(), opt.count, kernels.stream_ptr())
+    if total > 0:
+        k.launches += 1
+    kernels.check(k, err)
 
 
 @torch.no_grad()

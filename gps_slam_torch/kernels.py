@@ -1,6 +1,7 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each kernel lives in one `csrc/*.cu` file with a plain C entry point.  The
+Each kernel lives in one `csrc/*.cu` file with a plain C entry point (two
+kernels may share a file, each with its own entry).  The
 first call that needs a kernel compiles every source with `nvcc` for
 sm_90a into `build/` at the repository root (one `nvcc` process per
 source, all started together) and loads the shared libraries with
@@ -145,8 +146,27 @@ COLOR_GN = Kernel(
     "44 sums by an xor transpose, per-CTA f64 rows; the last CTA sums the rows in "
     "the same order and takes the colour LM step in one warp")
 
+# kernels A and B of an Adam step share one source (one library, two
+# entries, two counters)
+PROJECT_SH_FWD = Kernel(
+    "project_sh_fwd_cuda", "gauss_step.cu", "project_sh_fwd",
+    [P] * 14 + [I] * 6 + [F] * 12 + [P],
+    "one thread a row, all in registers: camera point, covariance, clamped "
+    "Jacobian, conic, radius and cull, SH colour (a culled row's SH not read); "
+    "instanced per SH degree")
+PROJECT_SH_BWD = Kernel(
+    "project_sh_bwd_cuda", "gauss_step.cu", "project_sh_bwd",
+    [P] * 18 + [I] * 3 + [F] * 9 + [P],
+    "one thread a row: the forward's intermediates recomputed in registers, "
+    "then the analytic chain back to means, quats, log-scales and SH; "
+    "instanced per SH degree")
+WINDOW_ADAM = Kernel(
+    "window_adam_cuda", "window_adam.cu", "window_adam", [P, P, I, P],
+    "one thread an element over the attributes laid end to end; pointers, "
+    "sizes and learning rates by value in the launch's arguments")
+
 ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE, ICP_GN,
-       COLOR_GN)
+       COLOR_GN, PROJECT_SH_FWD, PROJECT_SH_BWD, WINDOW_ADAM)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 
@@ -166,10 +186,12 @@ def build_all() -> None:
             return
         BUILD.mkdir(parents=True, exist_ok=True)
         procs = []
+        building = set()   # a source of several kernels is built once
         for k in todo:
             out = k.lib_path()
-            if out.exists():
+            if out.exists() or out in building:
                 continue
+            building.add(out)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *k.nvcc_flags(), "-o", str(tmp), str(k.path)]
             procs.append((k, out, tmp, subprocess.Popen(

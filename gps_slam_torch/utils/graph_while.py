@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import threading
 from dataclasses import dataclass, field
 
@@ -100,16 +101,25 @@ def body_pool(device=None) -> torch.cuda.MemPool:
 @contextlib.contextmanager
 def capture(graph: torch.cuda.CUDAGraph):
     """`torch.cuda.graph(graph)` in which `while_loop` may add WHILE
-    nodes; yields the `Capture`."""
+    nodes; yields the `Capture`.  The garbage collector runs before the
+    capture and is off during it: a collection inside the capture that
+    frees another graph (one held by a dead reference cycle) destroys it
+    there, which the runtime forbids while a stream captures, and the
+    capture is lost."""
     body_stream()
     body_pool()
     cap = Capture()
     _local.capture = cap
+    gc.collect()
+    gc_was = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph):
             yield cap
     finally:
         _local.capture = None
+        if gc_was:
+            gc.enable()
 
 
 def capturing(device: torch.device) -> bool:

@@ -576,7 +576,9 @@ def test_wrappers_never_read_back(cuda_device, fused):
     assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
                                 "raycast_cuda": 2, "splat_fwd_cuda": 0,
                                 "splat_bwd_cuda": 0, "graph_while_cuda": 0,
-                                "icp_gn_cuda": 2, "color_gn_cuda": 1}
+                                "icp_gn_cuda": 2, "color_gn_cuda": 1,
+                                "project_sh_fwd_cuda": 0, "project_sh_bwd_cuda": 0,
+                                "window_adam_cuda": 0}
 
 
 @pytest.mark.cuda
@@ -1958,3 +1960,170 @@ def test_color_gn_cuda_zero_steps(color_levels):
         new = runs[0][0]
         assert torch.equal(new[:16], state[16:32]) and float(new[34]) == 0.0, case
         assert not bool(runs[0][2]), case
+
+
+# ------------------------------- the Adam step's per-Gaussian kernels
+
+
+def _bits_equal(a, b) -> bool:
+    """The same shape, dtype and bits (a NaN equal to a NaN of its bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _gauss_inputs(n: int, degree: int, device, seed: int):
+    """n Gaussians around a 1200x680 camera (some behind it, some far to
+    the side, 10% dead), random SH of `degree`, and random cotangents of
+    every output of `project_sh_fwd`."""
+    from gps_slam_torch.gs import model as tmodel
+
+    rng = np.random.default_rng(seed)
+    a = 0.2
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    c2w[:3, 3] = [0.2, -0.1, -0.4]
+    z = rng.uniform(-0.5, 5.0, n)
+    lat = rng.uniform(-1.0, 1.0, (n, 2)) * np.maximum(z, 0.2)[:, None]
+    lat[: n // 8] *= 4.0
+    means = np.concatenate([lat, z[:, None]], 1) @ c2w[:3, :3].T + c2w[:3, 3]
+    nb = (degree + 1) ** 2
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)  # noqa: E731
+    p = {"means": f(means), "quats": f(rng.normal(size=(n, 4))),
+         "scales": f(rng.uniform(-6.0, -0.5, (n, 3))),
+         "features_dc": f(rng.normal(0, 0.5, (n, 3))),
+         "features_rest": f(rng.normal(0, 0.3, (n, nb - 1, 3)))}
+    alive = torch.as_tensor(rng.random(n) > 0.1, device=device)
+    cot = [f(rng.normal(size=s)) for s in ((n, 2), (n, 3), (n,), (n, 3))]
+    K = np.array([[600.0, 0, 599.5], [0, 600.0, 339.5], [0, 0, 1]], np.float32)
+    st = tmodel.RenderStatics(width=1200, height=680, sh_degree=degree, tile_size=16,
+                              max_gs_radii=64, delta_depth=0.1, use_exposure=False,
+                              visible_cap=n, tiles_per_gaussian_cap=9, tile_cap=64)
+    return p, alive, f(c2w), K, st, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,degree", [(131072, 3), (5003, 0), (5003, 1), (5003, 2),
+                                      (5003, 3), (5003, 4)])
+def test_project_sh_kernels_match_plain(cuda_device, n, degree):
+    """project_sh_fwd_cuda and project_sh_bwd_cuda against their plain
+    versions on the card, bit for bit: at the main path's 131,072 rows and
+    at a ragged 5,003 at every SH degree, with and without the SH ramp's
+    active degree (one below `degree`), with every cotangent and with the
+    projection's or the colours' cotangents missing (None: zero).  A
+    second launch gives the same bits."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.gs import gauss_step as gs
+    from gps_slam_torch.gs import projection as tproj
+
+    p, alive, c2w, K, st, cot = _gauss_inputs(n, degree, cuda_device, 40 + degree)
+    cam = tproj.camera(K, st.width, st.height)
+    viewmat = pose_inv(c2w)
+    args = (p["means"], p["quats"], p["scales"], p["features_dc"], p["features_rest"])
+    for active in (None, torch.tensor(max(degree - 1, 0), dtype=torch.int32,
+                                      device=cuda_device)):
+        n0 = (kernels.PROJECT_SH_FWD.launches, kernels.PROJECT_SH_BWD.launches)
+        k_out = gs.project_sh_fwd(*args, alive, viewmat, c2w, active, cam, st)
+        again = gs.project_sh_fwd(*args, alive, viewmat, c2w, active, cam, st)
+        p_out = gs.project_sh_fwd_plain(*args, alive, viewmat, c2w, active, cam, st)
+        torch.cuda.synchronize()
+        for i, (a, b, c) in enumerate(zip(k_out, again, p_out)):
+            assert _bits_equal(a, c) and _bits_equal(a, b), (active, i)
+        radii = k_out[3]
+        assert 0 < int((radii > 0).sum()) < n
+        for drop in ((), (0, 1, 2), (3,)):
+            vs = [None if i in drop else v for i, v in enumerate(cot)]
+            k_g = gs.project_sh_bwd(*args, radii, viewmat, c2w, active, cam, st, *vs)
+            p_g = gs.project_sh_bwd_plain(*args, radii, viewmat, c2w, active, cam, st, *vs)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(k_g, p_g)):
+                assert _bits_equal(a, b), (active, drop, i)
+                assert bool(torch.isfinite(a).all()), (active, drop, i)
+        assert (kernels.PROJECT_SH_FWD.launches - n0[0],
+                kernels.PROJECT_SH_BWD.launches - n0[1]) == (2, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [131072, 5003])
+def test_window_adam_cuda_matches_plain(cuda_device, rows):
+    """window_adam_cuda against `WindowAdam._step_plain` on the card over
+    20 steps of a 7-attribute pool (SH degree 3, two exposure cameras
+    learning), the grads of some attributes missing at some steps: params
+    and both moments bit for bit after every step; one launch a step."""
+    from types import SimpleNamespace
+
+    from gps_slam_torch import kernels
+    from gps_slam_torch.gs import optim as toptim
+
+    rng = np.random.default_rng(rows)
+    shapes = {"means": (rows, 3), "scales": (rows, 3), "quats": (rows, 4),
+              "features_dc": (rows, 3), "features_rest": (rows, 15, 3),
+              "opacities": (rows, 1), "exposure": (2, 3, 4)}
+    base = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    mcfg = SimpleNamespace(means_lr=1.6e-4, scales_lr=5e-3, quats_lr=1e-3,
+                           featuresDc_lr=2.5e-3, featuresRest_lr=1.25e-4,
+                           opacities_lr=5e-2, exposure_lr=1e-3, use_exposure=True)
+    opts = [toptim.WindowAdam({k: torch.as_tensor(v, device=cuda_device)
+                               for k, v in base.items()}, mcfg, 100, steps=20)
+            for _ in range(2)]
+    n0 = kernels.WINDOW_ADAM.launches
+    for step in range(20):
+        for k, s in shapes.items():
+            g = (None if (step + len(k)) % 5 == 0 else
+                 torch.as_tensor(rng.normal(size=s).astype(np.float32), device=cuda_device))
+            for o in opts:
+                o.params[k].grad = None if g is None else g.clone()
+        opts[0].step()
+        opts[1]._step_plain()
+        opts[1].count += 1
+        torch.cuda.synchronize()
+        for k in shapes:
+            for a, b in ((opts[0].params[k], opts[1].params[k]),
+                         (opts[0].mu[k], opts[1].mu[k]), (opts[0].nu[k], opts[1].nu[k])):
+                assert _bits_equal(a, b), (step, k)
+    assert kernels.WINDOW_ADAM.launches - n0 == 20
+
+
+@pytest.mark.cuda
+def test_megastep_graph_replays_under_sync_debug(cuda_device, fused, tmp_path):
+    """A window graph captured, then replayed twice with other inputs under
+    torch.cuda.set_sync_debug_mode("error") (a read-back or a pageable
+    copy raises), against the same windows run uncaptured under the same
+    mode: pools, loss histories and counts bit for bit.  The graph's
+    launches per window: project_sh_fwd_cuda 1 + 4 + 6 (the spawn render,
+    the 4 cameras' binning, the 6 steps), project_sh_bwd_cuda and
+    window_adam_cuda 6 (one each a step)."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import megastep as ms
+
+    vol, pool_np, alive, cams, statics = _megastep_window(cuda_device, fused, tmp_path)
+    ref = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    pool = convert.pool_from_numpy(pool_np, alive, cuda_device)
+    graphs = ms.WindowGraphs()
+    key = ("sync debug",)
+    inputs = [_window_inputs(cams, cuda_device, seed=30 + w) for w in range(3)]
+    for w, inp in enumerate(inputs):
+        if w == 0:
+            want = _uncaptured(vol, ref, inp, statics)
+            got = graphs.run(key, vol, pool, inp, **statics)
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                want = _uncaptured(vol, ref, inp, statics)
+                got = graphs.run(key, vol, pool, inp, **statics)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert graphs.last == (key, "capture" if w == 0 else "replay")
+        for k in want:
+            assert torch.equal(got[k], want[k]), (w, k)
+        for k in (*ROW_KEYS_CUDA, "alive"):
+            assert torch.equal(getattr(pool, k), getattr(ref, k)), (w, k)
+    (g,) = graphs.graphs.values()
+    assert g.launches[kernels.PROJECT_SH_FWD.name] == 1 + 4 + 6
+    assert g.launches[kernels.PROJECT_SH_BWD.name] == 6
+    assert g.launches[kernels.WINDOW_ADAM.name] == 6
+    assert graphs.replayed_launches[kernels.WINDOW_ADAM.name] == 12
