@@ -116,9 +116,10 @@ Phases (any failure exits non-zero before the final line):
      path; each path line's `window_nodes_per_step` counts the nodes a
      step adds to a window graph: the path's last captured window
      captured again with all and with half its steps) on the main path's
-     last window step, bit for bit with their plain versions, then the
-     nodes per step and the megastep path's replay ms beside the parent's
-     records;
+     last window step, bit for bit with their plain versions (each row
+     with the megastep path's launches too, the first two with their
+     first design's ms), then the nodes per step and the megastep path's
+     replay ms beside the parent's records;
  11. mesh: the main path's volume meshed on the host by the native mesher
      (native/mesher.cpp, built with g++ into build/, with OpenMP where the
      compiler has it) and by the numpy
@@ -2123,6 +2124,15 @@ PARENT_RECORDS = {
     "megastep_path_replay_ms": [86.0, 102.0],
     "megastep_path_source": "chip_smoke.py [megastep path] replays (host clock) before "
                             "the window step's kernels, NVIDIA H100 80GB HBM3, 700.00 W",
+    # the step kernels' first design (one thread a row): their `[kernel]`
+    # ms at the main path's 32,768 rows (1,299 visible), and at 131,072
+    # random rows (tests/test_torch_cuda.py's inputs)
+    "first_design_ms": {"project_sh_fwd_cuda": 0.01078, "project_sh_bwd_cuda": 0.04103},
+    "first_design_ms_131072_rows": {"project_sh_fwd_cuda": 0.02673,
+                                    "project_sh_bwd_cuda": 0.13677},
+    "first_design_source": "the tree before the tiled design: chip_smoke.py [kernel] rows "
+                           "(32,768 rows), its 131,072-row inputs timed alike, NVIDIA H100 "
+                           "80GB HBM3, 700.00 W",
 }
 
 
@@ -2169,14 +2179,24 @@ def window_step_phase(last: dict, launches: dict, mega: dict) -> list[dict]:
     colour is 0.5 and its SH grads are 0 whatever they hold): the function
     needs no more, though the backward reads every row's.  window_adam's
     library column times torch._fused_adam_ on the same seven groups (its
-    own Adam, timed only).  Then one line of the window graph's kernel
-    nodes per Adam step and the megastep path's replay ms, beside the
-    parent's records (PARENT_RECORDS)."""
+    own Adam, timed only).  Each row also carries the megastep path's
+    launches of its kernel and, for project_sh_fwd_cuda and
+    project_sh_bwd_cuda, the first design's ms (PARENT_RECORDS).  Then one
+    line of the window graph's kernel nodes per Adam step and the megastep
+    path's replay ms, beside the parent's records (PARENT_RECORDS)."""
     import copy
 
     from gps_slam_torch import kernels
     from gps_slam_torch.gs import gauss_step as gs
     from gps_slam_torch.gs import optim
+
+    def step_extra(kernel) -> dict:
+        # the megastep path's launches beside the main path's, and the
+        # first design's ms where the kernel had one before this design
+        out = {"launches_megastep_path": mega["launches"][kernel.name]}
+        if kernel.name in PARENT_RECORDS["first_design_ms"]:
+            out["first_design_ms"] = PARENT_RECORDS["first_design_ms"][kernel.name]
+        return out
 
     rows = []
     # ---- project_sh_fwd_cuda: the last step's forward
@@ -2203,7 +2223,8 @@ def window_step_phase(last: dict, launches: dict, mega: dict) -> list[dict]:
         launches[kernels.PROJECT_SH_FWD.name], ok, err,
         time_ms(lambda: gs.project_sh_fwd(*a), 50), time_ms(lambda: gs.project_sh_fwd_plain(*a), 5, 1),
         fwd_bytes, fwd_ops, None,
-        {"shapes": shapes, "tolerance": "every output bit for bit; a second launch the same bits"}))
+        {"shapes": shapes, "tolerance": "every output bit for bit; a second launch the same bits",
+         **step_extra(kernels.PROJECT_SH_FWD)}))
 
     # ---- project_sh_bwd_cuda: the last step's backward
     a, _ = last["project_sh_bwd"]
@@ -2228,7 +2249,8 @@ def window_step_phase(last: dict, launches: dict, mega: dict) -> list[dict]:
         time_ms(lambda: gs.project_sh_bwd(*a), 50), time_ms(lambda: gs.project_sh_bwd_plain(*a), 5, 1),
         bwd_bytes, bwd_ops, None,
         {"shapes": {**shapes, "cotangents": len(cots)},
-         "tolerance": "every grad bit for bit; a second launch the same bits"}))
+         "tolerance": "every grad bit for bit; a second launch the same bits",
+         **step_extra(kernels.PROJECT_SH_BWD)}))
 
     # ---- window_adam_cuda: the optimizer's state after the last step,
     # stepped once more with that step's schedule row, on copies
@@ -2290,7 +2312,8 @@ def window_step_phase(last: dict, launches: dict, mega: dict) -> list[dict]:
         {"shapes": {"elements": numel, "with_grad": with_grad, "attributes": len(opt.params),
                     "schedule_row": row_idx},
          "library_call": "torch._fused_adam_ over the same groups (one lr)",
-         "tolerance": "params and both moments bit for bit; a second launch the same bits"}))
+         "tolerance": "params and both moments bit for bit; a second launch the same bits",
+         **step_extra(kernels.WINDOW_ADAM)}))
     bad = [r["name"] for r in rows if not r["ok"]]
     summary = {
         "window_nodes_per_step": mega["window_nodes_per_step"],

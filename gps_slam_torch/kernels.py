@@ -151,15 +151,17 @@ COLOR_GN = Kernel(
 PROJECT_SH_FWD = Kernel(
     "project_sh_fwd_cuda", "gauss_step.cu", "project_sh_fwd",
     [P] * 14 + [I] * 6 + [F] * 12 + [P],
-    "one thread a row, all in registers: camera point, covariance, clamped "
-    "Jacobian, conic, radius and cull, SH colour (a culled row's SH not read); "
-    "instanced per SH degree")
+    "64 rows a CTA of 64 threads, staged through shared memory by coalesced "
+    "16-byte loads and stores; a lane a row: camera point, covariance, clamped "
+    "Jacobian, conic, radius and cull; then a lane a visible (row, channel): its "
+    "SH read at once (a culled row's not read); instanced per SH degree")
 PROJECT_SH_BWD = Kernel(
     "project_sh_bwd_cuda", "gauss_step.cu", "project_sh_bwd",
     [P] * 18 + [I] * 3 + [F] * 9 + [P],
-    "one thread a row: the forward's intermediates recomputed in registers, "
-    "then the analytic chain back to means, quats, log-scales and SH; "
-    "instanced per SH degree")
+    "32 rows a CTA of 2 warps, staged through shared memory by coalesced 16-byte "
+    "loads and stores; warp 0 a lane a row: the projection recomputed and its "
+    "chain back; beside it warp 1 a lane a row: the SH grads of its three "
+    "channels and the view term; every row's SH read; instanced per SH degree")
 WINDOW_ADAM = Kernel(
     "window_adam_cuda", "window_adam.cu", "window_adam", [P, P, I, P],
     "one thread an element over the attributes laid end to end; pointers, "

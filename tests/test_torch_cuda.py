@@ -1974,29 +1974,48 @@ def _bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def _gauss_inputs(n: int, degree: int, device, seed: int):
+def _gauss_inputs(n: int, degree: int, device, seed: int, kind: str = "random",
+                  n_rest: int | None = None, offset: bool = False):
     """n Gaussians around a 1200x680 camera (some behind it, some far to
     the side, 10% dead), random SH of `degree`, and random cotangents of
-    every output of `project_sh_fwd`."""
+    every output of `project_sh_fwd`.  `kind` "sparse": ~4% of the rows
+    visible, the main path's share (the others behind the camera);
+    "culled": every row behind the camera; "visible": every row alive and
+    in front, inside the frame.  `n_rest`: features_rest's coefficients
+    (default: the degree's).  `offset`: every array a view one row into
+    its storage, so that no base is 16-byte aligned but quats'."""
     from gps_slam_torch.gs import model as tmodel
 
     rng = np.random.default_rng(seed)
+    m = n + 1 if offset else n
     a = 0.2
     c2w = np.eye(4, dtype=np.float32)
     c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
     c2w[:3, 3] = [0.2, -0.1, -0.4]
-    z = rng.uniform(-0.5, 5.0, n)
-    lat = rng.uniform(-1.0, 1.0, (n, 2)) * np.maximum(z, 0.2)[:, None]
-    lat[: n // 8] *= 4.0
+    z = rng.uniform(-0.5, 5.0, m)
+    lat = rng.uniform(-1.0, 1.0, (m, 2)) * np.maximum(z, 0.2)[:, None]
+    lat[: m // 8] *= 4.0
+    if kind == "sparse":
+        z = np.where(rng.random(m) < 0.06, np.abs(z) + 0.5, -np.abs(z) - 0.1)
+    elif kind == "culled":
+        z = -np.abs(z) - 0.1
+    elif kind == "visible":
+        z = rng.uniform(1.0, 4.0, m)
+        lat = rng.uniform(-0.5, 0.5, (m, 2)) * z[:, None]
     means = np.concatenate([lat, z[:, None]], 1) @ c2w[:3, :3].T + c2w[:3, 3]
     nb = (degree + 1) ** 2
     f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)  # noqa: E731
-    p = {"means": f(means), "quats": f(rng.normal(size=(n, 4))),
-         "scales": f(rng.uniform(-6.0, -0.5, (n, 3))),
-         "features_dc": f(rng.normal(0, 0.5, (n, 3))),
-         "features_rest": f(rng.normal(0, 0.3, (n, nb - 1, 3)))}
-    alive = torch.as_tensor(rng.random(n) > 0.1, device=device)
-    cot = [f(rng.normal(size=s)) for s in ((n, 2), (n, 3), (n,), (n, 3))]
+    p = {"means": f(means), "quats": f(rng.normal(size=(m, 4))),
+         "scales": f(rng.uniform(-6.0, -0.5, (m, 3))),
+         "features_dc": f(rng.normal(0, 0.5, (m, 3))),
+         "features_rest": f(rng.normal(0, 0.3, (m, nb - 1 if n_rest is None else n_rest, 3)))}
+    alive = torch.as_tensor(rng.random(m) > 0.1, device=device)
+    if kind == "visible":
+        alive = torch.ones_like(alive)
+    cot = [f(rng.normal(size=s)) for s in ((m, 2), (m, 3), (m,), (m, 3))]
+    if offset:
+        p = {k: v[1:] for k, v in p.items()}
+        alive, cot = alive[1:], [v[1:] for v in cot]
     K = np.array([[600.0, 0, 599.5], [0, 600.0, 339.5], [0, 0, 1]], np.float32)
     st = tmodel.RenderStatics(width=1200, height=680, sh_degree=degree, tile_size=16,
                               max_gs_radii=64, delta_depth=0.1, use_exposure=False,
@@ -2004,21 +2023,47 @@ def _gauss_inputs(n: int, degree: int, device, seed: int):
     return p, alive, f(c2w), K, st, cot
 
 
+# the tiles of csrc/gauss_step.cu: FWD_ROWS rows a CTA of the forward,
+# BWD_ROWS of the backward
+_FWD_ROWS, _BWD_ROWS = 64, 32
+# (rows, SH degree, inputs, features_rest coefficients, offset views)
+_PROJECT_SH_CASES = [
+    pytest.param(131072, 3, "random", None, False, id="131072-3"),
+    *(pytest.param(5003, d, "random", None, False, id=f"5003-{d}") for d in range(5)),
+    *(pytest.param(n, 3, "random", None, False, id=f"{n}-3")
+      for n in (1, _BWD_ROWS - 1, _BWD_ROWS, _BWD_ROWS + 1, _FWD_ROWS - 1, _FWD_ROWS,
+                _FWD_ROWS + 1)),
+    pytest.param(32768, 3, "sparse", None, False, id="32768-3-sparse"),
+    pytest.param(5003, 3, "culled", None, False, id="5003-3-culled"),
+    pytest.param(5003, 4, "visible", None, False, id="5003-4-visible"),
+    pytest.param(5003, 2, "random", 15, False, id="5003-2-rest15"),
+    pytest.param(1003, 0, "random", 8, False, id="1003-0-rest8"),
+    pytest.param(4099, 3, "random", None, True, id="4099-3-offset"),
+    pytest.param(97, 4, "visible", 30, True, id="97-4-visible-rest30-offset"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,degree", [(131072, 3), (5003, 0), (5003, 1), (5003, 2),
-                                      (5003, 3), (5003, 4)])
-def test_project_sh_kernels_match_plain(cuda_device, n, degree):
+@pytest.mark.parametrize("n,degree,kind,n_rest,offset", _PROJECT_SH_CASES)
+def test_project_sh_kernels_match_plain(cuda_device, n, degree, kind, n_rest, offset):
     """project_sh_fwd_cuda and project_sh_bwd_cuda against their plain
-    versions on the card, bit for bit: at the main path's 131,072 rows and
-    at a ragged 5,003 at every SH degree, with and without the SH ramp's
-    active degree (one below `degree`), with every cotangent and with the
-    projection's or the colours' cotangents missing (None: zero).  A
-    second launch gives the same bits."""
+    versions on the card, bit for bit: at 131,072 random rows and at a
+    ragged 5,003 at every SH degree; at 1 row and one row either side of
+    each kernel's tile; at 32,768 rows with the main path's ~4% visible;
+    with every row culled and every row visible; with features_rest wider
+    than the degree needs (its grads zero past the degree); with inputs
+    whose bases are not 16-byte aligned.  Each with and without the SH
+    ramp's active degree (one below `degree`), with every cotangent and
+    with the projection's, the colours' or all cotangents missing (None:
+    zero).  A second launch of either kernel gives the same bits."""
     from gps_slam_torch import kernels
     from gps_slam_torch.gs import gauss_step as gs
     from gps_slam_torch.gs import projection as tproj
 
-    p, alive, c2w, K, st, cot = _gauss_inputs(n, degree, cuda_device, 40 + degree)
+    p, alive, c2w, K, st, cot = _gauss_inputs(n, degree, cuda_device, 40 + degree, kind,
+                                              n_rest, offset)
+    if offset:
+        assert p["means"].data_ptr() % 16 and p["features_rest"].data_ptr() % 16
     cam = tproj.camera(K, st.width, st.height)
     viewmat = pose_inv(c2w)
     args = (p["means"], p["quats"], p["scales"], p["features_dc"], p["features_rest"])
@@ -2032,17 +2077,29 @@ def test_project_sh_kernels_match_plain(cuda_device, n, degree):
         for i, (a, b, c) in enumerate(zip(k_out, again, p_out)):
             assert _bits_equal(a, c) and _bits_equal(a, b), (active, i)
         radii = k_out[3]
-        assert 0 < int((radii > 0).sum()) < n
-        for drop in ((), (0, 1, 2), (3,)):
+        vis = int((radii > 0).sum())
+        if kind == "culled":
+            assert vis == 0
+        elif kind == "visible":
+            assert vis == n
+        elif kind == "sparse":
+            assert 0.02 * n < vis < 0.06 * n, vis
+        elif n > 64:
+            assert 0 < vis < n
+        drops = ((), (0, 1, 2), (3,), (0, 1, 2, 3))
+        for drop in drops:
             vs = [None if i in drop else v for i, v in enumerate(cot)]
             k_g = gs.project_sh_bwd(*args, radii, viewmat, c2w, active, cam, st, *vs)
+            k_again = gs.project_sh_bwd(*args, radii, viewmat, c2w, active, cam, st, *vs)
             p_g = gs.project_sh_bwd_plain(*args, radii, viewmat, c2w, active, cam, st, *vs)
             torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(k_g, p_g)):
-                assert _bits_equal(a, b), (active, drop, i)
+            for i, (a, b, c) in enumerate(zip(k_g, k_again, p_g)):
+                assert _bits_equal(a, c) and _bits_equal(a, b), (active, drop, i)
                 assert bool(torch.isfinite(a).all()), (active, drop, i)
+            if n_rest is not None and n_rest > (degree + 1) ** 2 - 1:
+                assert not bool(k_g[4][:, (degree + 1) ** 2 - 1:].any()), (active, drop)
         assert (kernels.PROJECT_SH_FWD.launches - n0[0],
-                kernels.PROJECT_SH_BWD.launches - n0[1]) == (2, 3)
+                kernels.PROJECT_SH_BWD.launches - n0[1]) == (2, 2 * len(drops))
 
 
 @pytest.mark.cuda
