@@ -47,30 +47,30 @@ Phases (any failure exits non-zero before the final line):
      frame 0 seeded with its gt pose, 2 windows x 20 Adam steps, each
      frame after the first the tracked megastep (one CUDA graph: ICP,
      the revert, fusion, the next prepare raycast; one read a frame; each
-     pyramid level's Gauss-Newton loop a conditional WHILE node, whose
-     exit the card tests after each iteration: graph_while_cuda; each
-     Gauss-Newton iteration one launch of icp_gn_cuda), then the same
-     frames on the eager route as its witness: K1 and the
-     tracking-prepare K3 (its tracking mode: the JAX XLA march's
-     semantics, k_blocks 2, need_color False) once per frame, icp_gn_cuda
-     launched on both routes;
+     pyramid level's Gauss-Newton loop one cooperative launch of
+     icp_gn_cuda, one kernel node, whose exit the card tests after each
+     iteration), then the same frames on the eager route as its witness
+     (one launch and one read a level): K1 and the tracking-prepare K3
+     (its tracking mode: the JAX XLA march's semantics, k_blocks 2,
+     need_color False) once per frame, icp_gn_cuda once a level run on
+     both routes;
      each run: ATE below 3 voxels, the last pose within 2 cm and 2
      degrees, GOOD on >= 70% of the tracked frames, eval PSNR above 15 dB;
      `[tracked routes]` gives both routes' ms per tracked frame over the
      same scope (engine.process_frame: ICP, revert, fusion, the next
      prepare raycast; median, mean, least, most, first) and the eager
      route's split, the replay ms, the iterations per level of both
-     routes, each capture's nodes, WHILE nodes (one a level) and WHILE
-     bodies' nodes, icp_gn_cuda's launches and the iterations the card
-     ran, and the CUDA versions; then `[tracking fixture]`: tests/test_tracking.py's
+     routes, each capture's nodes and the WHILE nodes left (none),
+     icp_gn_cuda's launches and the iterations the card ran, and the CUDA
+     versions; then `[tracking fixture]`: tests/test_tracking.py's
      three tracking fixtures at 160x120 (its fixture, the same at half
      the arc, its noisy stress fixture) on both routes, with that file's
-     gates; then `[color tracked path]`: the same 30 frames with
+     gates and icp_gn_cuda once a level run; then `[color tracked path]`: the same 30 frames with
      PIPE.TSDF.tracker.type composite (colour refine, then ICP), on the
      eager route the JAX engine's gate gives it: the colour stage's ms per
      frame, iterations per level, labels, inliers and residuals,
-     color_gn_cuda once per colour Gauss-Newton pass, icp_gn_cuda
-     launched, no torch.linalg solve or inverse in the colour stage, the
+     color_gn_cuda and icp_gn_cuda once a level run, no torch.linalg
+     solve or inverse in the colour stage, the
      tracking-prepare raycast with colour at LB 16, and the tracked gates
      and the 15 dB floor; `[color tracker fixture]`:
      tests/test_tracking.py's colour test (160x120, the old view's exact
@@ -104,11 +104,10 @@ Phases (any failure exits non-zero before the final line):
      on the tiles of their lists with a live slot alone (the same bits,
      and its time), and their bounds count only those tiles' pixels and
      outputs (a tile with none sums nothing; the window megastep's padded
-     lists are mostly such tiles); graph_while_cuda: WHILE loops of 0, 1,
-     7 and 50 passes captured and replayed against the same loops driven
-     from the host (equal pass counts), ms per pass of each; icp_gn_cuda
-     on the tracked path's last frame at pyramid level 0 and level 3
-     (the state its loop ended with), bit for bit with its plain version;
+     lists are mostly such tiles); icp_gn_cuda on the eager witness's
+     last frame at each pyramid level (the level from its start, one
+     launch: ms a launch, passes, ms a pass; the state, count, test and
+     last pass's rows bit for bit with its plain level loop);
      color_gn_cuda likewise on the colour tracked path's last frame, and
      K3's tracking mode on that path's last prepare call (with colour);
      `[window step]`: project_sh_fwd_cuda, project_sh_bwd_cuda and
@@ -137,7 +136,9 @@ Phases (any failure exits non-zero before the final line):
      within 1 mm; `[reference color tracked]`: the same loop with the
      composite tracker, the card's trackers also run on the CPU engine's
      maps: equal labels of both stages, on the same maps equal colour
-     iterations per level, each frame within 1 voxel and 0.1 degree;
+     iterations per level, each frame within 1 voxel and 0.1 degree (on
+     every tracked fixture and reference, each Gauss-Newton kernel
+     launches once a level run);
      `[reference chunked]`: the fusion fixtures through the
      chunk route (a capture and 5 replays on the card) on both devices,
      with the gates above; `[tracked megastep reference]`: 4 tracked
@@ -464,9 +465,9 @@ def bench_config(n_frames: int, width: int, height: int, cam0,
 
 class Recorder:
     """Keeps the arguments of the last call of each kernel wrapper (of
-    `icp_gn.iterate` and `color_gn.iterate`, one per pyramid level
-    size); not of the calls made while `Recorder.paused` holds (the extra
-    window captures of `window_nodes_per_step`)."""
+    `icp_gn.iterate` and `color_gn.iterate`, one per pyramid level size,
+    uncaptured calls only); not of the calls made while `Recorder.paused`
+    holds (the extra window captures of `window_nodes_per_step`)."""
 
     paused = False
 
@@ -505,13 +506,17 @@ class Recorder:
         from gps_slam_torch.slam import color_gn, icp_gn
 
         # one entry per level size: ("icp_gn", (h, w)) of the depth,
-        # ("color_gn", (h, w)) of the image
+        # ("color_gn", (h, w)) of the image; each with the state, count
+        # and test the level started from (a level runs in place), and
+        # only for launches that run now (a captured launch's tensors hold
+        # nothing yet)
         for mod, name, image in ((icp_gn, "icp_gn", 0), (color_gn, "color_gn", 3)):
             iterate = mod.iterate
 
             def gn_wrap(*args, _iterate=iterate, _name=name, _image=image, **kw):
-                if not Recorder.paused:
-                    self.last[(_name, tuple(args[_image].shape[:2]))] = (args, kw)
+                if not Recorder.paused and not torch.cuda.is_current_stream_capturing():
+                    start = tuple(t.clone() for t in args[10:13])
+                    self.last[(_name, tuple(args[_image].shape[:2]))] = (args, kw, start)
                 return _iterate(*args, **kw)
 
             mod.iterate = gn_wrap
@@ -989,7 +994,7 @@ class TrackedStats:
         cl = self.color_log
         color = None if self.color is None else {
             # the colour stage of each tracked frame (its pyramid, Sobel
-            # and Gauss-Newton levels, one read a pass and the final one)
+            # and Gauss-Newton levels, one read a level and the final one)
             "ms_per_frame": spread_ms(cl["ms"]),
             "ms_total": float(np.sum(cl["ms"])),
             "iters_per_frame": cl["iters"],
@@ -1720,79 +1725,6 @@ def kernel_phase(last: dict, launches: dict, k1: list, k2: list, k3: list) -> li
     return rows
 
 
-# passes of the WHILE loops that check graph_while_cuda, and of the one
-# that times a pass
-WHILE_CHECK_PASSES = (0, 1, 7, 50)
-WHILE_TIMED_PASSES = 1000
-
-
-def graph_while_row(launches: int) -> dict:
-    """graph_while_cuda (the tracker's WHILE nodes) against its plain
-    version: loops whose body is the loop test alone (a count, a compare;
-    the node adds the set kernel), captured as a WHILE node and replayed,
-    against the same loop driven from the host, which reads the flag back
-    each pass as the eager tracker reads its step: equal pass counts.
-    `ms` is the device time of one pass (a WHILE_TIMED_PASSES loop's
-    replay over its passes), `plain_ms` one pass of the host loop, its
-    read-back included; the bound, the one byte a pass reads.
-    `launches`: the tracked path's."""
-    from gps_slam_torch import kernels
-    from gps_slam_torch.utils import graph_while
-
-    c = torch.zeros((), dtype=torch.int64, device="cuda")
-    flag = torch.zeros((), dtype=torch.bool, device="cuda")
-
-    def captured(k: int):
-        def body():
-            c.add_(1)
-            torch.lt(c, k, out=flag)
-
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        torch.cuda.synchronize()
-        with graph_while.capture(g):
-            c.zero_()
-            torch.lt(c, k, out=flag)
-            graph_while.while_loop(flag, body)
-        nodes = graph_while.node_counts(g)
-        g.instantiate()
-        return g, nodes
-
-    def host(k: int) -> int:
-        c.zero_()
-        torch.lt(c, k, out=flag)
-        while bool(flag):
-            c.add_(1)
-            torch.lt(c, k, out=flag)
-        return int(c)
-
-    passes = {}
-    for k in WHILE_CHECK_PASSES:
-        g, nodes = captured(k)
-        g.replay()
-        passes[k] = (int(c), host(k))
-    err = max(abs(a - b) for a, b in passes.values())
-    g, nodes = captured(WHILE_TIMED_PASSES)
-    ms = time_ms(g.replay, 5) / WHILE_TIMED_PASSES
-    plain_ms = time_ms(lambda: host(WHILE_TIMED_PASSES), 2, 1) / WHILE_TIMED_PASSES
-    b, by = bound_ms(1, 0)
-    row = {"name": kernels.GRAPH_WHILE.name, "tpu": None,
-           "design": kernels.GRAPH_WHILE.design, "route": "cuda",
-           "source": "gps_slam_torch/csrc/graph_while.cu",
-           "replaces": "gps_slam_tpu/slam/tracker.py:233 (the lax.while_loop's exit "
-                       "test, :225-227; no pallas_call)",
-           "launches": launches, "max_abs_err": float(err), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": None,
-           "ok": err == 0 and all(a == k for k, (a, _) in passes.items())
-           and nodes["conditional"] == 1,
-           "passes": {str(k): v for k, v in passes.items()}, "timed_graph_nodes": nodes,
-           "tolerance": "pass counts equal to the host loop's and to the loop's "
-                        "bound; ms and plain_ms per pass"}
-    log("[kernel] " + json.dumps(row))
-    if not row["ok"]:
-        raise RuntimeError(f"graph_while_cuda disagrees with its host loop: {row}")
-    return row
-
-
 def by_key(vol):
     """(keys, state words, colour words) of the allocated blocks on the
     host, sorted by key."""
@@ -1913,39 +1845,38 @@ def tracked_path(args, rec, cams) -> tuple[dict, tuple]:
     arguments for its last tracking-prepare call (launches: the prepare
     raycasts'; `launches_path`: every K3 launch of the path)."""
     from gps_slam_torch import kernels
-    from gps_slam_torch.utils import graph_while
+    from gps_slam_torch.utils import graphs
 
     out, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path", kernels.INTEGRATE,
                          tracked=rec)
     call = rec.last["tracking prepare"]
-    # the last frame's Gauss-Newton calls at the finest and the coarsest
-    # level (the WHILE bodies' captured calls, whose tensors hold the last
-    # replay's state)
-    gn_calls = [(f"level {lvl}, {1200 >> lvl}x{680 >> lvl}",
-                 rec.last[("icp_gn", (680 >> lvl, 1200 >> lvl))]) for lvl in (0, 3)]
     eager, _, _ = run_path(args, cams, ADAM_STEPS, "tracked path, eager witness",
                            kernels.INTEGRATE, tracked=rec, fast_track=False)
+    # the eager witness's last frame's Gauss-Newton levels, finest first
+    # (the megastep's run inside its graph, where nothing is recorded)
+    gn_calls = [(f"level {lvl}, {1200 >> lvl}x{680 >> lvl}",
+                 rec.last[("icp_gn", (680 >> lvl, 1200 >> lvl))]) for lvl in range(4)]
+    budgets = out["gn_iters_budget_per_level"]
     for r in (out, eager):
         if r["adam_steps"] != ADAM_STEPS * r["windows"]:
             raise RuntimeError(f"tracked path ran {r['adam_steps']} Adam steps")
-        if r["launches"][kernels.ICP_GN.name] <= 0:
-            raise RuntimeError(f"tracked path ({r['tracking_route']}): icp_gn_cuda was "
-                               "not launched")
+        # one icp_gn_cuda launch a level run (a replay's counted as its capture's)
+        if r["launches"][kernels.ICP_GN.name] != len(budgets) * r["tracked_frames"]:
+            raise RuntimeError(f"tracked path ({r['tracking_route']}): "
+                               f"{r['launches'][kernels.ICP_GN.name]} icp_gn_cuda launches for "
+                               f"{r['tracked_frames']} frames of {len(budgets)} levels")
     if (out["tracking_route"], eager["tracking_route"]) != ("megastep", "eager"):
         raise RuntimeError(f"tracked path: routes {out['tracking_route']} and "
                            f"{eager['tracking_route']}")
     mega_ms, eager_ms = out["tracked_frame_ms"], eager["tracked_frame_ms"]
     n_eager = eager["tracked_frames"]
-    budgets = out["gn_iters_budget_per_level"]
-    # one WHILE node a pyramid level in each capture, and the replays
-    # running fewer iterations than the budgets
-    if (any(n["conditional"] != len(budgets) for n in out["megastep_graphs"]["nodes"])
-            or out["launches"][kernels.GRAPH_WHILE.name] <= 0
-            or not sum(out["gn_iters_mean_per_level"]) < sum(budgets)):
-        raise RuntimeError(f"tracked path: WHILE nodes {out['megastep_graphs']['nodes']}, "
-                           f"{out['launches'][kernels.GRAPH_WHILE.name]} graph_while_cuda "
-                           f"launches, iterations {out['gn_iters_mean_per_level']} of "
-                           f"{budgets}")
+    # no conditional (WHILE) node left in a capture: each level is one
+    # kernel node; the replays run fewer iterations than the budgets
+    while_nodes = sum(n["conditional"] for n in out["megastep_graphs"]["nodes"])
+    if while_nodes or not sum(out["gn_iters_mean_per_level"]) < sum(budgets):
+        raise RuntimeError(f"tracked path: {while_nodes} WHILE nodes in "
+                           f"{out['megastep_graphs']['nodes']}, iterations "
+                           f"{out['gn_iters_mean_per_level']} of {budgets}")
     log("[tracked routes] " + json.dumps({
         # the same scope on both routes: engine.process_frame of a tracked
         # frame (ICP, revert, fusion, the next prepare raycast), ms
@@ -1960,23 +1891,21 @@ def tracked_path(args, rec, cams) -> tuple[dict, tuple]:
         "megastep_replay_ms_mean": out["megastep_graphs"]["replay_ms_mean"],
         "megastep_capture_ms": out["megastep_graphs"]["capture_ms"],
         "megastep_graph_mb": out["megastep_graphs"]["graph_mb"],
-        # a replay runs the iterations its WHILE nodes let through (the
-        # device tests the exit after each), the eager loop those its
-        # read-backs do: each route on its own trajectory
+        # a replay runs the iterations its level kernels let through (the
+        # device tests the exit after each), the eager loop likewise with
+        # one read a level: each route on its own trajectory
         "gn_iters_mean_per_level": {"megastep": out["gn_iters_mean_per_level"],
                                     "eager": eager["gn_iters_mean_per_level"]},
         "gn_iters_budget_per_level": out["gn_iters_budget_per_level"],
         "megastep_graph_nodes": out["megastep_graphs"]["nodes"],
-        # each capture's WHILE bodies (one a level, coarsest first)
-        "while_body_nodes": [n["bodies"] for n in out["megastep_graphs"]["nodes"]],
-        # icp_gn_cuda: the wrappers' launches (the megastep's: 8 a graph
-        # run, each level's first iteration and its WHILE body as
-        # captured) and the iterations the card ran
+        # WHILE nodes left in the captures: 0, each level one kernel node
+        "while_nodes": while_nodes,
+        # icp_gn_cuda: the wrappers' launches (the megastep's: 4 a graph
+        # run, one a level) and the iterations the card ran
         "icp_gn_launches": {"megastep": out["launches"][kernels.ICP_GN.name],
                             "eager": eager["launches"][kernels.ICP_GN.name]},
         "gn_iters_total": {"megastep": out["gn_iters_total"], "eager": eager["gn_iters_total"]},
-        "graph_while_launches": out["launches"][kernels.GRAPH_WHILE.name],
-        "torch_cuda": torch.version.cuda, "versions": graph_while.versions(),
+        "torch_cuda": torch.version.cuda, "versions": graphs.versions(),
         "ate_cm": {"megastep": out["ate_cm"], "eager": eager["ate_cm"]},
         "last_translation_err_cm": {"megastep": out["last_translation_err_cm"],
                                     "eager": eager["last_translation_err_cm"]},
@@ -1994,8 +1923,8 @@ def tracked_path(args, rec, cams) -> tuple[dict, tuple]:
     # (the TPU kernel's semantics, k_blocks 1), timed beside it; printed as
     # a [kernel] line, not a launch of the path
     parent = ((*a[:9], 1, False), {})
-    out["gn_calls"] = [(tag, c, out["launches"][kernels.ICP_GN.name],
-                        {"launches_eager": eager["launches"][kernels.ICP_GN.name],
+    out["gn_calls"] = [(tag, c, eager["launches"][kernels.ICP_GN.name],
+                        {"launches_megastep": out["launches"][kernels.ICP_GN.name],
                          "gn_iters_total": {"megastep": out["gn_iters_total"],
                                             "eager": eager["gn_iters_total"]}})
                        for tag, c in gn_calls]
@@ -2011,14 +1940,16 @@ def color_tracked_path(args, rec, cams) -> tuple[dict, list, list]:
     config (1200x680, inward orbit, arc TRACKED_ARC, raycast LB 16, 2
     windows x 20 Adam steps) with PIPE.TSDF.tracker.type composite: each
     frame the colour tracker refines the pose (its pyramid and Sobel, then
-    one `color_gn_cuda` launch and one 4-byte read a Gauss-Newton pass),
-    then ICP (`icp_gn_cuda`), on the eager route the JAX engine's gate
+    one `color_gn_cuda` launch and one 8-byte read a pyramid level), then
+    ICP (`icp_gn_cuda`, one launch a level), on the eager route the JAX
+    engine's gate
     gives a tracker that is not device-pure; the tracking-prepare raycast
     (K3's tracking mode) carries colour.  Held to the tracked path's gates
-    (ATE, last pose, GOOD share, 15 dB), both kernels launched, no
-    torch.linalg solve or inverse inside the colour stage.  Returns the
-    line's numbers, `k3_row`'s arguments for the last prepare call and
-    `color_gn_row`'s for the last frame's finest and coarsest levels."""
+    (ATE, last pose, GOOD share, 15 dB), both Gauss-Newton kernels
+    launched once a level run, no torch.linalg solve or inverse inside the
+    colour stage.  Returns the line's numbers, `k3_row`'s arguments for
+    the last prepare call and `color_gn_row`'s for the last frame's four
+    levels."""
     from gps_slam_torch import kernels
     from gps_slam_torch.slam import tracker as ttrk
     from gps_slam_torch.tsdf import raycast_tiles as trc
@@ -2076,10 +2007,13 @@ def color_tracked_path(args, rec, cams) -> tuple[dict, list, list]:
     log("[color tracked path] " + json.dumps(res))
     if out["tracking_route"] != "eager":
         raise RuntimeError(f"color tracked path: route {out['tracking_route']}, not eager")
-    if (out["launches"][kernels.COLOR_GN.name] != cs["iters_total"]
-            or out["launches"][kernels.ICP_GN.name] <= 0):
+    # one launch of each Gauss-Newton kernel a level run
+    levels_run = len(cs["iters_budget_per_level"]) * len(cs["iters_per_frame"])
+    icp_levels_run = len(out["gn_iters_budget_per_level"]) * out["tracked_frames"]
+    if (out["launches"][kernels.COLOR_GN.name] != levels_run
+            or out["launches"][kernels.ICP_GN.name] != icp_levels_run):
         raise RuntimeError(f"color tracked path: launches {res['launches']} for "
-                           f"{cs['iters_total']} colour Gauss-Newton passes")
+                           f"{levels_run} colour and {icp_levels_run} ICP levels run")
     if linalg_calls[0]:
         raise RuntimeError(f"color tracked path: {linalg_calls[0]} torch.linalg calls in the "
                            "colour stage")
@@ -2093,7 +2027,7 @@ def color_tracked_path(args, rec, cams) -> tuple[dict, list, list]:
                            "with colour")
     n = out["launches"][kernels.COLOR_GN.name]
     gn_calls = [(f"level {lvl}, {1200 >> lvl}x{680 >> lvl}",
-                 rec.last[("color_gn", (680 >> lvl, 1200 >> lvl))], n) for lvl in (0, 3)]
+                 rec.last[("color_gn", (680 >> lvl, 1200 >> lvl))], n) for lvl in range(4)]
     k3 = [("tracking prepare with colour, 1200x680, color tracked path", call,
            out["tracking_prepare_k3_launches"],
            {"launches_path": out["launches"][kernels.RAYCAST.name]}, True)]
@@ -2354,44 +2288,63 @@ def icp_gn_texels(depth, refv, cam, T, rpi) -> int:
     return int(torch.unique(idx).numel())
 
 
-def icp_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) -> dict:
-    """icp_gn_cuda against its plain version on one recorded
-    `icp_gn.iterate` call: its level's inputs and the state the level
-    carried at the end of the path's last frame.  The new state (the
-    system's H, g, err, inlier share and mean residual; T, T_acc, lam,
-    step), the iteration count and the loop's test bit for bit; the first
-    kernel's per-CTA rows bit for bit with `cta_sums` of the plain terms;
-    a second launch the same bits.  `ms` times the launch (both kernels)
-    from the same state each time (restored outside the events).  The
-    bound: the depth, the reference-map pixels the pass reads (each once),
-    the state and the CTAs' rows; ICP_GN_F32_OPS and ICP_GN_F64_OPS a
-    pixel."""
+def gn_level_check(kind: str, call: tuple) -> dict:
+    """A recorded Gauss-Newton level (`icp_gn.iterate` or
+    `color_gn.iterate` with the state, count and test it started from)
+    launched twice from its start and run once by its plain level loop
+    (`iterate_plain` pass after pass while `more` holds) on the card: the
+    state, count and test bit for bit, the launches' scratch the same bits,
+    its first half the last pass's per-CTA rows (`cta_rows` of the plain
+    terms at the state that pass started from), the barrier idle.  Then
+    `ms`, a launch from the start each time (restored outside the events),
+    and `plain_ms`, the plain level."""
     from gps_slam_torch import kernels
-    from gps_slam_torch.slam import icp_gn
+    from gps_slam_torch.slam import color_gn, icp_gn
 
-    a, _ = call
-    inputs = a[:10]
-    depth, refv, refn, cam, rpi, st, tc, rot = inputs[:8]
-    state, n_run, more, partials = a[10:14]
-    s0, r0, m0 = state.clone(), n_run.clone(), more.clone()
+    mod = icp_gn if kind == "icp" else color_gn
+    kernel = kernels.ICP_GN if kind == "icp" else kernels.COLOR_GN
+    a, kw, (s0, r0, m0) = call
+    inputs, partials = a[:10], a[13]
+    first = bool(a[14] if len(a) > 14 else kw.get("first", False))
+    budget = int(a[15] if len(a) > 15 else kw.get("budget", 1))
+
+    def plain_level(s, n, m):
+        before = s.clone()
+        for i in range(budget):
+            if i and not bool(m):
+                break
+            before = s.clone()
+            mod.iterate_plain(*inputs, s, n, m, first=first and i == 0)
+        return before
+
     runs = []
     for how in ("cuda", "cuda", "plain"):
-        s, n, m = s0.clone(), r0.clone(), m0.clone()
-        p = partials.clone()
+        s, n, m, p = s0.clone(), r0.clone(), m0.clone(), partials.clone()
         p[:-1].fill_(float("nan"))
         if how == "cuda":
-            icp_gn.iterate(*inputs, s, n, m, p)
+            mod.iterate(*inputs, s, n, m, p, first=first, budget=budget)
         else:
-            icp_gn.iterate_plain(*inputs, s, n, m)
+            before = plain_level(s, n, m)
         runs.append((s, n, m, p))
-    pts, has_depth = icp_gn.level_points(depth, cam)
-    x = icp_gn.terms(s0[:16].view(4, 4), pts, has_depth, refv, refn, cam, rpi, st, tc, rot)
-    rows = icp_gn.cta_rows(x)
     torch.cuda.synchronize()
+    T = before[:16].view(4, 4)
+    if kind == "icp":
+        depth, refv, refn, cam, rpi, st, tc, rot = inputs[:8]
+        pts, has_depth = icp_gn.level_points(depth, cam)
+        x = icp_gn.terms(T, pts, has_depth, refv, refn, cam, rpi, st, tc, rot)
+    else:
+        x = color_gn.terms(T, *inputs[:7], inputs[7])
+    rows = icp_gn.cta_rows(x)
     (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
+    half = mod.N_TERMS * rows.shape[0]
+    # the scratch compared by its bits (the second half, unwritten by a
+    # one-pass level, holds the NaN fill); the barrier's count of arrivals
+    # at a multiple of the grid
     ok = (torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(m1, m3)
-          and torch.equal(s1, s2) and torch.equal(p1, p2)
-          and torch.equal(p1[:-1].view(icp_gn.N_TERMS, -1).T, rows))
+          and torch.equal(s1, s2) and torch.equal(n1, n2) and torch.equal(m1, m2)
+          and torch.equal(p1.view(torch.int64), p2.view(torch.int64))
+          and torch.equal(p1[:half].view(mod.N_TERMS, -1).T, rows)
+          and int(p1[-1:].view(torch.int64)[0]) % icp_gn.grid(kernel, rows.shape[0]) == 0)
     # where the bits differ (an inf on both sides is equal)
     max_err = float(torch.where(s1 == s3, 0.0, (s1 - s3).abs()).max().item())
     s, n, m, p = s0.clone(), r0.clone(), m0.clone(), partials.clone()
@@ -2401,33 +2354,58 @@ def icp_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) 
         n.copy_(r0)
         m.copy_(m0)
 
-    ms = time_ms(lambda: icp_gn.iterate(*inputs, s, n, m, p), 50, before=restore)
-    plain_ms = time_ms(lambda: icp_gn.iterate_plain(*inputs, s, n, m), 5, 1, before=restore)
+    ms = time_ms(lambda: mod.iterate(*inputs, s, n, m, p, first=first, budget=budget), 50,
+                 before=restore)
+    plain_ms = time_ms(lambda: plain_level(s, n, m), 3, 1, before=restore)
+    return {"ok": ok, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "passes": int(n1) - int(r0), "budget": budget, "first": first,
+            "more_after": bool(m1), "state": s1, "s0": s0}
+
+
+def icp_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) -> dict:
+    """icp_gn_cuda, a pyramid level's loop in one launch, against its plain
+    level loop on one recorded level (`gn_level_check`): the eager
+    witness's last frame.  `ms` a launch, its `passes` and `ms_per_pass`.
+    The bound: `passes` x a pass's (the depth, the reference-map pixels
+    the pass reads at the level's start, each once, the state and the
+    CTAs' rows; ICP_GN_F32_OPS and ICP_GN_F64_OPS a pixel)."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import icp_gn
+
+    c = gn_level_check("icp", call)
+    depth, refv, refn, cam, rpi, st, tc, rot = call[0][:8]
+    s0 = c["s0"]
     h, w = depth.shape
     N, C = h * w, icp_gn.n_ctas(h * w)
     texels = icp_gn_texels(depth, refv, cam, s0[:16].view(4, 4), rpi)
     # depth, the two maps' pixels read (3 f32 each), cam, w2c, the two
-    # thresholds, the state in and out, the CTAs' rows out and in
+    # thresholds, the state in and out, the CTAs' rows out and in: a pass
     n_bytes = (N * 4 + 2 * texels * 12 + (8 + 16 + 2) * 4 + 2 * icp_gn.STATE_SIZE * 4
                + 2 * C * icp_gn.N_TERMS * 8)
     b, by = bound_ms(n_bytes, N * ICP_GN_F32_OPS, N * ICP_GN_F64_OPS)
+    passes = c["passes"]
     row = {"name": kernels.ICP_GN.name + f" ({tag})", "tpu": None,
            "design": kernels.ICP_GN.design, "route": "cuda",
            "source": "gps_slam_torch/csrc/icp_gn.cu",
-           "replaces": "gps_slam_tpu/slam/tracker.py:150-224 (XLA)",
-           "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b, "bound_by": by, "library_ms": None, "ok": ok,
-           "bytes": n_bytes, "f32_ops": N * ICP_GN_F32_OPS, "f64_ops": N * ICP_GN_F64_OPS,
+           "replaces": "gps_slam_tpu/slam/tracker.py:150-233 (XLA)",
+           "launches": launches, "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+           "plain_ms": c["plain_ms"], "bound_ms": passes * b, "bound_by": by,
+           "library_ms": None, "ok": c["ok"], "passes": passes,
+           "ms_per_pass": c["ms"] / max(passes, 1), "bound_ms_per_pass": b,
+           "budget": c["budget"], "more_after": c["more_after"],
+           "bytes_per_pass": n_bytes, "f32_ops_per_pass": N * ICP_GN_F32_OPS,
+           "f64_ops_per_pass": N * ICP_GN_F64_OPS,
            "shapes": {"h": h, "w": w, "ref": list(refv.shape[:2]), "texels_read": texels,
                       "rotation_only": bool(rot), "ctas": C,
                       "pixels_per_thread": icp_gn.PIX * icp_gn.rounds(N),
-                      "inliers": round(float(s1[77].item()) * N)},
-           "tolerance": "state, count, loop test and per-CTA rows bit for bit; "
-                        "a second launch the same bits",
+                      "inliers": round(float(c["state"][77].item()) * N)},
+           "tolerance": "the level from its start: state, count, loop test and the last "
+                        "pass's per-CTA rows bit for bit with the plain level loop; a "
+                        "second launch the same bits",
            **(extra or {})}
     log("[kernel] " + json.dumps(row))
-    if not ok:
-        raise RuntimeError(f"icp_gn_cuda disagrees with its plain version: {row}")
+    if not c["ok"] or passes < 1:
+        raise RuntimeError(f"icp_gn_cuda disagrees with its plain level loop: {row}")
     return row
 
 
@@ -2457,79 +2435,50 @@ def color_gn_texels(pts, rgb, cam, M) -> int:
 
 
 def color_gn_row(tag: str, call: tuple, launches: int, extra: dict | None = None) -> dict:
-    """color_gn_cuda against its plain version on one recorded
-    `color_gn.iterate` call: its level's inputs and the state the level
-    carried at the end of the path's last frame.  The new state (M, M_acc,
-    err, lam, step, inlier share, residual), the iteration count and the
-    loop's test bit for bit; the per-CTA rows bit for bit with `cta_rows`
-    of the plain terms; a second launch the same bits.  `ms` times the
-    launch from the same state each time (restored outside the events).
-    The bound: the points, colours and flags, the three images' pixels
-    the pass reads (each once), the state and the CTAs' rows;
-    COLOR_GN_F32_OPS and COLOR_GN_F64_OPS a point."""
+    """color_gn_cuda, a colour pyramid level's loop in one launch, against
+    its plain level loop on one recorded level (`gn_level_check`): the
+    colour tracked path's last frame.  `ms` a launch, its `passes` and
+    `ms_per_pass`.  The bound: `passes` x a pass's (the points, colours
+    and flags, the three images' pixels the pass reads at the level's
+    start, each once, the state and the CTAs' rows; COLOR_GN_F32_OPS and
+    COLOR_GN_F64_OPS a point)."""
     from gps_slam_torch import kernels
     from gps_slam_torch.slam import color_gn, icp_gn
 
-    a, kw = call
-    inputs = a[:10]
-    pts, col, valid, rgb, gx, gy, cam, rot = inputs[:8]
-    state, n_run, more, partials = a[10:14]
-    first = bool(kw.get("first", False))
-    s0, r0, m0 = state.clone(), n_run.clone(), more.clone()
-    runs = []
-    for how in ("cuda", "cuda", "plain"):
-        s, n, m = s0.clone(), r0.clone(), m0.clone()
-        p = partials.clone()
-        p[:-1].fill_(float("nan"))
-        if how == "cuda":
-            color_gn.iterate(*inputs, s, n, m, p, first)
-        else:
-            color_gn.iterate_plain(*inputs, s, n, m, first)
-        runs.append((s, n, m, p))
-    rows = icp_gn.cta_rows(color_gn.terms(s0[:16].view(4, 4), *inputs[:7], rot))
-    torch.cuda.synchronize()
-    (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
-    ok = (torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(m1, m3)
-          and torch.equal(s1, s2) and torch.equal(p1, p2)
-          and torch.equal(p1[:-1].view(color_gn.N_TERMS, -1).T, rows))
-    # where the bits differ (an inf on both sides is equal)
-    max_err = float(torch.where(s1 == s3, 0.0, (s1 - s3).abs()).max().item())
-    s, n, m, p = s0.clone(), r0.clone(), m0.clone(), partials.clone()
-
-    def restore():
-        s.copy_(s0)
-        n.copy_(r0)
-        m.copy_(m0)
-
-    ms = time_ms(lambda: color_gn.iterate(*inputs, s, n, m, p, first), 50, before=restore)
-    plain_ms = time_ms(lambda: color_gn.iterate_plain(*inputs, s, n, m, first), 5, 1,
-                       before=restore)
+    c = gn_level_check("color", call)
+    pts, col, valid, rgb, gx, gy, cam, rot = call[0][:8]
+    s0 = c["s0"]
     h, w = rgb.shape[:2]
     N, C = pts.shape[0], icp_gn.n_ctas(pts.shape[0])
     texels = color_gn_texels(pts, rgb, cam, s0[:16].view(4, 4))
     # points, colours and flags; the three images' pixels read (3 f32
-    # each); cam; the state in and out; the CTAs' rows out and in
+    # each); cam; the state in and out; the CTAs' rows out and in: a pass
     n_bytes = (N * (12 + 12 + 1) + 3 * texels * 12 + 4 * 4 + 2 * color_gn.STATE_SIZE * 4
                + 2 * C * color_gn.N_TERMS * 8)
     b, by = bound_ms(n_bytes, N * COLOR_GN_F32_OPS, N * COLOR_GN_F64_OPS)
+    passes = c["passes"]
     row = {"name": kernels.COLOR_GN.name + f" ({tag})", "tpu": None,
            "design": kernels.COLOR_GN.design, "route": "cuda",
            "source": "gps_slam_torch/csrc/color_gn.cu",
-           "replaces": "gps_slam_tpu/slam/tracker.py:322-380 (XLA)",
-           "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b, "bound_by": by, "library_ms": None, "ok": ok,
-           "bytes": n_bytes, "f32_ops": N * COLOR_GN_F32_OPS,
-           "f64_ops": N * COLOR_GN_F64_OPS,
+           "replaces": "gps_slam_tpu/slam/tracker.py:322-388 (XLA)",
+           "launches": launches, "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+           "plain_ms": c["plain_ms"], "bound_ms": passes * b, "bound_by": by,
+           "library_ms": None, "ok": c["ok"], "passes": passes,
+           "ms_per_pass": c["ms"] / max(passes, 1), "bound_ms_per_pass": b,
+           "budget": c["budget"], "more_after": c["more_after"],
+           "bytes_per_pass": n_bytes, "f32_ops_per_pass": N * COLOR_GN_F32_OPS,
+           "f64_ops_per_pass": N * COLOR_GN_F64_OPS,
            "shapes": {"points": N, "image": [h, w], "texels_read": texels,
                       "rotation_only": bool(rot), "ctas": C,
                       "points_per_thread": icp_gn.PIX * icp_gn.rounds(N),
-                      "inliers": round(float(s1[35].item()) * N)},
-           "tolerance": "state, count, loop test and per-CTA rows bit for bit; "
-                        "a second launch the same bits",
+                      "inliers": round(float(c["state"][35].item()) * N)},
+           "tolerance": "the level from its start: state, count, loop test and the last "
+                        "pass's per-CTA rows bit for bit with the plain level loop; a "
+                        "second launch the same bits",
            **(extra or {})}
     log("[kernel] " + json.dumps(row))
-    if not ok:
-        raise RuntimeError(f"color_gn_cuda disagrees with its plain version: {row}")
+    if not c["ok"] or passes < 1:
+        raise RuntimeError(f"color_gn_cuda disagrees with its plain level loop: {row}")
     return row
 
 
@@ -2539,7 +2488,7 @@ def color_tracker_fixture_phase() -> dict:
     points from compute_vertex_map and its colours as the maps, the new
     rgb rendered 2.2 cm away) through ColorTracker on the card: not
     FAILED, the translation error at most half the initial one (so its
-    accept steps moved the pose), `color_gn_cuda` launched once a pass;
+    accept steps moved the pose), `color_gn_cuda` launched once a level;
     beside it the same inputs on the CPU (pose difference printed)."""
     from gps_slam_torch import kernels
     from gps_slam_torch.config import Config
@@ -2581,14 +2530,35 @@ def color_tracker_fixture_phase() -> dict:
            "color_gn_launches": card["launches"], "ms": card["ms"],
            "pose_diff_card_cpu": float(np.abs(card["est"] - res["cpu"]["est"]).max()),
            "gate": "not FAILED; translation error <= half the initial 2.2 cm; "
-                   "color_gn_cuda once a pass"}
+                   "color_gn_cuda once a level"}
     log("[color tracker fixture] " + json.dumps(out))
     err = out["translation_err_cm"]
     if (card["quality"] == trk.TrackerQuality.FAILED
             or not err["after"] <= 0.5 * err["before"]
-            or card["launches"] != sum(card["iters"]) or res["cpu"]["launches"] != 0):
+            or card["launches"] != len(card["iters"]) or res["cpu"]["launches"] != 0):
         raise RuntimeError(f"color tracker fixture: {out}")
     return out
+
+
+def gn_launches(*caches) -> dict:
+    """Each Gauss-Newton kernel's launches so far, a graph replay's (of the
+    GraphCaches `caches`, None skipped) counted as its capture's."""
+    from gps_slam_torch import kernels
+
+    return {k.name: k.launches + sum(g.replayed_launches[k.name] for g in caches
+                                     if g is not None)
+            for k in (kernels.ICP_GN, kernels.COLOR_GN)}
+
+
+def check_gn_launches(tag: str, before: dict, after: dict, icp: int, color: int = 0) -> dict:
+    """Raise unless icp_gn_cuda and color_gn_cuda launched `icp` and
+    `color` times between the counts `before` and `after` (`gn_launches`):
+    once a level run, not once a pass."""
+    got = {k: after[k] - before[k] for k in after}
+    want = {"icp_gn_cuda": icp, "color_gn_cuda": color}
+    if got != want:
+        raise RuntimeError(f"{tag}: Gauss-Newton launches {got}, not one a level run: {want}")
+    return got
 
 
 def tracking_fixture_phase() -> dict:
@@ -2626,11 +2596,16 @@ def tracking_fixture_phase() -> dict:
             e.set_gt_poses([cams[0].c2w])
             e.attach_tracker(trk.ICPTracker(cfg, W, H))
             q = []
+            n0 = gn_launches()
             t = time.monotonic()
             for c, d in zip(cams, depths):
                 e.process_frame(c.image, d)
                 q.append(e._tracking_quality)
             ms = (time.monotonic() - t) * 1e3 / n
+            # one icp_gn_cuda launch a level of each tracked frame
+            gn = check_gn_launches(f"tracking fixture {name}, {route}", n0,
+                                   gn_launches(e._track_graphs),
+                                   e._tracker.n_levels * (n - 1))
             gt = [c.c2w for c in cams]
             est = e.cam_poses
             R = est[-1][:3, :3].T @ gt[-1][:3, :3]
@@ -2641,7 +2616,7 @@ def tracking_fixture_phase() -> dict:
                      np.clip((np.trace(R) - 1) / 2, -1, 1)))),
                  "good": sum(x == trk.TrackerQuality.GOOD for x in q[1:]),
                  "failed": sum(x == trk.TrackerQuality.FAILED for x in q[1:]),
-                 "tracked_frames": n - 1, "ms_per_frame": ms,
+                 "tracked_frames": n - 1, "ms_per_frame": ms, "gn_launches": gn,
                  "graphs": (None if e._track_graphs is None else
                             {"captures": e._track_graphs.captures,
                              "replays": e._track_graphs.replays})}
@@ -2999,7 +2974,7 @@ def reference_tracked_megastep() -> dict:
     tracked megastep, on one as its graph (a capture, then 2 replays), on
     the other uncaptured: poses, quality labels, iteration counts, the
     volumes and the last prepare raycast's maps bit for bit; on every
-    megastep frame the graph's iterations per level (its WHILE nodes')
+    megastep frame the graph's iterations per level (its level kernels')
     equal to the eager loop's on the same inputs, and not the budgets."""
     from gps_slam_torch.config import Config
     from gps_slam_torch.data import synthetic
@@ -3023,6 +2998,7 @@ def reference_tracked_megastep() -> dict:
     e = engines[0]
     tr = e._tracker
     eager_iters = []   # the eager loop on each megastep frame's inputs
+    n0 = gn_launches()
     for k, c in enumerate(cams):
         if k > 0:
             T_prev = e._last_pose_dev.clone()
@@ -3042,6 +3018,10 @@ def reference_tracked_megastep() -> dict:
                 T_prev, d, maps["vertex_map"], maps["normal_map"], e.K, pose_inv(T_prev),
                 tuple(tr.level_iters), tr.space_thresh, tr.tukey_c)[3])
     g, ref = e._track_graphs, engines[1]
+    # one icp_gn_cuda launch a level run: each engine's megastep frames and
+    # the eager loop beside them
+    gn = check_gn_launches("tracked megastep reference", n0, gn_launches(g),
+                           tr.n_levels * 3 * (len(cams) - 1))
     graph_iters = [it for _, it in labels[0][1:]]
     fields = ("table_keys", "table_ptrs", "block_coords", "state", "color", "summary")
     res = {"width": W, "height": H, "frames": len(cams),
@@ -3052,7 +3032,7 @@ def reference_tracked_megastep() -> dict:
            # per megastep frame: the replay's iterations per level (finest
            # first), the eager loop's on the same inputs, the budgets
            "gn_iters": graph_iters, "gn_iters_eager": eager_iters,
-           "gn_iters_budget": list(tr.level_iters),
+           "gn_iters_budget": list(tr.level_iters), "gn_launches": gn,
            "poses_equal": bool(np.array_equal(np.stack(e.cam_poses), np.stack(ref.cam_poses))),
            "not_equal": [k for k in fields if not torch.equal(getattr(e.vol, k),
                                                                 getattr(ref.vol, k))]
@@ -3101,10 +3081,15 @@ def reference_tracked() -> dict:
 
     card.attach_tracker(Lockstep())
     q_cpu = []
+    n0 = gn_launches()
     for c in cams:
         cpu.process_frame(c.image, c.depth)
         q_cpu.append(cpu._tracking_quality)
         card.process_frame(c.image, c.depth)
+    # one icp_gn_cuda launch a level of each card-tracked frame (the CPU's
+    # run the plain version)
+    gn = check_gn_launches("reference tracked", n0, gn_launches(),
+                           tracker.n_levels * len(own))
     d_mm, d_deg = [], []
     for k, (pose, _) in enumerate(own, 1):
         ref = cpu.cam_poses[k]
@@ -3114,7 +3099,7 @@ def reference_tracked() -> dict:
     vox_mm = cfg.pipe.tsdf.voxel_size * 1e3
     res = {"width": W, "height": H, "frames": N, "max_pose_diff_mm": max(d_mm),
            "max_pose_diff_deg": max(d_deg), "pose_diff_mm": d_mm,
-           "frames_over_1mm": sum(v > 1.0 for v in d_mm),
+           "frames_over_1mm": sum(v > 1.0 for v in d_mm), "gn_launches": gn,
            "labels_equal": [q for _, q in own] == q_cpu[1:], "labels_cpu": q_cpu[1:],
            "tolerance": f"labels equal; every frame within {vox_mm} mm (1 voxel) and "
                         "0.1 deg, all but one within 1 mm"}
@@ -3190,11 +3175,21 @@ def reference_color_tracked() -> dict:
             return cpu.cam_poses[len(poses["card"])], cpu._tracking_quality
 
     card.attach_tracker(Lockstep())
+    n0 = gn_launches()
     for c in cams:
         cpu.process_frame(c.image, c.depth)
         card.process_frame(c.image, c.depth)
+    # each Gauss-Newton kernel once a level of each of the card's stage
+    # runs, every stage run on each frame by both card trackers
+    levels = {type(t).__name__: t.n_levels for t in own_trk.trackers}
+    calls = [x[0] for name in ("card", "card, CPU maps") for x in logs[name]]
+    if any(calls.count(stage) != 2 * (N - 1) for stage in levels):
+        raise RuntimeError(f"reference color tracked: stage runs {calls}")
+    gn = check_gn_launches("reference color tracked", n0, gn_launches(),
+                           levels["ICPTracker"] * calls.count("ICPTracker"),
+                           levels["ColorTracker"] * calls.count("ColorTracker"))
     vox_mm = cfg.pipe.tsdf.voxel_size * 1e3
-    res = {"width": W, "height": H, "frames": N}
+    res = {"width": W, "height": H, "frames": N, "gn_launches": gn}
     ok = True
     for name in ("card", "card, CPU maps"):
         d_mm, d_deg = [], []
@@ -3982,7 +3977,6 @@ def main() -> int:
           *k3_tracked, *k3_color, k3_sharded]
     rows = kernel_phase(main_last, mp["launches"], k1, k2, k3)
     rows += window_step_phase(main_last, mp["launches"], mega)
-    rows.append(graph_while_row(tracked["launches"][kernels.GRAPH_WHILE.name]))
     rows += [icp_gn_row(*r) for r in tracked.pop("gn_calls")]
     rows += [color_gn_row(*r) for r in color_calls]
     reference_phase()

@@ -1,15 +1,19 @@
-// gn_common.cuh — what the two Gauss-Newton kernels share: icp_gn.cu (the
-// ICP tracker's iteration) and color_gn.cu (the colour tracker's).
+// gn_common.cuh — what the two Gauss-Newton level kernels share:
+// icp_gn.cu (the ICP tracker's level) and color_gn.cu (the colour
+// tracker's).
 //
-// Both take one pass of a pyramid level in one launch: a thread takes PIX
-// points a round, each warp sums its lanes' NTERMS f64 terms by an xor
-// transpose, each CTA writes one f64 row of sums, and the CTA that
-// finishes last (a ticket counted after a fence) sums the rows in the same
-// order and takes the Levenberg-Marquardt step in one warp: a 6x6 LU with
-// partial pivoting and se3_exp, each entry of a matrix in a lane.  The
-// sums' order is `icp_gn.cta_sums` (gps_slam_torch/slam/icp_gn.py), which
-// both plain versions use; every f32 expression is the plain versions',
-// built with -fmad=false.
+// Both run a whole pyramid level in one cooperative launch (every CTA
+// resident at once), pass after pass: a thread takes PIX points a round,
+// each warp sums its lanes' NTERMS f64 terms by an xor transpose, each
+// logical CTA of the grid writes one f64 row of sums (`cta_sum`; a
+// resident CTA takes the logical CTAs b, b + gridDim.x, ... where the
+// grid outgrows the card); a grid barrier (`grid_sync`);
+// then every CTA sums the rows in one fixed order (`sum_rows`) and one of
+// its warps takes the Levenberg-Marquardt step, the same bits in each: a 6x6 LU with partial pivoting, a
+// row a lane in registers (`lu6_lanes`), and se3_exp, each entry of a
+// matrix in a lane.  The sums' order is `icp_gn.cta_sums`
+// (gps_slam_torch/slam/icp_gn.py), which both plain versions use; every
+// f32 expression is the plain versions', built with -fmad=false.
 
 #pragma once
 
@@ -105,29 +109,60 @@ __device__ __forceinline__ double warps_sum(const double (*acc)[NTERMS], int j) 
   return a[0];
 }
 
-// The end of a CTA's pass: its warps' running sums into its row of
-// `partials` ([NTERMS, n_ctas]), then the ticket.  Returns true in every
-// thread of the CTA that finishes last, which leaves the ticket at 0 for
-// the next launch.
+// The end of a CTA's sums: its warps' running sums (a1, a2 of each lane)
+// halved into one row; thread j < NTERMS returns the row's term j (0 in
+// the others).  `acc` is read after the call: a CTA that sums again syncs
+// first.
 template <int NTERMS>
-__device__ __forceinline__ bool cta_done(double (*acc)[NTERMS], double* partials,
-                                         unsigned* ticket, int n_ctas, double a1,
-                                         double a2) {
-  __shared__ bool s_last;
+__device__ __forceinline__ double cta_sum(double (*acc)[NTERMS], double a1, double a2) {
   const int t = threadIdx.x;
   store_warp_sums<NTERMS>(acc, t >> 5, t & 31, a1, a2);
   __syncthreads();
-  if (t < NTERMS) partials[(size_t)t * n_ctas + blockIdx.x] = warps_sum<NTERMS>(acc, t);
-  __threadfence();
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(ticket, 1u) == (unsigned)(n_ctas - 1);
-  __syncthreads();
-  if (s_last && t == 0) *ticket = 0u;
-  return s_last;
+  return t < NTERMS ? warps_sum<NTERMS>(acc, t) : 0.0;
 }
 
-// The last CTA's totals: the CTAs' rows summed as the points are (a row a
+// A barrier of the whole grid, sound only because the launch is
+// cooperative (every CTA resident at once), on a 64-bit count of arrivals
+// that only grows: it starts at 0 with its buffer and stands at a
+// multiple of the grid's n resident CTAs whenever no barrier is under way
+// (every launch on one buffer has the same grid: its wrapper's for the
+// level's size on the card).
+// `grid_base` reads that multiple at the launch's start (no CTA passes
+// the launch's first barrier before every CTA has arrived, so at most
+// n - 1 arrivals can precede the read); the launch's barrier i then
+// waits for base + i n.  A CTA arrives with one add of release semantics
+// at the device scope (after __syncthreads, so its threads' row writes go
+// before it) and waits with loads of acquire semantics, the pattern of
+// CUTLASS's grid barrier: no full fence either side.  A wait that lasts
+// past ~2^33 cycles (seconds) traps: a fault, not a hung card.
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long grid_base(const unsigned long long* bar,
+                                                        unsigned n) {
+  return ld_acquire(bar) / n * n;
+}
+
+__device__ __forceinline__ void grid_sync(unsigned long long* bar,
+                                          unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" : : "l"(bar) : "memory");
+    const long long t0 = clock64();
+    while (ld_acquire(bar) < target) {
+      if (clock64() - t0 > (1ll << 33)) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// A pass's totals: the CTAs' rows summed as the points are (a row a
 // thread a round, one point a thread), into tot [NTERMS] in shared memory.
+// A thread loads its row's NTERMS terms at once (one trip to L2), then
+// the warps transpose them.
 template <int NTERMS>
 __device__ __forceinline__ void sum_rows(const double* partials, int n_ctas,
                                          double (*acc)[NTERMS], double* tot) {
@@ -137,9 +172,11 @@ __device__ __forceinline__ void sum_rows(const double* partials, int n_ctas,
   for (int k = 0; k < rounds; ++k) {
     const int row = k * NT + t;
     // rows other CTAs wrote: read from L2
-    auto term = [&](int j) -> double {
-      return row < n_ctas ? __ldcg(partials + (size_t)j * n_ctas + row) : 0.0;
-    };
+    double x[NTERMS];
+#pragma unroll
+    for (int j = 0; j < NTERMS; ++j)
+      x[j] = row < n_ctas ? __ldcg(partials + (size_t)j * n_ctas + row) : 0.0;
+    auto term = [&](int j) -> double { return x[j]; };
     double s1, s2;
     warp_terms<NTERMS>(term, lane, s1, s2);
     a1 = a1 + s1;
@@ -197,56 +234,54 @@ __device__ __forceinline__ Corners corners(float us, float vs, int Wf, int Hf) {
   return c;
 }
 
-// x with sA x = sb (6 x 6 in shared memory, row-major, both overwritten) by
-// LU with partial pivoting, in one warp (`icp_gn.solve6`): the pivot is the
-// first largest |value| of its column at or below the diagonal (NaN counts
-// as largest); lane (i, j) eliminates entry j > k of row i > k, lanes 25-29
-// the right-hand side; then back substitution subtracts the known unknowns
-// from the last one up.  Writes sx; returns "no zero pivot".
-__device__ __forceinline__ bool lu6_warp(float* sA, float* sb, float* sx, int* s_piv,
-                                         int lane) {
+// x with sA x = sb (6 x 6 in shared memory, row-major) by LU with partial
+// pivoting (`icp_gn.solve6`), in registers: lane r < 6 holds row r of A
+// and b.  Column k: the pivot row by one warp max of a key that orders
+// |a_ik| by its bits, a NaN above every number, and a ballot for the
+// first row that holds the max (the serial search's first largest, first
+// NaN); the two rows swapped by shuffles (the columns from k on: the
+// others are never read again), the pivot row broadcast, and each row
+// below it eliminated by its own lane; then back substitution from the
+// last unknown up, each x_j broadcast from lane j.  Every f32
+// expression is the plain version's.  Returns x in every lane and "no
+// zero pivot".
+__device__ __forceinline__ bool lu6_lanes(const float* sA, const float* sb, float x[6],
+                                          int lane) {
+  float a[6], bb;
+  const bool row = lane < 6;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) a[j] = row ? sA[lane * 6 + j] : 0.0f;
+  bb = row ? sb[lane] : 0.0f;
   bool nonzero = true;
+#pragma unroll
   for (int k = 0; k < 6; ++k) {
-    if (lane == 0) {
-      int p = k;
-      float best = fabsf(sA[k * 6 + k]);
-      for (int i = k + 1; i < 6; ++i) {
-        const float m = fabsf(sA[i * 6 + k]);
-        if (m > best || (isnan(m) && !isnan(best))) {
-          best = m;
-          p = i;
-        }
-      }
-      *s_piv = p;
+    const float m = fabsf(a[k]);
+    const bool below = lane >= k && row;
+    const unsigned key = below ? (isnan(m) ? 0x7fffffffu : __float_as_uint(m)) : 0u;
+    const unsigned top = __reduce_max_sync(FULL, key);
+    const int p = __ffs(__ballot_sync(FULL, below && key == top)) - 1;
+    const int src = lane == k ? p : (lane == p ? k : lane);
+#pragma unroll
+    for (int j = k; j < 6; ++j) a[j] = __shfl_sync(FULL, a[j], src);
+    bb = __shfl_sync(FULL, bb, src);
+    const float piv = __shfl_sync(FULL, a[k], k);
+    nonzero = nonzero && piv != 0.0f;
+    float rk[6];
+#pragma unroll
+    for (int j = k + 1; j < 6; ++j) rk[j] = __shfl_sync(FULL, a[j], k);
+    const float bk = __shfl_sync(FULL, bb, k);
+    if (lane > k && row) {
+      const float f = a[k] / piv;
+#pragma unroll
+      for (int j = k + 1; j < 6; ++j) a[j] = a[j] - f * rk[j];
+      bb = bb - f * bk;
     }
-    __syncwarp();
-    const int p = *s_piv;
-    if (p != k && lane < 7) {
-      float* x = lane < 6 ? sA + lane : sb;
-      const int stride = lane < 6 ? 6 : 1;
-      const float tmp = x[k * stride];
-      x[k * stride] = x[p * stride];
-      x[p * stride] = tmp;
-    }
-    __syncwarp();
-    nonzero = nonzero && sA[k * 7] != 0.0f;
-    const int m = 5 - k;
-    if (lane < m * m) {
-      const int i = k + 1 + lane / m, j = k + 1 + lane % m;
-      const float f = sA[i * 6 + k] / sA[k * 7];
-      sA[i * 6 + j] = sA[i * 6 + j] - f * sA[k * 6 + j];
-    } else if (lane >= 25 && lane < 25 + m) {
-      const int i = k + 1 + (lane - 25);
-      const float f = sA[i * 6 + k] / sA[k * 7];
-      sb[i] = sb[i] - f * sb[k];
-    }
-    __syncwarp();
   }
+#pragma unroll
   for (int j = 5; j >= 0; --j) {
-    if (lane == 0) sx[j] = sb[j] / sA[j * 7];
-    __syncwarp();
-    if (lane < j) sb[lane] = sb[lane] - sA[lane * 6 + j] * sx[j];
-    __syncwarp();
+    const float xj = __shfl_sync(FULL, bb / a[j], j);
+    x[j] = xj;
+    if (lane < j) bb = bb - a[j] * xj;
   }
   return nonzero;
 }

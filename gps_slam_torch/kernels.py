@@ -124,27 +124,21 @@ SPLAT_BWD = Kernel(
     "contraction on; a tile with no live slot writes zeros and exits",
     flags=("-fmad=true",))
 
-GRAPH_WHILE = Kernel(
-    "graph_while_cuda", "graph_while.cu", "graph_while_begin", [P, P, P, P],
-    "one thread sets the WHILE node's handle from a 0-d bool, once before "
-    "the loop and once at the end of each pass of its body",
-    extra={"graph_while_end": ([P, ctypes.c_ulonglong, P, P], ctypes.c_int),
-           "graph_while_stream": ([P], ctypes.c_int),
-           "graph_while_versions": ([P, P], ctypes.c_int),
-           "graph_while_error": ([I], ctypes.c_char_p),
-           "graph_while_failed_call": ([], ctypes.c_char_p)})
 ICP_GN = Kernel(
-    "icp_gn_cuda", "icp_gn.cu", "icp_gn", [P] * 12 + [I] * 9 + [F, P],
-    "one kernel a pass: 2 pixels a thread a round, a warp's 45 sums by an xor "
-    "transpose, per-CTA f64 rows; the last CTA sums the rows in the same order "
-    "and takes the LM step in one warp",
-    extra={"icp_gn_load": ([], ctypes.c_int)})
+    "icp_gn_cuda", "icp_gn.cu", "icp_gn", [P] * 11 + [I] * 10 + [F, I, P],
+    "a pyramid level's Gauss-Newton loop in one cooperative launch: 2 pixels a "
+    "thread a round, a warp's 45 sums by an xor transpose, per-CTA f64 rows, a grid "
+    "barrier (one atomic a CTA); every CTA sums the rows in the same order and one "
+    "warp takes the LM step (LU a row a lane), pass after pass",
+    extra={"icp_gn_capacity": ([P], ctypes.c_int)})
 
 COLOR_GN = Kernel(
-    "color_gn_cuda", "color_gn.cu", "color_gn", [P] * 11 + [I] * 8 + [F, P],
-    "one kernel a pass, icp_gn_cuda's design: 2 points a thread a round, a warp's "
-    "44 sums by an xor transpose, per-CTA f64 rows; the last CTA sums the rows in "
-    "the same order and takes the colour LM step in one warp")
+    "color_gn_cuda", "color_gn.cu", "color_gn", [P] * 11 + [I] * 9 + [F, I, P],
+    "a colour pyramid level's Gauss-Newton loop in one cooperative launch, "
+    "icp_gn_cuda's design: 2 points a thread a round, a warp's 44 sums by an xor "
+    "transpose, per-CTA f64 rows, a grid barrier; every CTA sums the rows in the "
+    "same order and one warp takes the colour LM step, pass after pass",
+    extra={"color_gn_capacity": ([P], ctypes.c_int)})
 
 # kernels A and B of an Adam step share one source (one library, two
 # entries, two counters)
@@ -167,8 +161,8 @@ WINDOW_ADAM = Kernel(
     "one thread an element over the attributes laid end to end; pointers, "
     "sizes and learning rates by value in the launch's arguments")
 
-ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, GRAPH_WHILE, ICP_GN,
-       COLOR_GN, PROJECT_SH_FWD, PROJECT_SH_BWD, WINDOW_ADAM)
+ALL = (INTEGRATE, INTEGRATE_F32, RAYCAST, SPLAT_FWD, SPLAT_BWD, ICP_GN, COLOR_GN,
+       PROJECT_SH_FWD, PROJECT_SH_BWD, WINDOW_ADAM)
 _lock = threading.Lock()
 build_log: dict[str, str] = {}
 

@@ -1,11 +1,13 @@
-"""One Gauss-Newton iteration of a colour-tracker pyramid level: the CUDA
-kernel `color_gn_cuda` (csrc/color_gn.cu) and its plain PyTorch version.
+"""The Gauss-Newton loop of a colour-tracker pyramid level: the CUDA kernel
+`color_gn_cuda` (csrc/color_gn.cu), which runs the level's passes in one
+cooperative launch, and its plain PyTorch version, one pass
+(`iterate_plain`) run in a loop that reads the loop's test (`run_plain`).
 
-The counterpart of the body of the JAX colour tracker's per-level
-`lax.while_loop` (`gn_iter`, gps_slam_tpu/slam/tracker.py:322-380), which
-XLA compiles into a few fusions; it replaces no `pallas_call`.  One
-iteration at the level's w2c estimate M, over the N points of the previous
-raycast (world points, their model colours, their valid flags):
+The counterpart of the JAX colour tracker's per-level `lax.while_loop`
+(its body `gn_iter` and its test, gps_slam_tpu/slam/tracker.py:322-388),
+which XLA compiles into one program; it replaces no `pallas_call`.  One
+iteration (a pass) at the level's w2c estimate M, over the N points of the
+previous raycast (world points, their model colours, their valid flags):
 
   * per point: the camera point M p_w, its projection into the level's
     image, the bilinear reads of the image, of its Sobel x and of its
@@ -48,11 +50,19 @@ STEP = 34         # the index of `step` in the state
 
 
 def partials_buffer(n_pts: int, device) -> torch.Tensor:
-    """The kernel's scratch, zeros: the per-CTA sums [N_TERMS, n_ctas] f64
-    (the grid of `icp_gn`), then one slot whose bits hold the count of
-    CTAs done (0 between launches)."""
-    return torch.zeros(N_TERMS * icp_gn.n_ctas(n_pts) + 1, dtype=torch.float64,
+    """The kernel's scratch, zeros: two halves of per-CTA sums [N_TERMS,
+    n_ctas] f64 (the grid of `icp_gn`; the passes use the halves in turn, a
+    launch leaves its last pass's rows in the first), then one slot whose
+    bits hold the grid barrier's 64-bit count of arrivals."""
+    return torch.zeros(2 * N_TERMS * icp_gn.n_ctas(n_pts) + 1, dtype=torch.float64,
                        device=device)
+
+
+def load() -> None:
+    """Load `color_gn_cuda` onto the current card now (built first if need
+    be), which a first launch inside a graph capture would otherwise do,
+    and check that the card can launch it cooperatively."""
+    icp_gn.grid(kernels.COLOR_GN, icp_gn.MAX_CTAS)
 
 
 def terms(M, pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only: bool,
@@ -157,20 +167,35 @@ def iterate_plain(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only: 
     torch.logical_and(n_run < n_iters, state[STEP] > step_exit, out=more)
 
 
+def run_plain(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only: bool,
+              n_iters: int, step_exit: float, state, n_run, more, first: bool = False,
+              budget: int = 1) -> None:
+    """The plain version of `iterate`: `iterate_plain` pass after pass, the
+    first always, then while `more` holds (read on the host), at most
+    `budget` passes."""
+    for k in range(budget):
+        if k and not bool(more):
+            break
+        iterate_plain(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only, n_iters,
+                      step_exit, state, n_run, more, first=first and k == 0)
+
+
 def iterate(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only: bool,
             n_iters: int, step_exit: float, state, n_run, more, partials=None,
-            first: bool = False) -> None:
-    """One Gauss-Newton iteration of the level on its carried `state` (f32
-    [STATE_SIZE], `FIELDS`), in place, then `n_run` (0-d int64) and `more`
-    (0-d bool) anew.  `pts_w`, `col_known` [N, 3] f32, `pts_valid` [N]
-    bool; `rgb`, `gx`, `gy` [h, w, 3] f32; `cam` [4] (fx, fy, cx, cy of
-    the level).  `first` marks iteration 0 (its step is always kept).
-    `partials` (`partials_buffer`) is the kernel's scratch.  CPU tensors
-    take the plain version; CUDA tensors launch `color_gn_cuda` or
+            first: bool = False, budget: int = 1) -> None:
+    """Gauss-Newton iterations (passes) of the level on its carried `state`
+    (f32 [STATE_SIZE], `FIELDS`), in place: the first always, then while
+    the loop's test `more` holds, at most `budget` in all; `n_run` (0-d
+    int64) and `more` (0-d bool) anew after each.  `pts_w`, `col_known`
+    [N, 3] f32, `pts_valid` [N] bool; `rgb`, `gx`, `gy` [h, w, 3] f32;
+    `cam` [4] (fx, fy, cx, cy of the level).  `first` marks iteration 0
+    (its step is always kept).  `partials` (`partials_buffer`) is the
+    kernel's scratch.  CPU tensors take the plain version (`run_plain`);
+    CUDA tensors launch `color_gn_cuda` once, reading nothing back, or
     raise."""
     if pts_w.device.type != "cuda":
-        iterate_plain(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only, n_iters,
-                      step_exit, state, n_run, more, first)
+        run_plain(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only, n_iters,
+                  step_exit, state, n_run, more, first, budget)
         return
     k = kernels.COLOR_GN
     n = pts_w.shape[0]
@@ -183,14 +208,17 @@ def iterate(pts_w, col_known, pts_valid, rgb, gx, gy, cam, rotation_only: bool,
             ("gy", gy, torch.float32, (h, w, 3)), ("cam", cam, torch.float32, (4,)),
             ("state", state, torch.float32, (STATE_SIZE,)),
             ("n_run", n_run, torch.int64, ()), ("more", more, torch.bool, ()),
-            ("partials", partials, torch.float64, (N_TERMS * icp_gn.n_ctas(n) + 1,))):
+            ("partials", partials, torch.float64, (2 * N_TERMS * icp_gn.n_ctas(n) + 1,))):
         if t is None:
             raise ValueError(f"{k.name}: {name} is missing")
         kernels.check_tensor(k, name, t, dtype, shape)
+    if budget < 1:
+        raise ValueError(f"{k.name}: budget {budget} < 1")
+    ctas = icp_gn.n_ctas(n)
     err = k.fn(pts_w.data_ptr(), col_known.data_ptr(), pts_valid.data_ptr(), rgb.data_ptr(),
                gx.data_ptr(), gy.data_ptr(), cam.data_ptr(), state.data_ptr(),
                n_run.data_ptr(), more.data_ptr(), partials.data_ptr(), n, h, w,
-               int(rotation_only), icp_gn.rounds(n), icp_gn.n_ctas(n), int(first),
-               int(n_iters), float(step_exit), kernels.stream_ptr())
+               int(rotation_only), icp_gn.rounds(n), ctas, icp_gn.grid(k, ctas), int(first),
+               int(n_iters), float(step_exit), int(budget), kernels.stream_ptr())
     k.launches += 1
     kernels.check(k, err)

@@ -1,10 +1,12 @@
-"""One Gauss-Newton iteration of an ICP pyramid level: the CUDA kernel
-`icp_gn_cuda` (csrc/icp_gn.cu) and its plain PyTorch version.
+"""The Gauss-Newton loop of an ICP pyramid level: the CUDA kernel
+`icp_gn_cuda` (csrc/icp_gn.cu), which runs the level's passes in one
+cooperative launch, and its plain PyTorch version, one pass
+(`iterate_plain`) run in a loop that reads the loop's test (`run_plain`).
 
-The counterpart of the body of the JAX tracker's per-level
-`lax.while_loop` (`gn_iter`, gps_slam_tpu/slam/tracker.py:150-224), which
-XLA compiles into a few fusions; it replaces no `pallas_call`.  One
-iteration at the level's estimate T:
+The counterpart of the JAX tracker's per-level `lax.while_loop` (its body
+`gn_iter` and its test, gps_slam_tpu/slam/tracker.py:150-233), which XLA
+compiles into one program; it replaces no `pallas_call`.  One iteration
+(a pass) at the level's estimate T:
 
   * per pixel: the camera point from the level's depth, its world point,
     its projection into the raycast camera, the bilinear vertex and normal
@@ -34,6 +36,8 @@ sum); the LM accept/reject turns on last bits, so the order is fixed.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels
@@ -41,8 +45,9 @@ from .. import kernels
 NT = 256          # threads of a CTA
 NW = NT // 32     # warps of a CTA
 PIX = 2           # pixels a thread takes a round, added before its warp sums
-# the grid at most: 2 CTAs an SM of the H100's 132 at the kernel's 100
-# registers a thread, one wave (its last CTA sums the CTAs' rows)
+# the grid at most: 2 CTAs an SM of the H100's 132 at the kernel's <= 128
+# registers a thread, one wave (the level kernel's grid barrier needs every
+# CTA resident)
 MAX_CTAS = 264
 N_TERMS = 45      # H (36, row-major), g (6), sum |r| w, sum w, inliers
 # the level's carried state, one f32 buffer that the step updates in place
@@ -63,18 +68,49 @@ def n_ctas(n_pix: int) -> int:
 
 
 def partials_buffer(n_pix: int, device) -> torch.Tensor:
-    """The kernel's scratch, zeros: the per-CTA sums [N_TERMS, n_ctas] f64,
-    then one slot whose bits hold the count of CTAs done (0 between
-    launches).  Allocated with the level, before its loop (a WHILE body
-    allocates nothing that outlives a pass)."""
-    return torch.zeros(N_TERMS * n_ctas(n_pix) + 1, dtype=torch.float64, device=device)
+    """The kernel's scratch, zeros: two halves of per-CTA sums [N_TERMS,
+    n_ctas] f64 (the passes use them in turn; a launch leaves its last
+    pass's rows in the first), then one slot whose bits hold the grid
+    barrier's 64-bit count of arrivals (a multiple of n_ctas between
+    launches).  Allocated with the level, before its launch."""
+    return torch.zeros(2 * N_TERMS * n_ctas(n_pix) + 1, dtype=torch.float64, device=device)
+
+
+_CAPACITY: dict = {}   # (kernel name, device index) -> CTAs resident at once
+
+
+def capacity(kernel) -> int:
+    """The CTAs the current card holds resident at once for the level
+    kernel `kernel` (occupancy x SMs; 0 where it cannot launch a
+    cooperative kernel), from its C entry `<entry>_capacity`, queried once
+    a card; the query loads the kernel onto the card, which a first
+    launch inside a graph capture would otherwise do."""
+    key = (kernel.name, torch.cuda.current_device())
+    if key not in _CAPACITY:
+        n = ctypes.c_int(0)
+        kernels.check(kernel, kernel.extra_fn(kernel.entry + "_capacity")(ctypes.byref(n)))
+        _CAPACITY[key] = n.value
+    return _CAPACITY[key]
+
+
+def grid(kernel, ctas: int) -> int:
+    """The launch's grid for a logical grid of `ctas` CTAs: as many as the
+    card holds resident at once, at most `ctas` (each resident CTA takes
+    the logical CTAs b, b + grid, ...; the level kernel's grid barrier is
+    sound only over resident CTAs, and the cooperative launch is refused
+    otherwise).  Raises where the card cannot launch a cooperative
+    kernel."""
+    held = capacity(kernel)
+    if held < 1:
+        raise RuntimeError(f"{kernel.name}: this card cannot launch a cooperative kernel")
+    return min(ctas, held)
 
 
 def load() -> None:
     """Load `icp_gn_cuda` onto the current card now (built first if need
-    be): a first launch inside a graph capture would load it there."""
-    k = kernels.ICP_GN
-    kernels.check(k, k.extra_fn("icp_gn_load")())
+    be), which a first launch inside a graph capture would otherwise do,
+    and check that the card can launch it cooperatively."""
+    grid(kernels.ICP_GN, MAX_CTAS)
 
 
 def level_points(depth: torch.Tensor, cam: torch.Tensor):
@@ -341,20 +377,34 @@ def iterate_plain(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh
     torch.logical_and(n_run < n_iters, state[76] > step_exit, out=more)
 
 
-def iterate(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c,
-            rotation_only: bool, n_iters: int, step_exit: float, state, n_run, more,
-            partials=None, active=None, first: bool = False) -> None:
-    """One Gauss-Newton iteration of the level on its carried `state`
-    (f32 [STATE_SIZE], `FIELDS`), in place: taken whole, or, with the 0-d
-    bool `active`, only where it holds (the unrolled loop's masked
-    iterations change nothing); then `n_run` (0-d int64) and `more` (0-d
-    bool) anew.  `first` marks iteration 0 (its step is always kept).
-    `partials` (`partials_buffer`) is the kernel's scratch.  CPU tensors
-    take the plain version; CUDA tensors launch `icp_gn_cuda` or raise."""
-    if depth.device.type != "cuda":
+def run_plain(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c,
+              rotation_only: bool, n_iters: int, step_exit: float, state, n_run, more,
+              first: bool = False, budget: int = 1) -> None:
+    """The plain version of `iterate`: `iterate_plain` pass after pass, the
+    first always, then while `more` holds (read on the host), at most
+    `budget` passes."""
+    for k in range(budget):
+        if k and not bool(more):
+            break
         iterate_plain(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh,
                       tukey_c, rotation_only, n_iters, step_exit, state, n_run, more,
-                      active, first)
+                      first=first and k == 0)
+
+
+def iterate(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c,
+            rotation_only: bool, n_iters: int, step_exit: float, state, n_run, more,
+            partials=None, first: bool = False, budget: int = 1) -> None:
+    """Gauss-Newton iterations (passes) of the level on its carried
+    `state` (f32 [STATE_SIZE], `FIELDS`), in place: the first always, then
+    while the loop's test `more` holds, at most `budget` in all; `n_run`
+    (0-d int64) and `more` (0-d bool) anew after each.  `first` marks
+    iteration 0 (its step is always kept).  `partials`
+    (`partials_buffer`) is the kernel's scratch.  CPU tensors take the
+    plain version (`run_plain`); CUDA tensors launch `icp_gn_cuda` once,
+    reading nothing back, or raise."""
+    if depth.device.type != "cuda":
+        run_plain(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tukey_c,
+                  rotation_only, n_iters, step_exit, state, n_run, more, first, budget)
         return
     k = kernels.ICP_GN
     h, w = depth.shape
@@ -369,17 +419,18 @@ def iterate(depth, ref_vertex, ref_normal, cam, ref_pose_inv, space_thresh, tuke
             ("tukey_c", tukey_c, torch.float32, ()),
             ("state", state, torch.float32, (STATE_SIZE,)),
             ("n_run", n_run, torch.int64, ()), ("more", more, torch.bool, ()),
-            ("partials", partials, torch.float64, (N_TERMS * n_ctas(n_pix) + 1,))):
+            ("partials", partials, torch.float64, (2 * N_TERMS * n_ctas(n_pix) + 1,))):
         if t is None:
             raise ValueError(f"{k.name}: {name} is missing")
         kernels.check_tensor(k, name, t, dtype, shape)
-    if active is not None:
-        kernels.check_tensor(k, "active", active, torch.bool, ())
+    if budget < 1:
+        raise ValueError(f"{k.name}: budget {budget} < 1")
+    ctas = n_ctas(n_pix)
     err = k.fn(depth.data_ptr(), ref_vertex.data_ptr(), ref_normal.data_ptr(),
                cam.data_ptr(), ref_pose_inv.data_ptr(), space_thresh.data_ptr(),
                tukey_c.data_ptr(), state.data_ptr(), n_run.data_ptr(), more.data_ptr(),
-               None if active is None else active.data_ptr(), partials.data_ptr(),
-               h, w, Hf, Wf, int(rotation_only), rounds(n_pix), n_ctas(n_pix),
-               int(first), int(n_iters), float(step_exit), kernels.stream_ptr())
+               partials.data_ptr(), h, w, Hf, Wf, int(rotation_only), rounds(n_pix), ctas,
+               grid(k, ctas), int(first), int(n_iters), float(step_exit), int(budget),
+               kernels.stream_ptr())
     k.launches += 1
     kernels.check(k, err)

@@ -43,7 +43,7 @@ from ..gs import model as gmodel, optim, params as pmod
 from ..gs.params import GaussianPool
 from ..tsdf import raycast_tiles
 from ..tsdf.volume import TsdfVolume
-from ..utils import graph_while
+from ..utils import graphs
 from ..utils.se3 import compute_normal_map
 
 
@@ -216,10 +216,9 @@ class GraphCache:
     makes what the function needs that a graph cannot capture (a constant
     copied from the host, a library's first call).  A capture that fails
     raises; nothing falls back to an eager run.  A capture goes through
-    `graph_while.capture`, so that `fn` may hold conditional WHILE nodes
-    (the tracked megastep's Gauss-Newton levels); `node_counts` records
-    each capture's nodes: all of the graph's (`nodes`), its WHILE nodes
-    (`conditional`) and each WHILE body's (`bodies`).
+    `graphs.capture` (the garbage collector held off);
+    `node_counts` records each capture's nodes: all of the graph's
+    (`nodes`) and its conditional ones (`conditional`).
 
     The kernel wrappers count their launches while a graph is captured,
     and the capture's first execution is its replay right after; a later
@@ -284,13 +283,10 @@ class GraphCache:
         before = kernels.counts()
         # kept until counted, then instantiated
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with graph_while.capture(graph) as cap:
+        with graphs.capture(graph):
             outputs = self.fn(**buf, **statics)
         launches = {k: n - before[k] for k, n in kernels.counts().items()}
-        nodes = {**graph_while.node_counts(graph), "bodies": cap.body_nodes}
-        if nodes["conditional"] != cap.while_nodes:
-            raise RuntimeError(f"the captured graph holds {nodes['conditional']} "
-                               f"conditional nodes, not the {cap.while_nodes} added")
+        nodes = graphs.node_counts(graph)
         self.node_counts.append(nodes)
         graph.instantiate()
         graph.replay()

@@ -10,22 +10,22 @@ composite trackers of the reference's tracker factory.
 Each level's loop runs on the tensors' device.  The JAX package runs it as
 one `lax.while_loop` whose exit test (`it < n_iters and step > 1e-10`)
 stays on the device.  A Gauss-Newton iteration (the JAX loop body: the
-per-pixel system, its f64 sums and the Levenberg-Marquardt step) is
-`icp_gn.iterate`: the kernel `icp_gn_cuda` on the card, its plain version
-on the CPU, on the level's state (`_StaticLevel`) in place.  The eager
-route (`_track_level`, `ICPTracker.track`) reads `step` back once per
-iteration (4 bytes, the only synchronising call of an iteration) to take
-the same exit after the same iteration.  The tracked megastep's route
-(`_track_level_static`, `track_pyramid_static`) reads nothing.  Captured
-into a CUDA graph on the card, the iterations after the first are the
-body of one conditional WHILE node per level (`utils/graph_while.py`),
-whose exit test stays on the device as the JAX one does: a converged
-level runs no more iterations.  Uncaptured (the CPU, an eager run on the
-card), the loop is unrolled to the level's budget and every update after
-the exit is masked with a device flag; the masked iterations change
-nothing.  The colour tracker's level (`_track_level_color`) runs only
-eagerly, as the JAX package's engine runs it: each iteration is
-`color_gn.iterate` (`color_gn_cuda` on the card) and one read of `step`.
+per-pixel system, its f64 sums and the Levenberg-Marquardt step) is a pass
+of `icp_gn.iterate` on the level's state (`_StaticLevel`) in place; on the
+card one launch of the kernel `icp_gn_cuda` runs the level's whole loop,
+its passes and its exit test (`more`) on the device, as the JAX loop does.
+The eager route (`_track_level`, `ICPTracker.track`) launches it once a
+level and reads the iterations run back once (8 bytes, the only
+synchronising call of a level).  The tracked megastep's route
+(`_track_level_static`, `track_pyramid_static`) reads nothing: captured
+into a CUDA graph, each level is one kernel node.  On the CPU the plain
+version runs pass after pass; its eager loop reads the test back after
+each pass, and the static level, which must read nothing, is unrolled to
+the level's budget with every update after the exit masked by the device
+flag (the masked passes change nothing).  The colour tracker's level
+(`_track_level_color`) runs only eagerly, as the JAX package's engine runs
+it: one `color_gn.iterate` (one launch of `color_gn_cuda` on the card) and
+one read of the iterations run.
 
 The sums over pixels (the 6x6 system, the gradient, the robust error) are
 accumulated in f64 and rounded to f32, in one fixed order on both devices
@@ -41,7 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
-from ..utils import graph_while
 from ..utils.se3 import pose_inv
 from . import color_gn, icp_gn
 from .icp_gn import bilinear as _bilinear
@@ -114,16 +113,12 @@ def _track_level(
     """Gauss-Newton iterations at one pyramid level.  Returns (T,
     inlier_frac, mean_residual, n_iters_run): T is the last accepted
     estimate (the trailing trial step is never evaluated), the inlier share
-    and residual those of the last iteration, all on the device."""
+    and residual those of the last iteration, all on the device; the
+    iterations run read back once (the level's one synchronising call)."""
     lv = _StaticLevel(T0, depth, ref_vertex, ref_normal, cam, n_iters, rotation_only,
-                      ref_pose_inv, space_thresh, tukey_c)
-    it, step = 1, float(lv.step)  # the one read-back of an iteration
-    while it < n_iters and step > _STEP_EXIT:
-        lv.iterate()
-        it += 1
-        step = float(lv.step)
-    T, inlier, mean_r, _ = lv.result()
-    return T, inlier, mean_r, it
+                      ref_pose_inv, space_thresh, tukey_c, budget=n_iters)
+    T, inlier, mean_r, n_run = lv.result()
+    return T, inlier, mean_r, int(n_run)
 
 
 class _StaticLevel:
@@ -133,13 +128,12 @@ class _StaticLevel:
     CPU): T, T_acc, H_acc, g_acc, err_acc, lam, step, inlier and mean_r in
     one f32 buffer (`icp_gn.FIELDS`), the iterations run `n_run` (0-d
     int64) and the loop's test `more` (0-d bool: `n_run < n_iters` and the
-    last step above the exit, the JAX `cond`).  Iteration 0 runs when the
-    level is made (its step starts above the exit).  Both routes run it:
-    the eager `_track_level` reads `step` back after each iteration,
-    `_track_level_static` reads nothing."""
+    last step above the exit, the JAX `cond`).  When the level is made it
+    runs iteration 0 and, while `more` holds, up to `budget` passes in all
+    (one launch on the card; `budget` n_iters runs the whole level)."""
 
     def __init__(self, T0, depth, ref_vertex, ref_normal, cam, n_iters: int,
-                 rotation_only: bool, ref_pose_inv, space_thresh, tukey_c):
+                 rotation_only: bool, ref_pose_inv, space_thresh, tukey_c, budget: int = 1):
         dev = depth.device
         h, w = depth.shape
         self.inputs = (depth.contiguous(), ref_vertex.contiguous(), ref_normal.contiguous(),
@@ -158,16 +152,21 @@ class _StaticLevel:
         self.n_run = torch.zeros((), dtype=torch.int64, device=dev)
         self.more = torch.zeros((), dtype=torch.bool, device=dev)
         self.partials = icp_gn.partials_buffer(h * w, dev) if dev.type == "cuda" else None
-        self.iterate(first=True)
+        self.iterate(budget, first=True)
 
-    def iterate(self, active: torch.Tensor | None = None, first: bool = False) -> None:
-        """One Gauss-Newton iteration on the carried state, in place: taken
-        whole (iteration 0, an eager iteration, or the body of a WHILE
-        node, which runs only while `more` holds), or with every update
-        masked by the 0-d bool `active` (the unrolled loop); then `more`
-        anew."""
+    def iterate(self, budget: int = 1, first: bool = False) -> None:
+        """Gauss-Newton passes on the carried state, in place: one, then
+        more while `more` holds, at most `budget` (one launch on the card);
+        `more` anew after each."""
         icp_gn.iterate(*self.inputs, self.state, self.n_run, self.more, self.partials,
-                       active, first)
+                       first, budget)
+
+    def iterate_masked(self) -> None:
+        """One pass of the plain version with every update masked by
+        `more` (the CPU's static level, which reads nothing back: a pass
+        after the exit changes nothing)."""
+        icp_gn.iterate_plain(*self.inputs, self.state, self.n_run, self.more,
+                             active=self.more)
 
     def result(self) -> tuple:
         """(T, inlier, mean_r, n_run) as `_track_level` returns them."""
@@ -177,19 +176,20 @@ class _StaticLevel:
 def _track_level_static(T0, depth, ref_vertex, ref_normal, cam, n_iters: int,
                         rotation_only: bool, ref_pose_inv, space_thresh, tukey_c):
     """`_track_level` with no read-back: the same values bit for bit, the
-    iteration count a 0-d int64 device tensor.  While a CUDA graph is
-    captured the iterations after the first are one WHILE node's body,
-    which the device runs while `more` holds; otherwise the loop is
-    unrolled to `n_iters` and an iteration updates the state only while
-    `more` (every step so far above the exit) holds."""
-    lv = _StaticLevel(T0, depth, ref_vertex, ref_normal, cam, n_iters, rotation_only,
-                      ref_pose_inv, space_thresh, tukey_c)
-    if graph_while.capturing(depth.device):
-        graph_while.while_loop(lv.more, lv.iterate)
+    iteration count a 0-d int64 device tensor.  On the card the level is
+    one launch of `icp_gn_cuda` at budget n_iters (one kernel node when a
+    CUDA graph is captured), whose loop exits on the device; on the CPU the
+    loop is unrolled to `n_iters` and an iteration updates the state only
+    while `more` (every step so far above the exit) holds."""
+    if depth.device.type == "cuda":
+        lv = _StaticLevel(T0, depth, ref_vertex, ref_normal, cam, n_iters, rotation_only,
+                          ref_pose_inv, space_thresh, tukey_c, budget=n_iters)
     else:
+        lv = _StaticLevel(T0, depth, ref_vertex, ref_normal, cam, n_iters, rotation_only,
+                          ref_pose_inv, space_thresh, tukey_c)
         for _ in range(1, n_iters):
-            # `iterate` reads the flag before it rewrites it
-            lv.iterate(active=lv.more)
+            # the pass reads the flag before it rewrites it
+            lv.iterate_masked()
     return lv.result()
 
 
@@ -278,13 +278,13 @@ def _track_level_color(M0, pts_w, col_known, pts_valid, rgb, gx, gy,
                        n_iters: int, rotation_only: bool, cam: torch.Tensor):
     """One pyramid level of photometric Levenberg-Marquardt: minimises
     |bilinear(rgb, proj(M p_w)) - col_known|^2 over a left-multiplied twist
-    on the w2c matrix M.  Each iteration is `color_gn.iterate`
-    (`color_gn_cuda` on the card, its plain version on the CPU) on the
-    level's state (`color_gn.FIELDS`) in place, followed by one read of
-    `step` (4 bytes) to take the JAX `cond`'s exit after the same
-    iteration.  Returns (M, inlier, residual, n_iters_run): M the last
-    accepted estimate, the inlier share and residual those of the last
-    iteration, on the device."""
+    on the w2c matrix M.  The level's loop is one `color_gn.iterate` at
+    budget n_iters (one launch of `color_gn_cuda` on the card, its plain
+    version pass after pass on the CPU) on the level's state
+    (`color_gn.FIELDS`) in place, which exits after the JAX `cond`'s
+    iteration; then one read of the iterations run.  Returns (M, inlier,
+    residual, n_iters_run): M the last accepted estimate, the inlier share
+    and residual those of the last iteration, on the device."""
     dev = rgb.device
     state = torch.cat([M0.reshape(-1), M0.reshape(-1),
                        _vector((float("inf"), 1e-3, 0.0, 0.0, 0.0), dev)])
@@ -295,13 +295,9 @@ def _track_level_color(M0, pts_w, col_known, pts_valid, rgb, gx, gy,
     inputs = (pts_w.contiguous(), col_known.contiguous(), pts_valid.contiguous(),
               rgb.contiguous(), gx.contiguous(), gy.contiguous(), cam, rotation_only,
               n_iters, _STEP_EXIT)
-    color_gn.iterate(*inputs, state, n_run, more, partials, first=True)
-    it, step = 1, float(state[color_gn.STEP])  # the one read-back of an iteration
-    while it < n_iters and step > _STEP_EXIT:
-        color_gn.iterate(*inputs, state, n_run, more, partials)
-        it += 1
-        step = float(state[color_gn.STEP])
-    return state[16:32].view(4, 4), state[35], state[36], it
+    color_gn.iterate(*inputs, state, n_run, more, partials, first=True, budget=n_iters)
+    # the one read-back of a level
+    return state[16:32].view(4, 4), state[35], state[36], int(n_run)
 
 
 # The colour tracker's pyramid and image gradients are elementwise torch

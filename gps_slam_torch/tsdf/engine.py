@@ -35,11 +35,11 @@ the JAX package's jitted programs do (`integrate.fuse_frame_static`):
 
 On the CPU they run eagerly; on the card each is captured as a CUDA graph
 once per static key (`slam/megastep.GraphCache`) and replayed.  In the
-tracked megastep's graph each pyramid level's Gauss-Newton iterations
-after the first are the body of a conditional WHILE node
-(`utils/graph_while.py`, the JAX `lax.while_loop`): the device tests the
-exit after each iteration, and a replay runs the iterations that the
-eager route runs, not the levels' budgets.
+tracked megastep's graph each pyramid level's Gauss-Newton loop is one
+kernel node (`icp_gn_cuda`, a cooperative launch that runs the level's
+passes, the JAX `lax.while_loop`): the device tests the exit after each
+iteration, and a replay runs the iterations that the eager route runs,
+not the levels' budgets.
 Everything else (the gt-pose frame of `log_pipeline_time`, the colour
 and composite trackers, the other failure policies, swapping, sharding)
 runs per frame with its counts read exactly every frame.  The JAX
@@ -122,13 +122,15 @@ def _before_tracked_capture(buf: dict, statics: dict) -> None:
     """What the tracked frame's capture needs made first, which a graph
     cannot capture: the cuBLAS handle of the f32 matrix products (the
     tracking-prepare raycast's block binning), made by their first call,
-    and the Gauss-Newton kernel `icp_gn_cuda` loaded (the WHILE bodies and
-    each level's first iteration launch nothing else)."""
-    from ..slam import icp_gn
+    and both Gauss-Newton level kernels loaded (`icp_gn_cuda`, each level
+    of the frame one launch, and `color_gn_cuda`), the ICP kernel's
+    largest grid checked to fit the card resident."""
+    from ..slam import color_gn, icp_gn
 
     x = torch.ones((8, 6), dtype=torch.float32, device=buf["depth"].device)
     x.T @ x
     icp_gn.load()
+    color_gn.load()
 
 
 class TsdfEngine:

@@ -4,8 +4,10 @@ the JAX `_track_level_color` at 1, 2 and 3 iterations on every pyramid
 level in both rotation modes, on tests/test_tracking.py's colour setup (the
 old view's exact points and colours, a new rgb 2.2 cm away) from a seeded
 start; its f64 sums in the kernel's order rounding like the single sum;
-the colour tracker's reject branch and a singular system; and a composite
-engine run in lockstep with the JAX engine.
+the colour tracker's reject branch and a singular system; the plain level
+loop (`run_plain`, which the CPU routes take) against the per-pass loop
+with a host read of the step after each pass; and a composite engine run
+in lockstep with the JAX engine.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
@@ -111,6 +113,43 @@ def test_plain_iteration_matches_jax(color_setup, lvl, rot):
         np.testing.assert_allclose(Mt.numpy(), np.asarray(Mj), atol=POSE_ATOL)
         if n == 1:
             assert torch.equal(Mt, _t(M0))
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_plain_level_loop_matches_the_per_pass_loop(color_setup, lvl):
+    """The plain level loop that the CPU routes take (`color_gn.iterate` at
+    budget n_iters: `run_plain`, `iterate_plain` pass after pass while the
+    device flag `more` holds) against the per-pass loop of the eager route
+    before the level kernel (`iterate_plain` once a pass, the host reading
+    `step` after each), from the level's start at its budget and rotation
+    mode, at every level: the state, the iterations run and the loop's
+    test bit for bit, and `_track_level_color` returns that state's
+    estimate, inlier share, residual and count."""
+    M0, pts, col, valid, rgb, gx, gy, cam = (_t(x) for x in _level(color_setup, lvl))
+    n_iters = ttrk.LEVEL_ITERS[lvl]
+    rot = lvl >= ttrk.ROTATION_ONLY_FROM_LEVEL
+    inputs = (pts, col, valid, rgb, gx, gy, cam, rot, n_iters, ttrk._STEP_EXIT)
+
+    def fresh():
+        return (torch.cat([M0.reshape(-1), M0.reshape(-1),
+                           torch.tensor([float("inf"), 1e-3, 0.0, 0.0, 0.0])]),
+                torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.bool))
+
+    s, n, m = fresh()
+    color_gn.iterate_plain(*inputs, s, n, m, first=True)
+    it, step = 1, float(s[color_gn.STEP])
+    while it < n_iters and step > ttrk._STEP_EXIT:
+        color_gn.iterate_plain(*inputs, s, n, m)
+        it += 1
+        step = float(s[color_gn.STEP])
+    s2, n2, m2 = fresh()
+    color_gn.iterate(*inputs, s2, n2, m2, None, first=True, budget=n_iters)
+    assert torch.equal(s2, s) and int(n2) == int(n) == it and torch.equal(m2, m)
+    assert it > 1 and not bool(m2)
+    M, inl, mr, n3 = ttrk._track_level_color(M0, pts, col, valid, rgb, gx, gy, n_iters, rot,
+                                             cam)
+    assert n3 == it and torch.equal(M, s[16:32].view(4, 4))
+    assert torch.equal(inl, s[35]) and torch.equal(mr, s[36])
 
 
 @pytest.mark.parametrize("lvl", [3, 2, 1, 0])

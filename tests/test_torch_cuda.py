@@ -520,10 +520,12 @@ def test_raycast_cuda_tracking_mode_dense_and_no_negative(tracking_fixture, mips
 @pytest.mark.cuda
 def test_wrappers_never_read_back(cuda_device, fused):
     """The K1, K2 and K3 wrappers (K3 also in its tracking mode) and the
-    trackers' Gauss-Newton iterations (`icp_gn_cuda`, `color_gn_cuda`)
-    launch under torch.cuda.set_sync_debug_mode("error"): none of them
-    copies a CUDA tensor to the host or otherwise waits on the card (the
-    pose goes to the kernels as a device pointer)."""
+    trackers' Gauss-Newton levels (`icp_gn_cuda`, `color_gn_cuda`, each a
+    whole level's loop in one launch) launch under
+    torch.cuda.set_sync_debug_mode("error"): none of them copies a CUDA
+    tensor to the host or otherwise waits on the card (the pose goes to
+    the kernels as a device pointer, the level's exit test stays on the
+    card)."""
     from gps_slam_torch import kernels
     from gps_slam_torch.slam import color_gn
     from gps_slam_torch.slam import tracker as ttrk
@@ -556,6 +558,7 @@ def test_wrappers_never_read_back(cuda_device, fused):
              torch.zeros((), dtype=torch.int64, device=cuda_device),
              torch.zeros((), dtype=torch.bool, device=cuda_device),
              color_gn.partials_buffer(pts.shape[0], cuda_device))
+    color_gn.load()
     kernels.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -567,16 +570,15 @@ def test_wrappers_never_read_back(cuda_device, fused):
                               d.shape[1], d.shape[0], vs, mu, max_w)
         trc.march(*margs)
         trc.march(*margs, track=True)
-        lv.iterate()
-        lv.iterate(active=lv.more)
-        color_gn.iterate(*cargs)
+        lv.iterate(50)
+        color_gn.iterate(*cargs, first=True, budget=50)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert kernels.counts() == {"integrate_cuda": 1, "integrate_f32_cuda": 1,
                                 "raycast_cuda": 2, "splat_fwd_cuda": 0,
-                                "splat_bwd_cuda": 0, "graph_while_cuda": 0,
-                                "icp_gn_cuda": 2, "color_gn_cuda": 1,
+                                "splat_bwd_cuda": 0,
+                                "icp_gn_cuda": 1, "color_gn_cuda": 1,
                                 "project_sh_fwd_cuda": 0, "project_sh_bwd_cuda": 0,
                                 "window_adam_cuda": 0}
 
@@ -1022,9 +1024,9 @@ def test_tracked_step_cuda_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_track_level_reads_back_once_per_iteration(cuda_device):
     """A tracking level on the card under torch.cuda.set_sync_debug_mode
-    ("warn"): the only synchronising call of a Gauss-Newton iteration is
-    the planned read of its step (the loop's exit test), so the warnings
-    number the iterations run."""
+    ("warn"): the level's loop is one launch whose exit test stays on the
+    card, and its only synchronising call is the planned read of the
+    iterations run, once a level whatever their number."""
     import warnings
 
     from gps_slam_torch.slam import tracker as ttrk
@@ -1055,7 +1057,7 @@ def test_track_level_reads_back_once_per_iteration(cuda_device):
     # prototype, in other words)
     syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
     assert n_iters >= 2
-    assert len(syncs) == n_iters, [str(w.message) for w in syncs]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
 
 
 @pytest.mark.cuda
@@ -1648,17 +1650,17 @@ def test_tracked_graph_replays_equal_uncaptured(cuda_device):
 
 @pytest.mark.cuda
 def test_tracked_pyramid_while_nodes_replay_equal_uncaptured(cuda_device):
-    """`track_pyramid_static` at 160x120 captured with its conditional
-    WHILE nodes (one per level, budgets 50/10/30/20) and replayed on two
-    inputs: frame 1 against frame 0's maps (every level exits early) and
-    frame 2 (level 1 runs to its cap of 10).  Poses, inlier shares,
-    residuals and the iterations per level bit for bit equal to the
-    uncaptured masked run; the iterations also equal the eager
-    `track_pyramid`'s."""
+    """`track_pyramid_static` at 160x120 captured (budgets 50/10/30/20:
+    each level one kernel node, `icp_gn_cuda` launched once a level, no
+    conditional node) and replayed on two inputs: frame 1 against frame
+    0's maps (every level exits early) and frame 2 (level 1 runs to its
+    cap of 10).  Poses, inlier shares, residuals and the iterations per
+    level bit for bit equal to the uncaptured run; the iterations also
+    equal the eager `track_pyramid`'s."""
     from gps_slam_torch import kernels
     from gps_slam_torch.slam import tracker as ttrk
     from gps_slam_torch.tsdf import engine as teng
-    from gps_slam_torch.utils import graph_while
+    from gps_slam_torch.utils import graphs
     from gps_slam_torch.utils import se3 as tse3
 
     dev, budgets = cuda_device, (50, 10, 30, 20)
@@ -1677,11 +1679,12 @@ def test_tracked_pyramid_while_nodes_replay_equal_uncaptured(cuda_device):
     teng._before_tracked_capture({"depth": d_buf}, {})
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with graph_while.capture(g) as cap:
+    n0 = kernels.ICP_GN.launches
+    with graphs.capture(g):
         out = ttrk.track_pyramid_static(T_buf, d_buf, vw, nw, a.K, budgets)
-    nodes = graph_while.node_counts(g)
+    nodes = graphs.node_counts(g)
     g.instantiate()
-    assert cap.while_nodes == nodes["conditional"] == 4 and min(cap.body_nodes) > 0
+    assert nodes["conditional"] == 0 and kernels.ICP_GN.launches - n0 == 4
     runs = []
     for d in depths:
         d_buf.copy_(d)
@@ -1734,54 +1737,115 @@ def icp_levels(cuda_device):
     return levels
 
 
+# the three exits of a level's launch: (name, n_iters, budget): by
+# convergence (the step below the exit), at n_iters, after budget passes
+GN_EXITS = (("converged", 100, 100), ("n_iters", 2, 100), ("budget", 100, 1))
+
+
+def _barrier_idle(p, grid: int) -> bool:
+    """The grid barrier's 64-bit count of arrivals (the scratch's last
+    slot) at a multiple of the launch's grid: every barrier complete."""
+    return int(p[-1:].view(torch.int64)[0]) % grid == 0
+
+
+def _plain_level(iterate_plain, inputs, s, n, m, first, budget):
+    """The plain level loop (`run_plain`'s) on (s, n, m) in place; returns
+    the state its last pass started from."""
+    before = s.clone()
+    for k in range(budget):
+        if k and not bool(m):
+            break
+        before = s.clone()
+        iterate_plain(*inputs, s, n, m, first=first and k == 0)
+    return before
+
+
+def _level_runs(wrapper, iterate_plain, inputs, state, n_run, more, partials, first,
+                budget):
+    """The level kernel twice and its plain level loop once from the same
+    state: [(state, n_run, more, partials)] and the state the plain loop's
+    last pass started from."""
+    runs = []
+    for how in ("cuda", "cuda", "plain"):
+        s, n, m, p = state.clone(), n_run.clone(), more.clone(), partials.clone()
+        p[:-1].fill_(float("nan"))
+        if how == "cuda":
+            wrapper(*inputs, s, n, m, p, first=first, budget=budget)
+        else:
+            before = _plain_level(iterate_plain, inputs, s, n, m, first, budget)
+        runs.append((s, n, m, p))
+    torch.cuda.synchronize()
+    return runs, before
+
+
+def _assert_level_runs(runs, rows, kernel, n_terms, case):
+    """Both launches of `kernel` and the plain loop: state, count and test
+    bit for bit (a NaN equal to a NaN); the launches' scratch the same
+    bits, its first half the last pass's per-CTA rows of the logical
+    grid, the barrier idle."""
+    from gps_slam_torch.slam import icp_gn
+
+    (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
+    for a_, b_ in ((s1, s3), (n1, n3), (m1, m3), (s1, s2), (n1, n2), (m1, m2), (p1, p2)):
+        assert _same(a_, b_), case
+    assert _same(p1[:n_terms * rows.shape[0]].view(n_terms, -1).T, rows), case
+    assert _barrier_idle(p1, icp_gn.grid(kernel, rows.shape[0])), case
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lvl", [0, 1, 2, 3])
 def test_icp_gn_cuda_matches_plain(icp_levels, lvl):
-    """`icp_gn_cuda` against its plain version on the card, on the state
-    its iteration 0 left at each level of a 1200x680 tracking step, in
-    both rotation modes, with `first` true and false and `active` absent,
-    true and false: the new state (the system H, g, err, inlier share and
-    mean residual; T, T_acc, lam, step), the iteration count and the loop's
-    test bit for bit; the per-CTA rows bit for bit with `cta_rows` of the
-    plain terms, the CTAs' count back at 0; a second launch the same bits;
-    a masked launch changes nothing."""
+    """`icp_gn_cuda`, a level's loop in one launch, against its plain level
+    loop (`run_plain`: `iterate_plain` pass after pass while `more` holds)
+    on the card at each level of a 1200x680 tracking step, in both
+    rotation modes, and at the three exits (`GN_EXITS`): by
+    convergence, at n_iters, and after a budget of one pass (from the
+    level's start, `first`, and from the state its pass 0 left: one pass
+    of the per-pass kernel this design replaced).  The state (T, T_acc,
+    H, g, err, lam, step, inlier share, mean residual), the iteration count
+    and the loop's test bit for bit; the last pass's per-CTA rows bit for
+    bit with `cta_rows` of the plain terms at the state that pass started
+    from; a second launch the same bits."""
     from gps_slam_torch import kernels
     from gps_slam_torch.slam import icp_gn
     from gps_slam_torch.slam import tracker as ttrk
 
-    T0, d, vw, nw, cam, budget, rot, rpi, st, tc = icp_levels[lvl]
-    lv = ttrk._StaticLevel(T0, d, vw, nw, cam, budget, rot, rpi, st, tc)
+    T0, d, vw, nw, cam, _, rot, rpi, st, tc = icp_levels[lvl]
+    pts, has_depth = icp_gn.level_points(d, cam)
     n0 = kernels.ICP_GN.launches
+    launches = 0
     for rot_mode in (rot, not rot):
-        inputs = (d, vw, nw, cam, rpi, st, tc, rot_mode, budget, ttrk._STEP_EXIT)
-        pts, has_depth = icp_gn.level_points(d, cam)
-        x = icp_gn.terms(lv.T, pts, has_depth, vw, nw, cam, rpi, st, tc, rot_mode)
-        rows = icp_gn.cta_rows(x)
-        for first in (True, False):
-            for active in (None, True, False):
-                flag = None if active is None else torch.tensor(active, device=d.device)
-                runs = []
-                for how in ("cuda", "cuda", "plain"):
-                    s, n, m = lv.state.clone(), lv.n_run.clone(), lv.more.clone()
-                    p = lv.partials.clone()
-                    p[:-1].fill_(float("nan"))
-                    if how == "cuda":
-                        icp_gn.iterate(*inputs, s, n, m, p, flag, first)
-                    else:
-                        icp_gn.iterate_plain(*inputs, s, n, m, flag, first)
-                    runs.append((s, n, m, p))
-                torch.cuda.synchronize()
-                (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
-                case = (rot_mode, first, active)
-                for a_, b_ in ((s1, s3), (n1, n3), (m1, m3), (s1, s2), (n1, n2), (m1, m2)):
-                    assert torch.equal(a_, b_), case
-                if active is False:
-                    assert torch.equal(s1, lv.state) and torch.equal(n1, lv.n_run), case
+        for exit_, n_iters, budget in GN_EXITS:
+            inputs = (d, vw, nw, cam, rpi, st, tc, rot_mode, n_iters, ttrk._STEP_EXIT)
+            # the level's start, and the state its pass 0 leaves
+            fresh = torch.cat([T0.reshape(-1), T0.reshape(-1),
+                               torch.eye(6, device=d.device).reshape(-1),
+                               torch.zeros(6, device=d.device),
+                               torch.tensor([float("inf"), 1e-3, 0.0, 0.0, 0.0],
+                                            device=d.device)])
+            lv = ttrk._StaticLevel(T0, d, vw, nw, cam, n_iters, rot_mode, rpi, st, tc)
+            launches += 1
+            starts = [(True, fresh, torch.zeros_like(lv.n_run), torch.zeros_like(lv.more))]
+            if exit_ == "budget":
+                starts.append((False, lv.state, lv.n_run, lv.more))
+            for first, s0, r0, m0 in starts:
+                case = (rot_mode, exit_, first)
+                runs, before = _level_runs(icp_gn.iterate, icp_gn.iterate_plain, inputs,
+                                           s0, r0, m0, lv.partials, first, budget)
+                launches += 2
+                x = icp_gn.terms(before[:16].view(4, 4), pts, has_depth, vw, nw, cam, rpi,
+                                 st, tc, rot_mode)
+                _assert_level_runs(runs, icp_gn.cta_rows(x), kernels.ICP_GN, icp_gn.N_TERMS,
+                                   case)
+                s1, n1, m1, _ = runs[0]
+                ran = int(n1) - int(r0)
+                if exit_ == "converged":
+                    assert 1 < ran < n_iters and not bool(m1), case
+                elif exit_ == "n_iters":
+                    assert int(n1) == n_iters and not bool(m1), case
                 else:
-                    assert torch.equal(p1[:-1].view(icp_gn.N_TERMS, -1).T, rows), case
-                    assert torch.equal(p1, p2) and int(n1) == int(lv.n_run) + 1, case
-                    assert float(p1[-1]) == 0.0, case
-    assert kernels.ICP_GN.launches - n0 == 2 * 2 * 3 * 2
+                    assert ran == 1 and bool(m1), case
+    assert kernels.ICP_GN.launches - n0 == launches
     with pytest.raises(ValueError):   # an f64 state
         icp_gn.iterate(*inputs, lv.state.double(), lv.n_run, lv.more, lv.partials)
 
@@ -1789,29 +1853,172 @@ def test_icp_gn_cuda_matches_plain(icp_levels, lvl):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lvl", [0, 3])
 def test_icp_gn_while_level_runs_the_eager_iterations(icp_levels, lvl):
-    """One level of the 1200x680 step captured as its WHILE node
-    (`_track_level_static` in `graph_while.capture`) and replayed: the
-    estimate, inlier share, residual and iteration count bit for bit with
-    the eager loop (`_track_level`, one read-back an iteration), which
-    exits before the budget; the node's body holds the kernel's launch and
-    the node's set kernel."""
+    """One level of the 1200x680 step captured (`_track_level_static` in
+    `graphs.capture`: one launch, no conditional node) and replayed
+    twice: the estimate, inlier share, residual and iteration count bit for
+    bit with the eager level (`_track_level`, one read-back a level) and
+    with the same level uncaptured, which exit before the budget."""
+    from gps_slam_torch import kernels
     from gps_slam_torch.slam import tracker as ttrk
-    from gps_slam_torch.utils import graph_while
+    from gps_slam_torch.utils import graphs
 
     args = icp_levels[lvl]
     T, inl, mr, n = ttrk._track_level(*args)
+    un = ttrk._track_level_static(*args)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with graph_while.capture(g) as cap:
+    n0 = kernels.ICP_GN.launches
+    with graphs.capture(g):
         out = ttrk._track_level_static(*args)
-    nodes = graph_while.node_counts(g)
+    nodes = graphs.node_counts(g)
     g.instantiate()
-    g.replay()
+    assert nodes["conditional"] == 0 and kernels.ICP_GN.launches - n0 == 1
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        assert 1 < int(out[3]) == n == int(un[3]) < args[5]
+        for a_, b_, c_ in zip(out[:3], (T, inl, mr), un[:3]):
+            assert torch.equal(a_, b_) and torch.equal(a_, c_)
+
+
+def _capacity_key(kernel):
+    """`icp_gn._CAPACITY`'s key of `kernel` on the current card, its
+    capacity queried first (a test then overrides it)."""
+    from gps_slam_torch.slam import icp_gn
+
+    icp_gn.capacity(kernel)
+    return kernel.name, torch.cuda.current_device()
+
+
+@pytest.fixture(scope="module")
+def color_points_1080p(cuda_device):
+    """The colour tracker's points at 1920x1080 (stride 4: 129,600 points,
+    a logical grid of 254 CTAs where the card holds 132 of the colour
+    kernel resident) from frame 0, frame 1's rgb pyramid and Sobel
+    gradients at levels 0 and 3, and frame 0's w2c under a small twist:
+    `color_levels` at the size chip_smoke.py fuses at."""
+    from gps_slam_torch.slam import tracker as ttrk
+    from gps_slam_torch.utils import se3 as tse3
+
+    dev = cuda_device
+    a, b = synthetic.make_cameras(n_frames=2, width=1920, height=1080, look="in",
+                                  arc=0.025 / 8)
+    vm = tse3.compute_vertex_map(torch.as_tensor(a.depth[..., 0], device=dev),
+                                 a.fx, a.fy, a.cx, a.cy)
+    c2w = torch.as_tensor(a.c2w, device=dev)
+    vw = torch.where(vm[..., 2:3] > 0, vm @ c2w[:3, :3].T + c2w[:3, 3], 0.0)
+    pts = vw[::4, ::4].reshape(-1, 3).contiguous()
+    col = torch.as_tensor(a.image, device=dev)[::4, ::4].reshape(-1, 3).contiguous()
+    valid = pts.abs().sum(-1) > 0
+    twist = torch.tensor([0.004, -0.003, 0.006, 0.004, -0.006, 0.003], device=dev)
+    M0 = (tse3.se3_exp(twist) @ pose_inv(c2w)).contiguous()
+    img = torch.as_tensor(b.image, device=dev)
+    levels = {}
+    for lvl in range(4):
+        if lvl in (0, 3):
+            gx, gy = ttrk._gradients(img)
+            cam = torch.as_tensor(ttrk._level_cam(a.K, lvl, False), device=dev)
+            levels[lvl] = (M0, pts, col, valid, img.contiguous(), gx.contiguous(),
+                           gy.contiguous(), cam)
+        img = ttrk._downsample_rgb(img)
+    return levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["icp", "color"])
+def test_gn_level_runs_more_ctas_than_the_card_holds(icp_levels, color_points_1080p, which,
+                                                      monkeypatch):
+    """A logical grid larger than the CTAs the card holds resident: each
+    resident CTA takes the logical CTAs b, b + grid, ... in turn, and the
+    level matches its plain level loop bit for bit at the three exits
+    (`GN_EXITS`), with the last pass's per-CTA rows of the whole logical
+    grid.  Colour: the 1920x1080 point set (254 logical CTAs, 132
+    resident); ICP: the 1200x680 step's 4 levels (228, 200, 100 and 25
+    logical CTAs) with the card's capacity taken as 64."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import color_gn, icp_gn
+    from gps_slam_torch.slam import tracker as ttrk
+
+    if which == "icp":
+        monkeypatch.setitem(icp_gn._CAPACITY, _capacity_key(kernels.ICP_GN), 64)
+        for lvl in range(4):
+            T0, d, vw, nw, cam, _, rot, rpi, st, tc = icp_levels[lvl]
+            pts, has_depth = icp_gn.level_points(d, cam)
+            fresh = torch.cat([T0.reshape(-1), T0.reshape(-1),
+                               torch.eye(6, device=d.device).reshape(-1),
+                               torch.zeros(6, device=d.device),
+                               torch.tensor([float("inf"), 1e-3, 0.0, 0.0, 0.0],
+                                            device=d.device)])
+            for exit_, n_iters, budget in GN_EXITS:
+                inputs = (d, vw, nw, cam, rpi, st, tc, rot, n_iters, ttrk._STEP_EXIT)
+                # a buffer of its own: its barrier count is kept at multiples of 64
+                runs, before = _level_runs(
+                    icp_gn.iterate, icp_gn.iterate_plain, inputs, fresh,
+                    torch.zeros((), dtype=torch.int64, device=d.device),
+                    torch.zeros((), dtype=torch.bool, device=d.device),
+                    icp_gn.partials_buffer(d.numel(), d.device), True, budget)
+                x = icp_gn.terms(before[:16].view(4, 4), pts, has_depth, vw, nw, cam, rpi,
+                                 st, tc, rot)
+                rows = icp_gn.cta_rows(x)
+                assert icp_gn.grid(kernels.ICP_GN, rows.shape[0]) == min(rows.shape[0], 64)
+                _assert_level_runs(runs, rows, kernels.ICP_GN, icp_gn.N_TERMS, (lvl, exit_))
+                assert int(runs[0][1]) > (1 if exit_ != "budget" else 0), (lvl, exit_)
+    else:
+        for lvl, (M0, pts, col, valid, rgb, gx, gy, cam) in color_points_1080p.items():
+            n = pts.shape[0]
+            assert icp_gn.n_ctas(n) > icp_gn.capacity(kernels.COLOR_GN)
+            for exit_, n_iters, budget in GN_EXITS:
+                inputs = (pts, col, valid, rgb, gx, gy, cam, False, n_iters, ttrk._STEP_EXIT)
+                runs, before = _color_runs(inputs, _color_state(M0), True, budget)
+                rows = icp_gn.cta_rows(color_gn.terms(before[:16].view(4, 4), *inputs[:7],
+                                                      False))
+                _assert_level_runs(runs, rows, kernels.COLOR_GN, color_gn.N_TERMS,
+                                   (lvl, exit_))
+                assert int(runs[0][1]) > (1 if exit_ != "budget" else 0), (lvl, exit_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["icp", "color"])
+def test_gn_level_grid_beyond_the_card_raises(icp_levels, color_points_1080p, which,
+                                              monkeypatch):
+    """A level kernel's grid barrier is sound only with every CTA resident:
+    a launch whose grid is larger than the card holds at once (the card's
+    capacity taken as the whole logical grid: ICP's finest level with the
+    grid's cap doubled, 399 CTAs; colour's 1920x1080 point set, 254) is
+    refused by the CUDA runtime and raises."""
+    from gps_slam_torch import kernels
+    from gps_slam_torch.slam import color_gn, icp_gn
+    from gps_slam_torch.slam import tracker as ttrk
+
+    if which == "icp":
+        k = kernels.ICP_GN
+        T0, d, vw, nw, cam, n_iters, rot, rpi, st, tc = icp_levels[0]
+        monkeypatch.setattr(icp_gn, "MAX_CTAS", 2 * icp_gn.MAX_CTAS)
+        n = d.numel()
+    else:
+        k = kernels.COLOR_GN
+        M0, pts, col, valid, rgb, gx, gy, cam = color_points_1080p[0]
+        n = pts.shape[0]
+    held = icp_gn.capacity(k)
+    assert icp_gn.n_ctas(n) > held
+    monkeypatch.setitem(icp_gn._CAPACITY, _capacity_key(k), icp_gn.n_ctas(n))
+    dev = cam.device
+    n_run = torch.zeros((), dtype=torch.int64, device=dev)
+    more = torch.zeros((), dtype=torch.bool, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if which == "icp":
+            state = torch.cat([T0.reshape(-1), T0.reshape(-1),
+                               torch.eye(6, device=dev).reshape(-1), torch.zeros(6, device=dev),
+                               torch.tensor([float("inf"), 1e-3, 0.0, 0.0, 0.0], device=dev)])
+            icp_gn.iterate(d, vw, nw, cam, rpi, st, tc, rot, n_iters, ttrk._STEP_EXIT, state,
+                           n_run, more, icp_gn.partials_buffer(n, dev), first=True,
+                           budget=n_iters)
+        else:
+            color_gn.iterate(pts, col, valid, rgb, gx, gy, cam, False, 20, ttrk._STEP_EXIT,
+                             _color_state(M0), n_run, more, color_gn.partials_buffer(n, dev),
+                             first=True, budget=20)
     torch.cuda.synchronize()
-    assert cap.while_nodes == nodes["conditional"] == 1 and cap.body_nodes == [2]
-    assert 1 < int(out[3]) == n < args[5]
-    for a_, b_ in zip(out[:3], (T, inl, mr)):
-        assert torch.equal(a_, b_)
+    assert int(n_run) == 0
 
 
 # ---------------------------------- color_gn_cuda, the colour tracker's iteration
@@ -1856,26 +2063,17 @@ def _color_state(M0, M_acc=None, err_acc=float("inf")):
                       torch.tensor([err_acc, 1e-3, 0.0, 0.0, 0.0], device=M0.device)])
 
 
-def _color_runs(inputs, state, first):
-    """color_gn_cuda twice and its plain version once from the same
-    state: [(state, n_run, more, partials)]."""
+def _color_runs(inputs, state, first, budget=1):
+    """color_gn_cuda twice and its plain level loop once from the same
+    state (`_level_runs`): [(state, n_run, more, partials)] and the state
+    the plain loop's last pass started from."""
     from gps_slam_torch.slam import color_gn
 
-    n = inputs[0].shape[0]
-    runs = []
-    for how in ("cuda", "cuda", "plain"):
-        s = state.clone()
-        r = torch.zeros((), dtype=torch.int64, device=s.device)
-        m = torch.zeros((), dtype=torch.bool, device=s.device)
-        p = color_gn.partials_buffer(n, s.device)
-        p[:-1].fill_(float("nan"))
-        if how == "cuda":
-            color_gn.iterate(*inputs, s, r, m, p, first)
-        else:
-            color_gn.iterate_plain(*inputs, s, r, m, first)
-        runs.append((s, r, m, p))
-    torch.cuda.synchronize()
-    return runs
+    dev = state.device
+    return _level_runs(color_gn.iterate, color_gn.iterate_plain, inputs, state,
+                       torch.zeros((), dtype=torch.int64, device=dev),
+                       torch.zeros((), dtype=torch.bool, device=dev),
+                       color_gn.partials_buffer(inputs[0].shape[0], dev), first, budget)
 
 
 def _same(a, b) -> bool:
@@ -1886,33 +2084,36 @@ def _same(a, b) -> bool:
 
 
 def _assert_color_runs_equal(runs, rows, case):
+    """`_assert_level_runs` of one pass."""
+    from gps_slam_torch import kernels
     from gps_slam_torch.slam import color_gn
 
-    (s1, n1, m1, p1), (s2, n2, m2, p2), (s3, n3, m3, _) = runs
-    for a_, b_ in ((s1, s3), (n1, n3), (m1, m3), (s1, s2), (n1, n2), (m1, m2), (p1, p2)):
-        assert _same(a_, b_), case
-    assert _same(p1[:-1].view(color_gn.N_TERMS, -1).T, rows), case
-    assert float(p1[-1]) == 0.0 and int(n1) == 1, case
+    _assert_level_runs(runs, rows, kernels.COLOR_GN, color_gn.N_TERMS, case)
+    assert int(runs[0][1]) == 1, case
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lvl", [0, 1, 2, 3])
 def test_color_gn_cuda_matches_plain(color_levels, lvl):
-    """`color_gn_cuda` against its plain version on the card at each level
-    of a 1200x680 colour-tracking step, in both rotation modes: iteration
-    0 from the start (`first`), the next iteration from its state, and a
-    reject (the accepted error set below any error: the new system damped
-    from the accepted estimate at 10x damping).  The new state (M, M_acc,
-    err, lam, step, inlier share, residual), the iteration count and the
-    loop's test bit for bit; the per-CTA rows bit for bit with `cta_rows`
-    of the plain terms, the CTAs' count back at 0; a second launch the
-    same bits."""
+    """`color_gn_cuda`, a level's loop in one launch, against its plain
+    level loop (`run_plain`) on the card at each level of a 1200x680
+    colour-tracking step, in both rotation modes: one pass (budget 1) from
+    the start
+    (`first`), from the state it left, and as a reject (the accepted error
+    set below any error: the new system damped from the accepted estimate
+    at 10x damping); then the whole level from its start at the three
+    exits (`GN_EXITS`).  The state (M, M_acc, err, lam, step, inlier share,
+    residual), the iteration count and the loop's test bit for bit; the
+    last pass's per-CTA rows bit for bit with `cta_rows` of the plain
+    terms at the state that pass started from; a second launch the same
+    bits."""
     from gps_slam_torch import kernels
     from gps_slam_torch.slam import color_gn, icp_gn
     from gps_slam_torch.slam import tracker as ttrk
 
     M0, pts, col, valid, rgb, gx, gy, cam = color_levels[lvl]
     n0 = kernels.COLOR_GN.launches
+    launches = 0
     for rot in (False, True):
         inputs = (pts, col, valid, rgb, gx, gy, cam, rot, 20, ttrk._STEP_EXIT)
         state = _color_state(M0)
@@ -1923,7 +2124,8 @@ def test_color_gn_cuda_matches_plain(color_levels, lvl):
                 state[32] = 0.0
             M = state[:16].view(4, 4)
             rows = icp_gn.cta_rows(color_gn.terms(M, *inputs[:7], rot))
-            runs = _color_runs(inputs, state, first)
+            runs, _ = _color_runs(inputs, state, first)
+            launches += 2
             _assert_color_runs_equal(runs, rows, (rot, case))
             new = runs[0][0]
             if case == "reject":
@@ -1931,7 +2133,21 @@ def test_color_gn_cuda_matches_plain(color_levels, lvl):
                 assert float(new[33]) > float(state[33])
             assert float(new[35]) > 0.5 and float(new[34]) > 0.0, (rot, case)
             state = new
-    assert kernels.COLOR_GN.launches - n0 == 2 * 3 * 2
+        for exit_, n_iters, budget in GN_EXITS:
+            inputs = (pts, col, valid, rgb, gx, gy, cam, rot, n_iters, ttrk._STEP_EXIT)
+            runs, before = _color_runs(inputs, _color_state(M0), True, budget)
+            launches += 2
+            case = (rot, exit_)
+            rows = icp_gn.cta_rows(color_gn.terms(before[:16].view(4, 4), *inputs[:7], rot))
+            _assert_level_runs(runs, rows, kernels.COLOR_GN, color_gn.N_TERMS, case)
+            ran, more = int(runs[0][1]), bool(runs[0][2])
+            if exit_ == "converged":
+                assert 1 < ran < n_iters and not more, case
+            elif exit_ == "n_iters":
+                assert ran == n_iters and not more, case
+            else:
+                assert ran == 1 and more, case
+    assert kernels.COLOR_GN.launches - n0 == launches
     with pytest.raises(ValueError):   # an f64 state
         color_gn.iterate(*inputs, state.double(), torch.zeros((), dtype=torch.int64,
                                                              device=state.device),
@@ -1955,7 +2171,7 @@ def test_color_gn_cuda_zero_steps(color_levels):
         inputs = (p_, col, v_, rgb, gx, gy, cam, False, 20, ttrk._STEP_EXIT)
         state = _color_state(M0)
         rows = icp_gn.cta_rows(color_gn.terms(state[:16].view(4, 4), *inputs[:7], False))
-        runs = _color_runs(inputs, state, True)
+        runs, _ = _color_runs(inputs, state, True)
         _assert_color_runs_equal(runs, rows, case)
         new = runs[0][0]
         assert torch.equal(new[:16], state[16:32]) and float(new[34]) == 0.0, case

@@ -4,7 +4,9 @@ Gauss-Newton iteration of an ICP level, on the CPU: against the JAX
 tests/test_torch_tracking.py's `ref_maps` fixture; its f64 sums in the
 kernel's order (`cta_sums`) against that order written thread by thread,
 and rounding to the same f32 values as the single sum; its 6x6 solve
-against numpy, and a singular system giving a zero step.
+against numpy, and a singular system giving a zero step; the plain level
+loop (`run_plain`, which the CPU routes take) against the per-pass loop
+with a host read of the step after each pass.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
@@ -91,6 +93,44 @@ def test_plain_iteration_matches_jax(ref_maps, lvl):
         assert abs(float(it_) - float(ij)) <= 1e-6
         assert abs(float(mt) - float(mj)) <= 1e-7
         assert torch.equal(Tt, port[0] if n == 1 else trial)
+
+
+def _fresh_state(T0):
+    """A level's state at its start (`_StaticLevel`'s)."""
+    return torch.cat([T0.reshape(-1), T0.reshape(-1), torch.eye(6).reshape(-1), torch.zeros(6),
+                      torch.tensor([float("inf"), 1e-3, 0.0, 0.0, 0.0])])
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_plain_level_loop_matches_the_per_pass_loop(ref_maps, lvl):
+    """The plain level loop that the CPU routes take (`icp_gn.iterate` at
+    budget n_iters: `run_plain`, `iterate_plain` pass after pass while the
+    device flag `more` holds) against the per-pass loop of the eager route
+    before the level kernel (`iterate_plain` once a pass, the host reading
+    `step` after each and going on while `it < n_iters` and `step` is
+    above the exit), from the level's start at its budget, at every level
+    of the 160x120 fixture: the state, the iterations run and the loop's
+    test bit for bit, and `_track_level` returns that state's estimate,
+    inlier share, residual and count."""
+    port, _ = _level_args(ref_maps, lvl)
+    T0, d, vw, nw, cam, rot, rpi, st, tc = port
+    n_iters = ttrk.LEVEL_ITERS[lvl]
+    inputs = (d, vw, nw, cam, rpi, st, tc, rot, n_iters, ttrk._STEP_EXIT)
+    s, n, m = _fresh_state(T0), torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=bool)
+    icp_gn.iterate_plain(*inputs, s, n, m, first=True)
+    it, step = 1, float(s[76])
+    while it < n_iters and step > ttrk._STEP_EXIT:
+        icp_gn.iterate_plain(*inputs, s, n, m)
+        it += 1
+        step = float(s[76])
+    s2, n2 = _fresh_state(T0), torch.zeros((), dtype=torch.int64)
+    m2 = torch.zeros((), dtype=torch.bool)
+    icp_gn.iterate(*inputs, s2, n2, m2, None, first=True, budget=n_iters)
+    assert torch.equal(s2, s) and int(n2) == int(n) == it and torch.equal(m2, m)
+    assert it > 1 and not bool(m2)
+    T, inl, mr, n3 = ttrk._track_level(T0, d, vw, nw, cam, n_iters, rot, rpi, st, tc)
+    assert n3 == it and torch.equal(T, s[16:32].view(4, 4))
+    assert torch.equal(inl, s[77]) and torch.equal(mr, s[78])
 
 
 def _kernel_order(x: np.ndarray, rounds: int, pix: int) -> np.ndarray:
@@ -221,7 +261,8 @@ def test_singular_system_gives_a_zero_step():
 def test_grid_covers_the_levels():
     """The kernel's grid at the pyramid levels of 1200x680 and 160x120:
     within MAX_CTAS CTAs, every pixel in it, no CTA empty; its scratch
-    holds a row per CTA and the zeroed count of CTAs done."""
+    holds two halves of a row per CTA (the passes use them in turn) and
+    the zeroed words of the grid barrier."""
     for w, h in ((1200, 680), (160, 120)):
         for lvl in range(4):
             n = (w >> lvl) * (h >> lvl)
@@ -229,4 +270,4 @@ def test_grid_covers_the_levels():
             c = icp_gn.n_ctas(n)
             assert c <= icp_gn.MAX_CTAS and c * per >= n > (c - 1) * per
             buf = icp_gn.partials_buffer(n, "cpu")
-            assert buf.shape == (icp_gn.N_TERMS * c + 1,) and not buf.any()
+            assert buf.shape == (2 * icp_gn.N_TERMS * c + 1,) and not buf.any()

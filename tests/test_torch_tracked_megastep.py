@@ -2,11 +2,11 @@
 by `TsdfEngine._can_fast_track`) on the CPU.
 
 (a) The fixed-cap Gauss-Newton level against the early-exit
-`_track_level`, bit for bit, masked and as its WHILE node repeats it.
-(b) The read-back-free pyramid against the JAX `track_pyramid`.  (c) The
-megastep frame under the guard that fails on every host read; a WHILE
-node refused outside a capture.  (d) A failed frame keeps its previous
-pose.  (e) `_can_fast_track` gate by gate against the JAX engine's.  (f)
+`_track_level`, bit for bit, masked and with its in-place iteration
+repeated; a level's passes capped by a call's budget.  (b) The
+read-back-free pyramid against the JAX `track_pyramid`.  (c) The
+megastep frame under the guard that fails on every host read.  (d) A
+failed frame keeps its previous pose.  (e) `_can_fast_track` gate by gate against the JAX engine's.  (f)
 8 frames at 160x120 in lockstep with the JAX engine's tracked megastep
 (its packed integrate kernel in interpret mode, its raycasts on the XLA
 march)."""
@@ -185,16 +185,34 @@ def test_megastep_frame_reads_nothing_back(tmp_path):
     assert int(nb) > e.vol.n_blocks and tuple(out["vertex_map"].shape) == (72, 96, 3)
 
 
-def test_while_loop_refuses_outside_a_capture():
-    """A WHILE node is built only inside `graph_while.capture`: the
-    request on the CPU (or on an uncaptured stream) raises, and the
-    static level takes its masked form there."""
-    from gps_slam_torch.utils import graph_while
-
-    flag = torch.ones((), dtype=torch.bool)
-    assert not graph_while.capturing(flag.device)
-    with pytest.raises(RuntimeError, match="WHILE node"):
-        graph_while.while_loop(flag, lambda: None)
+def test_level_budget_caps_a_launchs_passes(ref_maps):
+    """A level's passes in one call (`icp_gn.iterate` at a budget, on the
+    CPU its plain loop): made at budget 2, a level runs passes 0 and 1;
+    `iterate(budget)` goes on from there, at most `budget` passes and
+    none past the exit; the state and count bit for bit with one pass a
+    call; the exit and the count those of `_track_level`."""
+    cams, vw, nw, depth, T0 = ref_maps
+    args = (_t(T0), _t(depth), _t(vw), _t(nw), _t(ttrk._level_cam(cams[0].K, 0, True)), 50,
+            False, _t(np.linalg.inv(cams[0].c2w.astype(np.float32))),
+            ttrk._scalar(ttrk.SPACE_THRESH[0], "cpu"), ttrk._scalar(ttrk.TUKEY_C[0], "cpu"))
+    _, _, _, n = ttrk._track_level(*args)
+    assert n > 3
+    one = ttrk._StaticLevel(*args)
+    one.iterate()
+    two = ttrk._StaticLevel(*args, budget=2)
+    assert int(two.n_run) == 2 and torch.equal(two.state, one.state)
+    two.iterate(2)
+    for _ in range(2):
+        one.iterate()
+    assert int(two.n_run) == 4 and torch.equal(two.state, one.state)
+    two.iterate(100)
+    while bool(one.more):
+        one.iterate()
+    assert int(two.n_run) == int(one.n_run) == n and not bool(two.more)
+    assert torch.equal(two.state, one.state)
+    before = two.state.clone()
+    two.iterate(5)   # past the exit: the first pass of a call always runs
+    assert int(two.n_run) == n + 1 and not torch.equal(two.state, before)
 
 
 def test_failed_frame_keeps_its_pose(tmp_path):
